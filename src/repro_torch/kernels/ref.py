@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the Hopper kernels on the decode path.
+
+Port of the matching functions of `repro/kernels/ref.py`.  Each is the
+semantic ground truth its CUDA kernel is held against on the card, and
+what the wrappers run for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30                      # matches core/hypothesis.py
+# dead candidates key under an out-of-range value: > any 31-bit prefix
+# hash.  Torch's uint32 supports few ops, so keys are int64.
+HASH_SENTINEL = 0xFFFFFFFF
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    """x: (T, D) any float dtype; fp32 statistics (population variance)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def logmel(power, fb, dct):
+    """power: (T, F) f32, fb: (F, M), dct: (M, C) -> (T, C) MFCC tail."""
+    mel = power @ fb
+    return torch.log(torch.clamp_min(mel, 1e-10)) @ dct
+
+
+# ---------------------------------------------------------------------------
+# fused hypothesis unit: hash-merge + beam threshold + top-k
+# ---------------------------------------------------------------------------
+def _seg_lse(v, ids, num_segments):
+    """Per-segment logsumexp of flat `v`, broadcast back per position:
+    out[j] = logsumexp(v over j's whole segment).  An all-dead channel
+    stays exactly NEG_INF.  On the CPU the segment sum accumulates in
+    index order; on the card `scatter_add` is unordered (the CUDA kernel
+    sums each segment in a fixed order instead)."""
+    m = torch.full((num_segments,), float("-inf"), dtype=v.dtype,
+                   device=v.device)
+    m = m.scatter_reduce(0, ids, v, "amax", include_self=False)
+    s = torch.zeros((num_segments,), dtype=v.dtype, device=v.device)
+    s = s.scatter_add(0, ids, torch.exp(v - m[ids]))
+    out = (m + torch.log(s))[ids]
+    return torch.where(out > NEG_INF / 2, out, torch.full_like(out, NEG_INF))
+
+
+def hypothesis_unit(hashes, pb, pnb, *, k: int, beam: float):
+    """Batched fused hypothesis unit, sort-free.
+
+    hashes: (B, N) int 31-bit prefix hashes; pb/pnb: (B, N) f32.  Returns
+    a dict of (B, k) tensors: `idx` (int32 index of the selected
+    candidate in the ORIGINAL row — the first occurrence of its hash; 0
+    for pruned slots), merged `pb`/`pnb` (NEG_INF where pruned) and bool
+    `valid`.  Top-k breaks ties to the lowest original index, as
+    `lax.top_k` does: a stable descending sort, not `torch.topk`, whose
+    tie order is unspecified."""
+    B, n = hashes.shape
+    dev = hashes.device
+    valid_in = torch.logaddexp(pb, pnb) > NEG_INF / 2
+    key = torch.where(valid_in, hashes.long(),
+                      torch.full_like(hashes, HASH_SENTINEL, dtype=torch.long))
+    key_sorted, _ = torch.sort(key, dim=-1)
+    ids = torch.searchsorted(key_sorted, key, side="left")
+    gids = (ids + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
+    iota = torch.arange(n, device=dev).expand(B, n)
+
+    pb_m = _seg_lse(pb.reshape(-1), gids, B * n).reshape(B, n)
+    pnb_m = _seg_lse(pnb.reshape(-1), gids, B * n).reshape(B, n)
+    first = torch.full((B * n,), n, dtype=torch.long, device=dev)
+    first = first.scatter_reduce(0, gids, iota.reshape(-1), "amin",
+                                 include_self=False)
+    rep = (iota == first[gids].reshape(B, n)) & (key != HASH_SENTINEL)
+    tot = torch.where(rep, torch.logaddexp(pb_m, pnb_m),
+                      torch.full_like(pb_m, NEG_INF))
+    best = tot.max(dim=-1, keepdim=True).values
+    top, pos = torch.sort(tot, dim=-1, descending=True, stable=True)
+    top, pos = top[:, :k], pos[:, :k]
+    valid = (top > NEG_INF / 2) & (top >= best - beam)
+    neg = torch.full_like(top, NEG_INF)
+    idx = torch.where(valid, pos, torch.zeros_like(pos)).to(torch.int32)
+    opb = torch.where(valid, torch.gather(pb_m, 1, pos), neg)
+    opnb = torch.where(valid, torch.gather(pnb_m, 1, pos), neg)
+    return {"idx": idx, "pb": opb, "pnb": opnb, "valid": valid}
+
+
+def tds_conv_fused(x, w, b, *, stride=1, relu=False, res=None):
+    """Slot-batched causal conv with the conv epilogue fused in.
+
+    x: (B, k-1+T, W, Cin); w: (k, Cin, Cout); b: (Cout,); optional
+    res: (B, T//stride, W, Cout) residual added AFTER the ReLU (the TDS
+    block order).  Returns (B, T//stride, W, Cout): a k-tap loop of
+    (B*t_out*W, Cin) x (Cin, Cout) matmuls."""
+    B, Tp, W, Cin = x.shape
+    k, _, Cout = w.shape
+    t_out = (Tp - (k - 1)) // stride
+    acc = torch.zeros((B * t_out * W, Cout), dtype=torch.float32,
+                      device=x.device)
+    for j in range(k):
+        # tap j of output t reads x[:, stride*t + j]
+        xj = x[:, j:j + stride * (t_out - 1) + 1:stride]
+        acc = acc + xj.reshape(B * t_out * W, Cin).float() @ w[j].float()
+    y = acc.reshape(B, t_out, W, Cout) + b
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    if res is not None:
+        y = y + res
+    return y

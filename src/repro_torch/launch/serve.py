@@ -1,0 +1,139 @@
+"""ASR serving launcher, port of the ASR mode of `repro/launch/serve.py`.
+
+The paper's system as an `AsrEngine`: sessions stream 80 ms audio
+chunks via Session.push/poll/finish; with --streams N > 1 the N-slot
+pool decodes N concurrent utterances through one slot-batched step
+(continuous batching).  Runs on the GPU unless --device names another.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.kernels.policy import MODES, KernelPolicy
+from repro_torch.serving import AsrEngine, AsrProgram, EngineConfig
+
+
+def asr_demo_system():
+    """Small-TDS ASR system shared by the asr serving paths (same
+    structure as the reference's demo system; the random weights come
+    from a seeded torch.Generator, so they differ from the reference's)."""
+    from repro_torch.configs.tds_asr import DECODER_CONFIG, TDSConfig, TDSStage
+    from repro_torch.core import lexicon as lx
+    from repro_torch.models import tds
+
+    # small TDS so it runs fast on the CPU; same kernel structure
+    tds_cfg = TDSConfig(
+        stages=(TDSStage(1, 4, 80, 9, 2), TDSStage(1, 4, 80, 9, 2),
+                TDSStage(1, 6, 80, 9, 2)),
+        vocab_size=32)
+    words = {f"w{i}": [1 + (i * 3 + j) % 30 for j in range(2 + i % 3)]
+             for i in range(12)}
+    lex = lx.build_lexicon(words, max_children=16)
+    lm = lx.uniform_bigram(len(words))
+    params = tds.init_tds(torch.Generator().manual_seed(0), tds_cfg)
+    return tds_cfg, words, lex, lm, params, DECODER_CONFIG
+
+
+def asr_demo_engine(n_slots: int, kernels: KernelPolicy = None,
+                    device=None, max_queue=None, session_deadline=None,
+                    system=None) -> tuple:
+    """(engine, words): an AsrEngine over the demo system's program at
+    beam 25.  `system` replaces the demo system's tuple (e.g. with
+    parameters carried across from the reference)."""
+    tds_cfg, words, lex, lm, params, dec_cfg = (
+        system if system is not None else asr_demo_system())
+    program = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg,
+                         ).with_beam_width(25.0)
+    engine = AsrEngine(EngineConfig(program, n_slots=n_slots,
+                                    kernels=kernels or KernelPolicy(),
+                                    max_queue=max_queue,
+                                    session_deadline=session_deadline),
+                       params, device=device)
+    return engine, words
+
+
+def serve_asr(args):
+    """Single-stream streaming ASR: one Session per utterance, pushing
+    80 ms chunks; poll() tracks the live best hypothesis."""
+    from repro_torch.data.pipeline import SyntheticASR
+
+    engine, words = asr_demo_engine(1, KernelPolicy(args.kernels),
+                                    device=args.device)
+    data = SyntheticASR(words)
+    spp = engine.plan.samples_per_step
+    n_utts = 2 if args.utterances is None else args.utterances
+    for u in range(n_utts):
+        utt = data.utterance(u)
+        t0 = time.time()
+        audio = utt["audio"]
+        session = engine.open()
+        for off in range(0, len(audio), spp):
+            session.push(audio[off:off + spp])
+            session.poll()
+        best = session.finish()
+        dt = time.time() - t0
+        rtf = dt / (len(audio) / 16000)
+        print(f"utt {u}: {len(audio)/16000:.2f}s audio, decoded in {dt:.2f}s "
+              f"(RTF {rtf:.2f}) on {engine.device}, steps={best['steps']}, "
+              f"best words={best['words'].tolist()} score={best['score']:.2f} "
+              f"(ref={utt['words'].tolist()})")
+
+
+def serve_asr_multistream(args):
+    """Multi-stream ASR serving: a B-slot pool of concurrent utterance
+    streams, one slot-batched step advancing the eligible slots."""
+    from repro_torch.data.pipeline import SyntheticASR
+
+    engine, words = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
+                                    device=args.device)
+    data = SyntheticASR(words)
+    n_utts = args.utterances if args.utterances is not None \
+        else max(args.streams, 2)
+    utts = [data.utterance(u) for u in range(n_utts)]
+    audio_s = sum(len(u["audio"]) for u in utts) / 16000
+    t0 = time.time()
+    results = engine.serve([u["audio"] for u in utts])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.time() - t0
+    for u, (utt, best) in enumerate(zip(utts, results)):
+        print(f"utt {u}: {len(utt['audio'])/16000:.2f}s audio, "
+              f"steps={best['steps']}, best words={best['words'].tolist()} "
+              f"score={best['score']:.2f} (ref={utt['words'].tolist()})")
+    print(f"served {n_utts} utterances ({audio_s:.2f}s audio) over "
+          f"{args.streams} streams on {engine.device} in {dt:.2f}s: "
+          f"{engine.n_steps} decoding steps, RTF {dt/audio_s:.2f}, "
+          f"throughput {audio_s/dt:.2f}x realtime")
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="asr", choices=["asr"])
+    ap.add_argument("--utterances", type=int, default=None,
+                    help="utterance count (default: 2, or one per slot "
+                         "when --streams > 1)")
+    ap.add_argument("--streams", type=int, default=1,
+                    help="slot-pool size; >1 uses the batched multi-stream "
+                         "scheduler")
+    ap.add_argument("--kernels", default="auto", choices=list(MODES),
+                    help="KernelPolicy for the kernel-backed decode ops "
+                         "(auto: CUDA kernels on the GPU, plain torch on "
+                         "the CPU)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs the "
+                         "plain versions on the CPU)")
+    args = ap.parse_args(argv)
+    if args.streams > 1:
+        return serve_asr_multistream(args)
+    return serve_asr(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,123 @@
+"""Declarative serving configuration, port of the ASR half of
+`repro/serving/config.py`.
+
+An `AsrProgram` (acoustic model + hypothesis expansion + decoding step
+geometry, compiled into a static `StepPlan`) wrapped in an
+`EngineConfig` that adds the slot-pool size and the kernel policy.  A
+configured engine never mutates its program.  This slice serves the
+fp32 program on one device: there is no mesh, and fault injection
+(`faults`) comes with a later slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.tds_asr import (DECODER_CONFIG, FEATURE_CONFIG,
+                                         DecoderConfig, FeatureConfig,
+                                         TDSConfig)
+from repro_torch.core.lexicon import BigramLM, Lexicon
+from repro_torch.core.stepplan import StepPlan, make_step_plan
+from repro_torch.kernels.policy import KernelPolicy
+
+
+@dataclass(frozen=True)
+class AsrProgram:
+    """The streaming ASR decoding program: acoustic scoring then
+    hypothesis expansion."""
+    tds_cfg: TDSConfig
+    lex: Lexicon
+    lm: BigramLM
+    feat_cfg: FeatureConfig = FEATURE_CONFIG
+    dec_cfg: DecoderConfig = DECODER_CONFIG
+    use_int8: bool = False
+    step_ms: float = 80.0
+    # Upper bound on how many buffered step_ms windows ONE fused decoding
+    # step may consume (powers of two below it are the step buckets).
+    # Live streaming still steps window by window; bulk decoding folds up
+    # to this many windows into the acoustic forward's row dimension,
+    # reading each FC weight matrix once per multi-window step.
+    max_windows_per_step: int = 4
+    # Per-push input cap (samples), ~60 s at 16 kHz.
+    max_push_samples: int = 960_000
+
+    def step_buckets(self) -> Tuple[int, ...]:
+        """Descending window counts a fused step may take."""
+        out, b = [], 1
+        while b <= self.max_windows_per_step:
+            out.append(b)
+            b *= 2
+        return tuple(reversed(out))
+
+    def step_plan(self) -> StepPlan:
+        """The static setup-thread schedule for one decoding step."""
+        return make_step_plan(self.tds_cfg, self.feat_cfg, self.step_ms)
+
+    def prepare_params(self, params, device):
+        """Build-time weight preparation: `(params on device, None)` for
+        the fp32 program.  int8 programs come with a later slice."""
+        if self.use_int8:
+            from repro_torch.models.tds import INT8_SLICE
+            raise NotImplementedError(INT8_SLICE)
+        from repro_torch.models.tds import params_from_numpy
+        return params_from_numpy(params, device), None
+
+    def validate_input(self, chunk: np.ndarray) -> None:
+        """Admission-time validation of one pushed audio chunk: reject
+        bad input before anything is buffered instead of letting it
+        fault the co-batched step later."""
+        chunk = np.asarray(chunk)
+        if chunk.ndim != 1:
+            raise ValueError(
+                f"audio chunk must be 1-D samples, got shape "
+                f"{chunk.shape}")
+        if not np.issubdtype(chunk.dtype, np.floating):
+            raise ValueError(
+                f"audio chunk must be float samples, got dtype "
+                f"{chunk.dtype}")
+        if chunk.shape[0] > self.max_push_samples:
+            raise ValueError(
+                f"audio chunk of {chunk.shape[0]} samples exceeds "
+                f"max_push_samples={self.max_push_samples}")
+        if chunk.shape[0] and not np.isfinite(chunk).all():
+            raise ValueError("audio chunk contains NaN/Inf samples")
+
+    def with_beam_width(self, beam: float) -> "AsrProgram":
+        """A copy with another beam threshold."""
+        return replace(self, dec_cfg=replace(self.dec_cfg,
+                                             beam_threshold=beam))
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """A program plus the slot-pool size it is served over.
+
+    `kernels` selects how the kernel-backed decode ops execute (see
+    `repro_torch.kernels.policy.KernelPolicy`).  `max_queue` is the
+    admission backpressure bound (`AdmissionRejected` when every slot is
+    busy and the queue is full; None = unbounded).  `session_deadline`
+    reaps sessions older than that many seconds.  `faults` must stay None
+    until fault injection is ported."""
+    program: AsrProgram
+    n_slots: int = 1
+    kernels: KernelPolicy = field(default_factory=KernelPolicy)
+    max_queue: Optional[int] = None
+    session_deadline: Optional[float] = None
+    faults: Optional[object] = None
+
+    def __post_init__(self):
+        if self.n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {self.n_slots}")
+        if self.max_queue is not None and self.max_queue < 0:
+            raise ValueError(
+                f"max_queue must be None or >= 0, got {self.max_queue}")
+        if self.session_deadline is not None and self.session_deadline <= 0:
+            raise ValueError(
+                f"session_deadline must be None or > 0, got "
+                f"{self.session_deadline}")
+        if self.faults is not None:
+            raise NotImplementedError(
+                "fault injection is not ported yet: EngineConfig.faults "
+                "must be None")

@@ -1,0 +1,122 @@
+"""CUDA kernels vs their plain PyTorch versions, on the card.
+
+Each test needs a CUDA device and skips without one (decided in the
+`cuda` fixture, never at import).  Shapes reuse the CPU parity sweeps of
+tests/test_torch_kernels.py.  Run on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: logmel rtol 1e-4, atol 1e-3; layernorm and tds_conv
+atol 1e-5 (rtol 1e-5); hypothesis unit idx/valid exact, pb/pnb rtol
+1e-5 — the kernels sum in another order than cuBLAS and the plain
+version's unordered scatter_add.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import (hypothesis_unit as thu,  # noqa: E402
+                                 layernorm as tln, logmel as tlm, ref,
+                                 tds_conv as ttc)
+
+pytestmark = pytest.mark.cuda
+NEG_INF = -1e30
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(dev, seed, *shape, scale=1.0):
+    a = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(dev)
+
+
+@pytest.mark.parametrize("t,c", [(8, 40), (50, 80), (128, 80), (300, 40)])
+def test_logmel_kernel_matches_plain(cuda, t, c):
+    p = _t(cuda, t, t, 257).abs() + 1e-3
+    fb, dct = _t(cuda, 1, 257, 80).abs(), _t(cuda, 2, 80, c)
+    got = tlm.logmel(p, fb, dct)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.logmel(p, fb, dct),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("t,d", [(32, 64), (256, 80), (100, 257), (37, 80),
+                                 (300, 129), (8, 1200), (32, 1840)])
+def test_layernorm_kernel_matches_plain(cuda, t, d):
+    x, s, b = _t(cuda, d, t, d), _t(cuda, 1, d), _t(cuda, 2, d)
+    got = tln.layernorm(x, s, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.layernorm(x, s, b),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,k,stride,t,w,cin,cout,relu,residual", [
+    (1, 9, 1, 32, 16, 5, 7, False, False), (2, 9, 2, 32, 16, 5, 7, True, False),
+    (4, 10, 2, 64, 80, 15, 19, True, False), (1, 21, 1, 64, 8, 3, 3, False,
+                                              False),
+    (3, 9, 1, 24, 8, 6, 6, True, True), (4, 9, 1, 4, 80, 23, 23, True, True),
+    (4, 9, 1, 32, 80, 1, 15, True, False),
+])
+def test_tds_conv_kernel_matches_plain(cuda, batch, k, stride, t, w, cin,
+                                       cout, relu, residual):
+    x = _t(cuda, batch, batch, k - 1 + t, w, cin)
+    wgt = _t(cuda, 1, k, cin, cout, scale=0.3)
+    b = _t(cuda, 2, cout)
+    res = _t(cuda, 3, batch, t // stride, w, cout) if residual else None
+    got = ttc.tds_conv(x, wgt, b, res, stride=stride, relu=relu)
+    torch.cuda.synchronize()
+    want = ref.tds_conv_fused(x, wgt, b, stride=stride, relu=relu, res=res)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _candidates(dev, seed, b, n, n_hash, dead_rate=0.2):
+    r = np.random.RandomState(seed)
+    h = r.randint(0, n_hash, (b, n)).astype(np.int32)
+    pb = (r.randn(b, n) * 3).astype(np.float32)
+    pnb = (r.randn(b, n) * 3).astype(np.float32)
+    dead = r.rand(b, n) < dead_rate
+    pb = np.where(dead, NEG_INF, pb).astype(np.float32)
+    pnb = np.where(dead, NEG_INF, pnb).astype(np.float32)
+    return (torch.from_numpy(h).to(dev), torch.from_numpy(pb).to(dev),
+            torch.from_numpy(pnb).to(dev))
+
+
+@pytest.mark.parametrize("seed,b,n,k,beam,n_hash,dead", [
+    (0, 1, 12, 4, 5.0, 6, 0.2), (1, 3, 64, 16, 10.0, 32, 0.2),
+    (2, 4, 200, 16, 3.0, 100, 0.2), (3, 2, 130, 32, 1e9, 65, 0.2),
+    (4, 4, 8320, 128, 25.0, 4096, 0.2), (5, 1, 4224, 128, 25.0, 4096, 0.2),
+    (6, 2, 12, 12, 1e9, 1, 0.2), (7, 4, 8320, 128, 25.0, 4096, 0.95),
+    (8, 2, 8320, 128, 1e9, 2**31 - 1, 0.0), (9, 3, 300, 128, 25.0, 50, 0.9),
+    (10, 2, 16384, 64, 25.0, 8000, 0.1), (11, 2, 40, 8, 5.0, 10, 1.0),
+])
+def test_hypothesis_unit_kernel_matches_plain(cuda, seed, b, n, k, beam,
+                                              n_hash, dead):
+    h, pb, pnb = _candidates(cuda, seed, b, n, n_hash, dead_rate=dead)
+    got = thu.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+    torch.cuda.synchronize()
+    want = ref.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+    assert torch.equal(got["idx"], want["idx"])
+    assert torch.equal(got["valid"], want["valid"])
+    for key in ("pb", "pnb"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
+
+
+def test_wrappers_count_launches_and_refuse_bad_input(cuda):
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    x = _t(cuda, 0, 4, 64)
+    tln.layernorm(x, _t(cuda, 1, 64), _t(cuda, 2, 64))
+    assert ops.launch_counts()["layernorm"] == 1
+    with pytest.raises(ValueError):
+        tln.layernorm(x.t(), _t(cuda, 1, 4), _t(cuda, 2, 4))   # not contiguous
+    with pytest.raises(ValueError):
+        tln.layernorm(x, _t(cuda, 1, 64).cpu(), _t(cuda, 2, 64))
+    assert ops.launch_counts()["layernorm"] == 1

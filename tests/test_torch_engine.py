@@ -1,0 +1,173 @@
+"""Port `AsrEngine` end to end vs the JAX engine, on the CPU.
+
+The JAX demo system (`repro.launch.serve.asr_demo_system`) is carried
+across with `params_from_numpy` / `Lexicon.from_numpy`; both engines
+serve the same `SyntheticASR` utterances at beam 25.  Words and tokens
+must be equal; scores agree to rtol 1e-4 (fp32 sums in other orders
+through 79 kernels and every frame's beam search).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.data.pipeline import SyntheticASR  # noqa: E402
+from repro.kernels.policy import KernelPolicy as JaxPolicy  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro_torch.configs import tds_asr as tcfg  # noqa: E402
+from repro_torch.core import lexicon as tlx  # noqa: E402
+from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import tds as ttds  # noqa: E402
+from repro_torch.serving import (AdmissionRejected, AsrProgram,  # noqa: E402
+                                 EngineConfig, SessionFaulted)
+
+torch.set_num_threads(1)
+
+N_UTTS = 4
+
+
+def _port_system():
+    """The JAX demo system, carried across to the port as numpy."""
+    tds_cfg, words, lex, lm, params, dec = jserve.asr_demo_system()
+    t_cfg = tcfg.TDSConfig(
+        stages=tuple(tcfg.TDSStage(s.n_blocks, s.channels, s.feat, s.kernel,
+                                   s.subsample) for s in tds_cfg.stages),
+        vocab_size=tds_cfg.vocab_size)
+    t_lex = tlx.Lexicon.from_numpy(np.asarray(lex.children),
+                                   np.asarray(lex.child_token),
+                                   np.asarray(lex.word_id), lex.n_nodes,
+                                   lex.max_children)
+    t_lm = tlx.BigramLM.from_numpy(np.asarray(lm.table), lm.n_words)
+    t_dec = tcfg.DecoderConfig(**dec.__dict__)
+    t_params = ttds.params_from_numpy(jax.tree.map(np.asarray, params))
+    return t_cfg, words, t_lex, t_lm, t_params, t_dec
+
+
+@pytest.fixture(scope="module")
+def system():
+    return _port_system()
+
+
+@pytest.fixture(scope="module")
+def utterances(system):
+    data = SyntheticASR(system[1])
+    return [data.utterance(u)["audio"] for u in range(N_UTTS)]
+
+
+@pytest.fixture(scope="module")
+def jax_results(utterances):
+    out = {}
+    for n in (1, 2, 4):
+        eng, _ = jserve.asr_demo_engine(n, JaxPolicy("ref"))
+        out[n] = eng.serve(utterances)
+    return out
+
+
+def _port_engine(system, n, **kw):
+    eng, _ = tserve.asr_demo_engine(n, KernelPolicy("auto"), device="cpu",
+                                    system=system, **kw)
+    return eng
+
+
+def _assert_transcripts_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["words"], w["words"])
+        np.testing.assert_array_equal(g["tokens"], w["tokens"])
+        assert g["steps"] == w["steps"]
+        assert g["score"] == pytest.approx(w["score"], rel=1e-4)
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 4])
+def test_serve_matches_jax_engine(system, utterances, jax_results, n_slots):
+    eng = _port_engine(system, n_slots)
+    got = eng.serve(utterances)
+    _assert_transcripts_equal(got, jax_results[n_slots])
+    assert any(len(r["tokens"]) for r in got)
+    assert eng.metrics.finalized == N_UTTS
+
+
+def test_step_buckets_and_gathered_shapes(system, utterances):
+    eng = _port_engine(system, 4)
+    assert eng._slot_buckets == (1, 2, 4)
+    assert eng.program.step_buckets() == (4, 2, 1)
+    eng.serve(utterances[:3])
+    for n_active, b, w in eng.step_shapes:
+        assert b == min(x for x in (1, 2, 4) if x >= n_active)
+        assert w in (1, 2, 4)
+    fresh = _port_engine(system, 4)
+    for s in (0, 2, 3):
+        fresh.feed_slot(s, utterances[s])
+    batch, idx = fresh._assemble_batch([0, 2, 3], 2)
+    assert batch.shape == (4, 2, fresh._need)
+    assert idx.tolist() == [0, 2, 3, 0]        # padding repeats row 0
+    np.testing.assert_array_equal(batch[3], batch[0])
+    np.testing.assert_array_equal(batch[1, 1],
+                                  utterances[2][fresh._spp:
+                                                fresh._spp + fresh._need])
+
+
+def test_streaming_push_poll_matches_serve(system, utterances, jax_results):
+    """Chunked Session.push/poll gives the bulk-served transcript."""
+    eng = _port_engine(system, 1)
+    spp = eng.plan.samples_per_step
+    audio = utterances[0]
+    sess = eng.open()
+    for off in range(0, len(audio), spp):
+        sess.push(audio[off:off + spp])
+        live = sess.poll()
+        assert set(live) >= {"words", "tokens", "score", "steps"}
+    final = sess.finish()
+    want = jax_results[1][0]
+    np.testing.assert_array_equal(final["words"], want["words"])
+    np.testing.assert_array_equal(final["tokens"], want["tokens"])
+    assert final["score"] == pytest.approx(want["score"], rel=1e-4)
+
+
+def test_poisoned_slot_is_isolated_and_survivors_unchanged(system,
+                                                           utterances):
+    """A step that fails only when slot 1 is in it: bisection pins the
+    fault to that session, the others finish exactly as without the
+    fault (the failed steps committed nothing)."""
+    clean = _port_engine(system, 4).serve(utterances)
+    eng = _port_engine(system, 4)
+    run_step = eng._run_step
+
+    def failing(stream_state, beam_state, samples, slots):
+        if (slots == 1).any():
+            raise RuntimeError("injected step failure")
+        return run_step(stream_state, beam_state, samples, slots)
+
+    eng._run_step = failing
+    sessions = [eng.open() for _ in utterances]
+    for s, a in zip(sessions, utterances):
+        s.push(a)
+    for i, s in enumerate(sessions):
+        if i == 1:
+            with pytest.raises(SessionFaulted):
+                s.finish()
+        else:
+            res = s.finish()
+            np.testing.assert_array_equal(res["words"], clean[i]["words"])
+            assert res["score"] == clean[i]["score"]
+    assert eng.metrics.faulted_sessions == 1
+
+
+def test_engine_config_validation_and_backpressure(system):
+    prog = AsrProgram(system[0], system[2], system[3])
+    with pytest.raises(ValueError):
+        EngineConfig(prog, n_slots=0)
+    with pytest.raises(NotImplementedError, match="fault"):
+        EngineConfig(prog, faults=object())
+    with pytest.raises(NotImplementedError, match="int8"):
+        AsrProgram(system[0], system[2], system[3], use_int8=True
+                   ).prepare_params(system[4], "cpu")
+    eng = _port_engine(system, 1, max_queue=0)
+    sess = eng.open()
+    with pytest.raises(AdmissionRejected):
+        eng.open()
+    with pytest.raises(ValueError, match="NaN"):
+        sess.push(np.array([0.0, np.nan], np.float32))
