@@ -21,7 +21,7 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                bound, step times per (b, w), a profiler breakdown.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
-Detailed results go to chiprun_out/chip_smoke/.
+Detailed results (build log, timings, profile) go to build/chip_smoke/.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
 from repro_torch.models import tds  # noqa: E402
 from repro_torch.serving import AsrEngine, AsrProgram, EngineConfig  # noqa: E402
 
-OUT = ROOT / "chiprun_out" / "chip_smoke"
+OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 (non-tensor)
