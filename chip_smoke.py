@@ -4,32 +4,44 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero (no phase is caught):
-  1. build   — nvcc builds the four Hopper kernels from
+  1. build   — nvcc builds the five Hopper kernels from
                src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
-               the main path's shapes.
+               the main path's shapes (int8_matmul bitwise, also at a
+               ragged shape).
   3. demo    — the demo system through `AsrEngine` at 1 and 4 slots,
-               KernelPolicy("kernel") vs KernelPolicy("ref"): equal
-               words and tokens, scores allclose.
-  4. full    — the paper's TDS_CONFIG (widths 1200/1520/1840, V=9000)
+               fp32 and int8 programs, KernelPolicy("kernel") vs
+               KernelPolicy("ref"): equal words and tokens, scores close.
+  4. shim    — the deprecated ASRPU command API streams one demo
+               utterance through the int8 program on the card and must
+               match `AsrEngine`'s result; every kernel launches.
+  5. full    — the paper's TDS_CONFIG (widths 1200/1520/1840, V=9000)
                with the default decoder (K=128, C=32) and seeded random
-               weights serves 8 synthetic utterances over 4 slots; every
-               kernel's launch count must match the steps taken, and the
-               kernel path's log-probs must match the plain path's.
-  5. timing  — each kernel, its plain version and the library call
+               weights serves 8 synthetic utterances over 4 slots, once
+               with the fp32 and once with the int8 program; every
+               kernel's launch count must match the steps taken (29
+               int8_matmul launches per int8 step), the kernel path's
+               log-probs must match the plain path's (int8: also bitwise
+               equal with int8_matmul's plain version substituted) and
+               its words must equal the plain path's.
+  6. timing  — each kernel, its plain version and the library call
                (where one exists) at the full-width step shapes, the
-               bound, step times per (b, w), a profiler breakdown.
+               bound, step times per (b, w) for both programs, a profiler
+               breakdown of one step of each.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
 import sys
 import time
+import warnings
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -43,9 +55,11 @@ from repro_torch.configs.tds_asr import (DECODER_CONFIG,  # noqa: E402
                                          FEATURE_CONFIG, TDS_CONFIG)
 from repro_torch.core import features, lexicon as lx  # noqa: E402
 from repro_torch.data.pipeline import SyntheticASR  # noqa: E402
+from repro_torch.core.scheduler import ASRPU  # noqa: E402
 from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
-                                 hypothesis_unit as khu, layernorm as kln,
-                                 logmel as klm, tds_conv as ktc)
+                                 hypothesis_unit as khu, int8_matmul as kim,
+                                 layernorm as kln, logmel as klm,
+                                 tds_conv as ktc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
@@ -55,21 +69,37 @@ from repro_torch.serving import AsrEngine, AsrProgram, EngineConfig  # noqa: E40
 OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 (non-tensor)
-# FLOP/s, for the bounds.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
+# FLOP/s and dense int8 tensor-core OP/s, for the bounds.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
+KERNELS = ("logmel", "tds_conv", "layernorm", "hypothesis_unit",
+           "int8_matmul")
 
 # tolerances of the kernel checks (kernel vs plain version on the card)
 TOL = {"logmel": dict(rtol=1e-4, atol=1e-3),
        "layernorm": dict(rtol=1e-5, atol=1e-5),
        "tds_conv": dict(rtol=1e-5, atol=1e-5),
-       "hypothesis_unit": dict(rtol=1e-5, atol=0.0)}
+       "hypothesis_unit": dict(rtol=1e-5, atol=0.0),
+       "int8_matmul": dict(rtol=0.0, atol=0.0)}      # bitwise
+# int8 program, kernel vs plain path: the int8 products are bitwise
+# equal, but an fp32 activation one ulp off (tds_conv/layernorm sum in
+# another order) can quantize to the neighbouring int8 value.  On the
+# demo system that moves best scores by about 1e-3 relative; at full
+# width (28 FC layers) the flips cascade and the two paths' log-probs
+# differ by up to ~0.2, the order of the int8 quantization noise itself
+# (int8 vs fp32 log-probs are printed beside).  That the kernel itself
+# is exact on the main path is checked bitwise: the kernel path with
+# int8_matmul's plain version substituted gives the same bits.
+INT8_LOGP_ATOL = 0.5
+INT8_SCORE_RTOL = 1e-2
 REPLACES = {
     "logmel": "src/repro/kernels/logmel.py:24",
     "tds_conv": "src/repro/kernels/tds_conv.py:52",
     "layernorm": "src/repro/kernels/layernorm.py:32",
     "hypothesis_unit": "src/repro/kernels/hypothesis_unit.py:45",
+    "int8_matmul": "src/repro/kernels/int8_matmul.py:42",
 }
 
 
@@ -78,8 +108,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
-    return max(nbytes / PEAK_BYTES, flops / PEAK_FP32) * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32) -> float:
+    return max(nbytes / PEAK_BYTES, flops / peak) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +137,26 @@ def ln_shapes(cfg, b: int, w: int):
         if spec.kind == "layernorm":
             out.append((b * t, spec.n_out))
     return out
+
+
+def fc_shapes(cfg, b: int, w: int):
+    """(M, K, N) of every FC/head product of one step."""
+    out, t = [], 8 * w
+    for spec in tds.build_kernel_specs(cfg):
+        t //= spec.stride
+        if spec.kind in ("fc", "head"):
+            out.append((b * t, spec.n_in, spec.n_out))
+    return out
+
+
+def int8_inputs(dev, gen, m, k, n):
+    """(x, w) float and their int8 forms as the serving path makes them:
+    xq, xs from `quantize_rows`, wq, ws from `prepare_int8_weights`."""
+    x = torch.randn((m, k), generator=gen).to(dev)
+    w = (torch.randn((k, n), generator=gen) / np.sqrt(k)).to(dev)
+    xq, xs = ops.quantize_rows(x)
+    wq, ws = ops.prepare_int8_weights(w)
+    return x, w, xq, xs, wq, ws
 
 
 def conv_inputs(dev, gen, b, k, stride, cin, cout, t, res):
@@ -197,6 +247,19 @@ def check_kernels(dev) -> dict:
             close("hypothesis_unit", got[key], want[key],
                   f"({b},{n}) K=128 {key}")
     torch.cuda.synchronize()
+
+    # the four full-width FC/head shapes at b=4, w=4, and ragged ones
+    for m, k, n in sorted(set(fc_shapes(TDS_CONFIG, 4, 4))) + [
+            (5, 37, 29), (17, 4100, 3)]:
+        _, _, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
+        got = kim.int8_matmul(xq, wq, xs, ws)
+        want = ref.int8_matmul(xq, wq, xs, ws)
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            fail(f"int8_matmul M={m} K={k} N={n}: {bad} of {got.numel()} "
+                 f"entries differ from the plain version (must be bitwise)")
+        close("int8_matmul", got, want, f"M={m} K={k} N={n} (bitwise)")
+    torch.cuda.synchronize()
     return err
 
 
@@ -226,7 +289,7 @@ def full_width_words(n_words=4096, fanout=32, vocab=9000):
     return words
 
 
-def serve_pair(make_engine, utts, label, assert_equal):
+def serve_pair(make_engine, utts, label, assert_equal, score_rtol=1e-4):
     """Serve `utts` with the kernel and the plain policy; compare."""
     res = {}
     for mode in ("kernel", "ref"):
@@ -253,18 +316,70 @@ def serve_pair(make_engine, utts, label, assert_equal):
                 fail(f"{label} utt {i}: transcripts differ: kernel "
                      f"{a['words'].tolist()}/{a['tokens'].tolist()} vs ref "
                      f"{b['words'].tolist()}/{b['tokens'].tolist()}")
-            if not np.isclose(a["score"], b["score"], rtol=1e-4, atol=1e-4):
-                fail(f"{label} utt {i}: scores {a['score']} vs {b['score']}")
+            if not np.isclose(a["score"], b["score"], rtol=score_rtol,
+                              atol=1e-4):
+                fail(f"{label} utt {i}: scores {a['score']} vs {b['score']} "
+                     f"(rtol {score_rtol})")
     return res, n_equal
 
 
 def demo_phase(dev):
     system = asr_demo_system()
     utts = [SyntheticASR(system[1]).utterance(u)["audio"] for u in range(4)]
-    for n_slots in (1, 4):
-        serve_pair(lambda pol, n=n_slots: asr_demo_engine(
-            n, pol, device=dev, system=system)[0], utts,
-            f"demo slots={n_slots}", assert_equal=True)
+    for int8 in (False, True):
+        for n_slots in (1, 4):
+            serve_pair(lambda pol, n=n_slots, q=int8: asr_demo_engine(
+                n, pol, device=dev, system=system, use_int8=q)[0], utts,
+                f"demo {'int8' if int8 else 'fp32'} slots={n_slots}",
+                assert_equal=True,
+                score_rtol=INT8_SCORE_RTOL if int8 else 1e-4)
+
+
+def shim_phase(dev) -> dict:
+    """The deprecated ASRPU command API (configure -> DecodingStep per
+    80 ms chunk -> best) on the int8 demo program, held against an
+    `AsrEngine` serving the same program (one window per step, no tail
+    flush, as the shim configures it).  Counts set to 0 just before the
+    shim's decoding, read just after: every kernel must have launched."""
+    tds_cfg, words, lex, lm, params, dec_cfg = asr_demo_system()
+    dec_cfg = replace(dec_cfg, beam_threshold=25.0)
+    audio = SyntheticASR(words).utterance(0)["audio"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        pu = ASRPU(device=dev)
+    pu.configure_acoustic_scoring(tds_cfg, params, use_int8=True)
+    pu.configure_hyp_expansion(lex, lm, dec_cfg)
+    spp = pu.plan.samples_per_step
+    ops.reset_launch_counts()
+    for off in range(0, len(audio), spp):
+        pu.decoding_step(audio[off:off + spp])
+    got = pu.best(final=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"[shim] ASRPU int8: {pu._n_steps} DecodingSteps, launches "
+          f"{counts}", flush=True)
+    idle = [k for k in KERNELS if not counts[k]]
+    if idle:
+        fail(f"shim path launched no {idle}: {counts}")
+    if counts["int8_matmul"] != 7 * pu._n_steps:
+        fail(f"shim: {counts['int8_matmul']} int8_matmul launches for "
+             f"{pu._n_steps} steps of 7 FC/head products")
+    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg, use_int8=True,
+                      max_windows_per_step=1, flush_tail=False)
+    want = AsrEngine(EngineConfig(prog, n_slots=1), params,
+                     device=dev).serve([audio])[0]
+    torch.cuda.synchronize()
+    same = (np.array_equal(got["words"], want["words"])
+            and np.array_equal(got["tokens"], want["tokens"])
+            and pu._n_steps == want["steps"])
+    print(f"[shim] words {got['words'].tolist()} score {got['score']:.6f}; "
+          f"AsrEngine words {want['words'].tolist()} score "
+          f"{want['score']:.6f}, steps {pu._n_steps} vs {want['steps']}",
+          flush=True)
+    if not same or not np.isclose(got["score"], want["score"], rtol=1e-4,
+                                  atol=1e-4):
+        fail(f"shim result {got} differs from AsrEngine's {want}")
+    return counts
 
 
 def full_width_system(dev):
@@ -288,9 +403,21 @@ def full_width_utterances(words, n=8):
             for u in range(n)]
 
 
-def full_engine(dev, system, policy, n_slots=4):
+@contextlib.contextmanager
+def plain_int8_products():
+    """Run int8_matmul's plain version in place of its kernel (`ops`
+    looks the wrapper up on its module at every call)."""
+    kernel = kim.int8_matmul
+    kim.int8_matmul = ref.int8_matmul
+    try:
+        yield
+    finally:
+        kim.int8_matmul = kernel
+
+
+def full_engine(dev, system, policy, n_slots=4, use_int8=False):
     tds_cfg, _, lex, lm, params, dec_cfg = system
-    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg)
+    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg, use_int8=use_int8)
     return AsrEngine(EngineConfig(prog, n_slots=n_slots, kernels=policy),
                      params, device=dev)
 
@@ -305,9 +432,9 @@ def window_batch(eng, utts, b, w):
     return batch
 
 
-def full_phase(dev, system, utts):
-
-    eng = full_engine(dev, system, KernelPolicy("auto"))
+def full_phase(dev, system, utts, use_int8=False):
+    tag = "full int8" if use_int8 else "full fp32"
+    eng = full_engine(dev, system, KernelPolicy("auto"), use_int8=use_int8)
     torch.cuda.synchronize()
     # ---- the main path: counts set to 0 just before, read just after --
     ops.reset_launch_counts()
@@ -320,11 +447,12 @@ def full_phase(dev, system, utts):
     n_steps = len(steps)
     expect = {"logmel": n_steps, "tds_conv": 18 * n_steps,
               "layernorm": 32 * n_steps,
-              "hypothesis_unit": sum(w for _, _, w in steps)}
-    print(f"[full] served {len(utts)} utterances over 4 slots in {wall:.3f} s "
-          f"(first use included): {n_steps} steps, (n_active, b, w) = "
-          f"{steps}", flush=True)
-    print(f"[full] launch counts {counts}, expected {expect}", flush=True)
+              "hypothesis_unit": sum(w for _, _, w in steps),
+              "int8_matmul": 29 * n_steps if use_int8 else 0}
+    print(f"[{tag}] served {len(utts)} utterances over 4 slots in "
+          f"{wall:.3f} s (first use included): {n_steps} steps, "
+          f"(n_active, b, w) = {steps}", flush=True)
+    print(f"[{tag}] launch counts {counts}, expected {expect}", flush=True)
     if counts != expect or not n_steps:
         fail(f"launch counts {counts} != expected {expect}")
     shapes = {(b, w) for _, b, w in steps}
@@ -336,6 +464,10 @@ def full_phase(dev, system, utts):
             fail(f"non-finite full-width score {r['score']}")
 
     # ---- per-step log-probs: kernel path vs plain path, same batch ----
+    lp_tol = (dict(rtol=0.0, atol=INT8_LOGP_ATOL) if use_int8
+              else dict(rtol=1e-4, atol=1e-3))
+    fp32_eng = full_engine(dev, system, KernelPolicy("kernel")) \
+        if use_int8 else None
     lp_err = 0.0
     for b, w in ((4, 4), (1, 1), (2, 2)):
         batch = torch.from_numpy(window_batch(eng, utts, b, w)).to(dev)
@@ -351,13 +483,28 @@ def full_phase(dev, system, utts):
                  f"{tuple(out['kernel'].shape)} or non-finite values")
         d = (out["kernel"] - out["ref"]).abs().max().item()
         lp_err = max(lp_err, d)
-        print(f"[full] log-probs b={b} w={w}: kernel vs plain max|err| "
-              f"{d:.3e} (atol 1e-3)", flush=True)
-        torch.testing.assert_close(out["kernel"], out["ref"], rtol=1e-4,
-                                   atol=1e-3)
+        print(f"[{tag}] log-probs b={b} w={w}: kernel vs plain max|err| "
+              f"{d:.3e} ({lp_tol})", flush=True)
+        if use_int8:
+            with plain_int8_products():
+                sub, _ = eng.acoustic(batch, st, kernels=KernelPolicy("kernel"))
+            fp32, _ = fp32_eng.acoustic(batch, st,
+                                        kernels=KernelPolicy("kernel"))
+            torch.cuda.synchronize()
+            if not torch.equal(sub, out["kernel"]):
+                fail(f"{tag} b={b} w={w}: the kernel path's log-probs change "
+                     f"when int8_matmul's plain version replaces the kernel")
+            print(f"[{tag}] log-probs b={b} w={w}: kernel path with the "
+                  f"plain int8_matmul bitwise equal; int8 vs fp32 program "
+                  f"max|diff| {(out['kernel'] - fp32).abs().max().item():.3e}",
+                  flush=True)
+        try:
+            torch.testing.assert_close(out["kernel"], out["ref"], **lp_tol)
+        except AssertionError as e:
+            fail(f"{tag} log-probs b={b} w={w}: {e}")
 
     # ---- the plain path on the same utterances, for the transcripts ---
-    ref_eng = full_engine(dev, system, KernelPolicy("ref"))
+    ref_eng = full_engine(dev, system, KernelPolicy("ref"), use_int8=use_int8)
     ref_results = ref_eng.serve(utts)
     torch.cuda.synchronize()
     n_eq = 0
@@ -365,10 +512,14 @@ def full_phase(dev, system, utts):
         same = (np.array_equal(a["words"], r["words"])
                 and np.array_equal(a["tokens"], r["tokens"]))
         n_eq += same
-        print(f"[full] utt {i}: words_equal={same} best-score diff "
+        print(f"[{tag}] utt {i}: words_equal={same} best-score diff "
               f"{a['score'] - r['score']:.3e} (kernel {a['score']:.4f}, "
               f"ref {r['score']:.4f}), {len(a['words'])} words", flush=True)
-    print(f"[full] words equal for {n_eq}/{len(utts)} utterances", flush=True)
+    print(f"[{tag}] words equal for {n_eq}/{len(utts)} utterances",
+          flush=True)
+    if n_eq != len(utts):
+        fail(f"{tag}: kernel and plain paths' words differ for "
+             f"{len(utts) - n_eq} of {len(utts)} utterances")
     return counts, steps, lp_err
 
 
@@ -436,28 +587,37 @@ def timing_phase(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = {}
 
-    def add(name, launches, fk, fp, fl, nbytes, flops, label):
-        """fk/fp/fl: one call of the kernel / plain version / library."""
+    def add(name, launches, fk, fp, fl, nbytes, flops, label,
+            peak=PEAK_FP32, context=None):
+        """fk/fp/fl: one call of the kernel / plain version / library;
+        `context`: another call timed for comparison only."""
         kms, pms = device_ms(fk), device_ms(fp)
         lms = None if fl is None else device_ms(fl)
+        cms = None if context is None else device_ms(context)
         khost = host_ms(fk)
+        bnd = bound_ms(nbytes, flops, peak)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=None,
-                                       bound_ms=0.0, bytes=0.0, flops=0.0,
-                                       step_launches=0, host_ms=0.0))
+                                       bound_ms=0.0, bytes_s=0.0, ops_s=0.0,
+                                       step_launches=0, host_ms=0.0,
+                                       context_ms=None))
         r["host_ms"] += launches * khost
         r["ms"] += launches * kms
         r["plain_ms"] += launches * pms
         if lms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + launches * lms
-        r["bound_ms"] += launches * bound_ms(nbytes, flops)
-        r["bytes"] += launches * nbytes
-        r["flops"] += launches * flops
+        if cms is not None:
+            r["context_ms"] = (r["context_ms"] or 0.0) + launches * cms
+        r["bound_ms"] += launches * bnd
+        r["bytes_s"] += launches * nbytes / PEAK_BYTES
+        r["ops_s"] += launches * flops / peak
         r["step_launches"] += launches
         print(f"[timing] {name:16s} {label:30s} x{launches:<2d} device: "
               f"kernel {kms * 1e3:9.2f} us  plain {pms * 1e3:9.2f} us  "
               f"library {'-' if lms is None else f'{lms * 1e3:.2f}'} us  "
-              f"bound {bound_ms(nbytes, flops) * 1e3:.3f} us | kernel call "
-              f"with launch {khost * 1e3:.2f} us", flush=True)
+              f"bound {bnd * 1e3:.3f} us | kernel call with launch "
+              f"{khost * 1e3:.2f} us"
+              + ("" if cms is None else f" | fp32 matmul {cms * 1e3:.2f} us"),
+              flush=True)
 
     # logmel: R = b * w * 8 = 128 rows
     fb, dct = feature_tables(dev)
@@ -509,41 +669,75 @@ def timing_phase(dev) -> dict:
         lambda: ref.hypothesis_unit(h, pb, pnb, k=k, beam=25.0),
         None, b * n * 12 + b * k * 13, 20 * b * n,
         "(4, 8320) K=128, 20% dead")
+
+    # int8_matmul: the 29 FC/head products of an int8 step.  Library:
+    # torch._int_mm (cuBLASLt int8, which wants M > 16: rows padded to 24
+    # before timing) and the same rescale; context: the fp32 product.
+    fcs = {}
+    for key in fc_shapes(TDS_CONFIG, 4, 4):
+        fcs[key] = fcs.get(key, 0) + 1
+    for (m, k, n), cnt in sorted(fcs.items()):
+        x, w, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
+        xpad = torch.zeros((max(m, 24), k), dtype=torch.int8, device=dev)
+        xpad[:m] = xq
+
+        def int_mm(xpad=xpad, wq=wq, xs=xs, ws=ws, m=m):
+            return torch._int_mm(xpad, wq)[:m].float() * xs[:, None] \
+                * ws[None, :]
+        try:
+            if not torch.equal(int_mm(), ref.int8_matmul(xq, wq, xs, ws)):
+                fail(f"torch._int_mm disagrees with the plain version at "
+                     f"M={m} K={k} N={n}")
+        except RuntimeError as e:          # a yardstick only: no row value
+            print(f"[timing] torch._int_mm refused M={m} K={k} N={n}: {e}",
+                  flush=True)
+            int_mm = None
+        add("int8_matmul", cnt,
+            lambda xq=xq, wq=wq, xs=xs, ws=ws: kim.int8_matmul(xq, wq, xs, ws),
+            lambda xq=xq, wq=wq, xs=xs, ws=ws: ref.int8_matmul(xq, wq, xs, ws),
+            int_mm, m * k + k * n + 4 * (m + n + m * n), 2 * m * k * n,
+            f"M={m} K={k} N={n}", peak=PEAK_INT8,
+            context=lambda x=x, w=w: x @ w)
     return rows
 
 
 def step_times(dev, system, utts) -> dict:
     """Wall time of one full-width decoding step per (b, w): batch
     assembly and upload, acoustic scoring and w expansions, ending in a
-    synchronize (median of 5 after one warm-up step)."""
+    synchronize (median of 5 after one warm-up step).  Keys: "<policy>
+    b= w=" for the fp32 program, "int8 <policy> b= w=" for int8."""
     out = {}
-    for mode in ("kernel", "ref"):
-        eng = full_engine(dev, system, KernelPolicy(mode))
-        for s in range(4):
-            eng.feed_slot(s, utts[s])
-        for b in (1, 2, 4):
-            for w in (1, 2, 4):
-                slots = list(range(b))
-                ts = []
-                for i in range(6):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    eng._step_slots(slots, w, commit=False)
-                    torch.cuda.synchronize()
-                    if i:                      # the first call warms up
-                        ts.append(time.perf_counter() - t0)
-                out[f"{mode} b={b} w={w}"] = float(np.median(ts)) * 1e3
-                print(f"[step] policy={mode} b={b} w={w}: "
-                      f"{out[f'{mode} b={b} w={w}']:.3f} ms median of 5",
-                      flush=True)
+    for int8 in (False, True):
+        for mode in ("kernel", "ref"):
+            eng = full_engine(dev, system, KernelPolicy(mode), use_int8=int8)
+            for s in range(4):
+                eng.feed_slot(s, utts[s])
+            for b in (1, 2, 4):
+                for w in (1, 2, 4):
+                    slots = list(range(b))
+                    ts = []
+                    for i in range(6):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        eng._step_slots(slots, w, commit=False)
+                        torch.cuda.synchronize()
+                        if i:                  # the first call warms up
+                            ts.append(time.perf_counter() - t0)
+                    key = f"{'int8 ' if int8 else ''}{mode} b={b} w={w}"
+                    out[key] = float(np.median(ts)) * 1e3
+                    print(f"[step] {'int8' if int8 else 'fp32'} "
+                          f"policy={mode} b={b} w={w}: {out[key]:.3f} ms "
+                          f"median of 5", flush=True)
     return out
 
 
-def profile_step(dev, system, utts, step_ms: float) -> dict:
+def profile_step(dev, system, utts, step_ms: float,
+                 use_int8: bool = False) -> dict:
     """Device time by kernel over one b=4, w=4 kernel-path step of real
     decoding (the hypothesis unit sees the decoder's own candidates),
     and the device's idle share of the unprofiled step time."""
-    eng = full_engine(dev, system, KernelPolicy("kernel"))
+    tag = "int8" if use_int8 else "fp32"
+    eng = full_engine(dev, system, KernelPolicy("kernel"), use_int8=use_int8)
     for s in range(4):
         eng.feed_slot(s, utts[s])
     eng._step_slots([0, 1, 2, 3], 4, commit=False)
@@ -562,17 +756,27 @@ def profile_step(dev, system, utts, step_ms: float) -> dict:
     busy = sum(t for _, _, t in rows)
     n_events = sum(n for _, n, _ in rows)
     if not n_events:
-        print("[profile] the profiler recorded no device events: device "
-              "busy time and idle share not measured", flush=True)
+        print(f"[profile] {tag}: the profiler recorded no device events: "
+              f"device busy time and idle share not measured", flush=True)
         return {"step_ms": step_ms, "device_busy_ms": None}
-    print(f"[profile] b=4 w=4 kernel-path step: {n_events} device events, "
-          f"device busy {busy:.3f} ms of the unprofiled {step_ms:.3f} ms "
-          f"step: idle share {max(0.0, 1 - busy / step_ms):.3f}", flush=True)
+    print(f"[profile] {tag} b=4 w=4 kernel-path step: {n_events} device "
+          f"events, device busy {busy:.3f} ms of the unprofiled "
+          f"{step_ms:.3f} ms step: idle share "
+          f"{max(0.0, 1 - busy / step_ms):.3f}", flush=True)
     for key, cnt, ms in rows[:14]:
-        print(f"[profile]   {ms:8.3f} ms  x{cnt:<4d} {key[:100]}", flush=True)
+        print(f"[profile] {tag} {ms:8.3f} ms  x{cnt:<4d} {key[:100]}",
+              flush=True)
+    # host side: torch ops by self CPU time (profiled, so inflated; read
+    # the shares, not the sums)
+    host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda r: -r[2])
+    for key, cnt, ms in host[:12]:
+        print(f"[profile] {tag} host {ms:8.3f} ms self  x{cnt:<4d} "
+              f"{key[:80]}", flush=True)
     return {"step_ms": step_ms, "device_busy_ms": busy,
             "device_events": n_events,
-            "by_kernel": [list(r) for r in rows[:60]]}
+            "by_kernel": [list(r) for r in rows[:60]],
+            "host_by_op": [list(r) for r in host[:40]]}
 
 
 # ---------------------------------------------------------------------------
@@ -608,11 +812,14 @@ def main() -> None:
     # 2. kernel checks
     errs = check_kernels(dev)
 
-    # 3. demo system, kernel vs ref policy
+    # 3. demo system, kernel vs ref policy, fp32 and int8 programs
     demo_phase(dev)
     torch.cuda.synchronize()
 
-    # 4. full width
+    # 4. the ASRPU command shims (int8 program)
+    shim_counts = shim_phase(dev)
+
+    # 5. full width
     t0 = time.perf_counter()
     system = full_width_system(dev)
     utts = full_width_utterances(system[1])
@@ -622,36 +829,46 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     counts, steps, lp_err = full_phase(dev, system, utts)
     torch.cuda.synchronize()
+    counts8, steps8, lp_err8 = full_phase(dev, system, utts, use_int8=True)
+    torch.cuda.synchronize()
 
-    # 5. timing
+    # 6. timing
     rows = timing_phase(dev)
     torch.cuda.synchronize()
     steps_ms = step_times(dev, system, utts)
     prof = profile_step(dev, system, utts, steps_ms["kernel b=4 w=4"])
+    prof8 = profile_step(dev, system, utts, steps_ms["int8 kernel b=4 w=4"],
+                         use_int8=True)
     torch.cuda.synchronize()
 
     kernels = []
-    for name in ("logmel", "tds_conv", "layernorm", "hypothesis_unit"):
+    for name in KERNELS:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": (counts8 if name == "int8_matmul" else counts)[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": ("bytes" if r["bytes"] / PEAK_BYTES
-                         >= r["flops"] / PEAK_FP32 else "operations"),
+            "bound_by": "bytes" if r["bytes_s"] >= r["ops_s"] else "operations",
             "library_ms": r["library_ms"],
             "work": f"the {r['step_launches']} launches of one full-width "
                     f"step at b=4, w=4 (device time)",
             "launch_inclusive_ms": r["host_ms"],
         })
+        if r["context_ms"] is not None:
+            kernels[-1]["fp32_matmul_ms"] = r["context_ms"]
     (OUT / "results.json").write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "build_s": build_s, "kernels": kernels, "steps": steps,
         "launch_counts": counts, "logp_max_abs_err": lp_err,
-        "step_ms": steps_ms, "profile": prof}, indent=1))
-    print(f"[done] launches on the main path: {counts}", flush=True)
+        "int8_steps": steps8, "int8_launch_counts": counts8,
+        "int8_logp_max_abs_err": lp_err8, "shim_launch_counts": shim_counts,
+        "step_ms": steps_ms, "profile": prof, "profile_int8": prof8},
+        indent=1))
+    print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
+          f"{counts8}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,6 +98,26 @@ class DecoderConfig:
     max_children: int = 32       # padded trie fanout
 
 
+@dataclass(frozen=True)
+class ASRPUHardware:
+    """Paper Table 2 — used by the analytical performance model."""
+    freq_hz: float = 500e6
+    n_pes: int = 8
+    mac_vector: int = 8
+    hyp_mem_bytes: int = 24 * 1024
+    icache_bytes: int = 64 * 1024
+    shared_mem_bytes: int = 512 * 1024
+    model_mem_bytes: int = 1 * 1024 * 1024
+    pe_icache_bytes: int = 4 * 1024
+    pe_dcache_bytes: int = 24 * 1024
+    # paper results to validate against
+    step_audio_ms: float = 80.0
+    step_exec_ms: float = 40.0   # => 2x real-time
+    area_mm2: float = 11.68
+    peak_power_w: float = 1.8
+
+
 TDS_CONFIG = TDSConfig()
 FEATURE_CONFIG = FeatureConfig()
 DECODER_CONFIG = DecoderConfig()
+ASRPU_HW = ASRPUHardware()

@@ -44,8 +44,10 @@ class StepPlan:
 
 def make_step_plan(tds_cfg: TDSConfig = TDS_CONFIG,
                    feat_cfg: FeatureConfig = FEATURE_CONFIG,
-                   step_ms: float = 80.0) -> StepPlan:
-    """The setup-thread arithmetic for one steady-state decoding step."""
+                   step_ms: float = 80.0, beam_k: int = 128) -> StepPlan:
+    """The setup-thread arithmetic for one steady-state decoding step.
+    `beam_k` (the hypothesis memory's size) is accepted for the
+    reference's signature; no planned kernel depends on it."""
     samples = int(feat_cfg.sample_rate * step_ms / 1000)
     feat_frames = int(step_ms / feat_cfg.shift_ms)          # 8 @ 80ms
     sub = tds_cfg.total_subsample

@@ -40,6 +40,7 @@ SIGNATURES = {
     "tds_conv_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "layernorm_launch": (P, P, P, P, I, I, F, P),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, I, F, P),
+    "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """Public kernel entry points, dispatched by `KernelPolicy`.
 
-Port of the decode-path half of `repro/kernels/ops.py`.  Each function
+Port of the ASR half of `repro/kernels/ops.py`.  Each function
 resolves its policy against the device of its input (see
 `kernels/policy.py`): ``ref`` runs the plain PyTorch version in
 `kernels/ref.py` (CPU or card), ``kernel`` the CUDA kernel's wrapper
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import hypothesis_unit as _hu
+from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import logmel as _lm
 from repro_torch.kernels import ref as _ref
@@ -19,7 +20,7 @@ from repro_torch.kernels import tds_conv as _tc
 from repro_torch.kernels.policy import resolve
 
 KERNEL_MODULES = {"logmel": _lm, "tds_conv": _tc, "layernorm": _ln,
-                  "hypothesis_unit": _hu}
+                  "hypothesis_unit": _hu, "int8_matmul": _im}
 
 
 def launch_counts() -> dict:
@@ -78,3 +79,53 @@ def hypothesis_unit(hashes, pb, pnb, k, beam, policy=None):
     return _hu.hypothesis_unit(hashes.to(torch.int32).contiguous(),
                                pb.contiguous(), pnb.contiguous(), k=k,
                                beam=float(beam))
+
+
+# ---------------------------------------------------------------------------
+# int8 path: ASRPU's 8-bit MAC (paper §3.4)
+# ---------------------------------------------------------------------------
+def quantize_rows(x):
+    """Symmetric per-row int8: x (M, K) -> (q i8, scale f32 (M,)).
+
+    Plain torch on every device, as the reference computes it outside
+    any kernel.  `torch.round` rounds half to even like `jnp.round`, and
+    the division is by the clamped scale (not a product with its
+    reciprocal), so q and the scales equal the reference's bit for bit."""
+    xf = x.float()
+    s = xf.abs().amax(dim=1) / 127.0
+    q = torch.clamp(torch.round(xf / torch.clamp(s[:, None], min=1e-12)),
+                    -127, 127).to(torch.int8)
+    return q, s
+
+
+def prepare_int8_weights(w):
+    """Quantize a static weight matrix once: w (K, N) float -> (wq (K, N)
+    i8, ws (N,) f32 per-output-column scales), so that the decode hot
+    path only quantizes activations.  wq is the transposed view of the
+    (N, K) quantization, K-contiguous: the int8 kernel's weight layout."""
+    wq_t, ws = quantize_rows(w.t())
+    # elementwise ops keep w.t()'s strides: make the (N, K) rows dense
+    return wq_t.contiguous().t(), ws
+
+
+def int8_matmul_prepared(x, wq, ws, *, policy=None, axis=None):
+    """x: (M, K) float; wq/ws from `prepare_int8_weights` -> (M, N) f32.
+
+    The hot-path half of the int8 pipeline: per-row activation
+    quantization, the int8 matmul and the fp32 rescale.  `axis` (a
+    model-parallel mesh axis in the reference) is not ported."""
+    if axis is not None:
+        raise NotImplementedError("int8_matmul_prepared: the sharded "
+                                  "(axis=) contraction is not ported")
+    xq, xs = quantize_rows(x)
+    if resolve(policy, xq) == "ref":
+        return _ref.int8_matmul(xq, wq, xs, ws)
+    return _im.int8_matmul(xq, wq, xs, ws)
+
+
+def int8_matmul(x, w, *, policy=None):
+    """x: (M, K) float; w: (K, N) float -> (M, N) f32 through the int8
+    path.  Quantizes both operands on every call: callers with static
+    weights `prepare_int8_weights` once and use `int8_matmul_prepared`."""
+    wq, ws = prepare_int8_weights(w)
+    return int8_matmul_prepared(x, wq, ws, policy=policy)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the Hopper kernels on the decode path.
+"""Plain PyTorch versions of the Hopper kernels on the ASR decode path.
 
 Port of the matching functions of `repro/kernels/ref.py`.  Each is the
 semantic ground truth its CUDA kernel is held against on the card, and
@@ -12,6 +12,21 @@ NEG_INF = -1e30                      # matches core/hypothesis.py
 # dead candidates key under an out-of-range value: > any 31-bit prefix
 # hash.  Torch's uint32 supports few ops, so keys are int64.
 HASH_SENTINEL = 0xFFFFFFFF
+
+
+def int8_matmul(xq, wq, xs, ws):
+    """xq: (M, K) i8, wq: (K, N) i8, xs: (M,) f32, ws: (N,) f32 -> (M, N) f32.
+
+    int8 x int8 products summed exactly in int32, then the per-row and
+    per-column scales: `(acc.float() * xs) * ws`, in that order.  CUDA
+    has no integer matmul, and an fp32 product is not exact once |acc|
+    passes 2^24 (it reaches 127^2 * K), so the card takes an fp64
+    product, exact for any |acc| < 2^53, and casts it back."""
+    if xq.is_cuda:
+        acc = (xq.double() @ wq.double()).to(torch.int32)
+    else:
+        acc = xq.int() @ wq.int()
+    return acc.float() * xs[:, None] * ws[None, :]
 
 
 def layernorm(x, scale, bias, eps=1e-5):

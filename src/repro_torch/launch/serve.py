@@ -7,6 +7,7 @@ pool decodes N concurrent utterances through one slot-batched step
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4 --int8
 """
 from __future__ import annotations
 
@@ -42,14 +43,15 @@ def asr_demo_system():
 
 def asr_demo_engine(n_slots: int, kernels: KernelPolicy = None,
                     device=None, max_queue=None, session_deadline=None,
-                    system=None) -> tuple:
+                    system=None, use_int8: bool = False) -> tuple:
     """(engine, words): an AsrEngine over the demo system's program at
     beam 25.  `system` replaces the demo system's tuple (e.g. with
-    parameters carried across from the reference)."""
+    parameters carried across from the reference); `use_int8` serves the
+    int8 program (FC/head products through the int8 kernel)."""
     tds_cfg, words, lex, lm, params, dec_cfg = (
         system if system is not None else asr_demo_system())
     program = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg,
-                         ).with_beam_width(25.0)
+                         use_int8=use_int8).with_beam_width(25.0)
     engine = AsrEngine(EngineConfig(program, n_slots=n_slots,
                                     kernels=kernels or KernelPolicy(),
                                     max_queue=max_queue,
@@ -64,7 +66,7 @@ def serve_asr(args):
     from repro_torch.data.pipeline import SyntheticASR
 
     engine, words = asr_demo_engine(1, KernelPolicy(args.kernels),
-                                    device=args.device)
+                                    device=args.device, use_int8=args.int8)
     data = SyntheticASR(words)
     spp = engine.plan.samples_per_step
     n_utts = 2 if args.utterances is None else args.utterances
@@ -91,7 +93,7 @@ def serve_asr_multistream(args):
     from repro_torch.data.pipeline import SyntheticASR
 
     engine, words = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
-                                    device=args.device)
+                                    device=args.device, use_int8=args.int8)
     data = SyntheticASR(words)
     n_utts = args.utterances if args.utterances is not None \
         else max(args.streams, 2)
@@ -126,6 +128,9 @@ def main(argv=None):
                     help="KernelPolicy for the kernel-backed decode ops "
                          "(auto: CUDA kernels on the GPU, plain torch on "
                          "the CPU)")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the int8 program (ASRPU's 8-bit MAC: "
+                         "FC/head products through the int8 kernel)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions on the CPU)")

@@ -1,5 +1,5 @@
 """TDS acoustic model as an explicit kernel sequence, port of
-`repro/models/tds.py` (fp32 program, single device).
+`repro/models/tds.py` (fp32 and int8 programs, single device).
 
 The network is a list of 79 kernels: 18 CONV, 29 FC, 32 LayerNorm.
 Activations are (T, w, c) maps; convs are time-only (kernel k x 1) with
@@ -8,8 +8,10 @@ vector.  All convs are causal, so streaming decoding steps produce the
 same outputs as offline decoding.
 
 Convs and LayerNorms dispatch through `kernels/ops` (Hopper kernels on
-the card, plain torch on the CPU); FC/head products are `torch.matmul`,
-as the reference leaves them to XLA outside any kernel.
+the card, plain torch on the CPU).  FC/head products are `torch.matmul`
+in the fp32 program, as the reference leaves them to XLA outside any
+kernel, and go through the int8 kernel (`ops.int8_matmul_prepared`) in
+the int8 program.
 """
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ import torch
 from repro_torch.configs.tds_asr import TDSConfig
 from repro_torch.core import treeutil
 from repro_torch.device import fp32_numerics
-
-INT8_SLICE = ("int8 programs are not ported yet: they come with the "
-              "int8_matmul kernel in the next slice of the port")
 
 
 @dataclass(frozen=True)
@@ -173,19 +172,44 @@ def reset_stream_slot(state: dict, slot, cfg: TDSConfig) -> dict:
     return treeutil.set_slot(state, slot, init_stream_state(cfg, dev))
 
 
+def quantize_params(params, cfg: TDSConfig) -> dict:
+    """Pre-quantize every FC/head weight matrix once (int8 + per-output
+    scales, on the weights' device): {kernel name: {"wq", "ws"}}.  The
+    serving engine builds this when it is constructed, so the decode
+    hot path only quantizes activations (`ops.int8_matmul_prepared`)."""
+    from repro_torch.kernels import ops
+    prepared = {}
+    for spec in build_kernel_specs(cfg):
+        if spec.kind in ("fc", "head"):
+            wq, ws = ops.prepare_int8_weights(params[spec.name]["w"])
+            prepared[spec.name] = {"wq": wq, "ws": ws}
+    return prepared
+
+
 def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
-                    use_int8: bool = False, kernels=None):
+                    use_int8: bool = False, kernels=None,
+                    prepared: Optional[dict] = None):
     """Slot-native TDS forward.  feats: (B, T, n_mfcc); state: the
     batched stream state ((B, k-1, w, c_in) per conv).  Returns
     (log_probs (B, T', V), new_state).
 
     The slot axis folds into the row dimension of every product —
     (B*T, w*c) rows for FC/head/LayerNorm, (B*T*w, c_in) rows for each
-    conv tap.  Convs and LayerNorms dispatch through `kernels` (a
-    KernelPolicy).  Returns new tensors; `state` is not modified."""
-    if use_int8:
-        raise NotImplementedError(INT8_SLICE)
+    conv tap.  Convs, LayerNorms and the int8 FC/head products dispatch
+    through `kernels` (a KernelPolicy).  `use_int8` routes the FC/head
+    products through the int8 path; `prepared` (from `quantize_params`)
+    supplies its pre-quantized weights, without which they are quantized
+    on every call.  Returns new tensors; `state` is not modified."""
     from repro_torch.kernels import ops
+
+    def matmul(xm, name, p):
+        if not use_int8:
+            return xm @ p["w"] + p["b"]
+        if prepared is not None and name in prepared:
+            pq = prepared[name]
+            return ops.int8_matmul_prepared(xm, pq["wq"], pq["ws"],
+                                            policy=kernels) + p["b"]
+        return ops.int8_matmul(xm, p["w"], policy=kernels) + p["b"]
 
     fp32_numerics()
     specs = build_kernel_specs(cfg)
@@ -219,7 +243,7 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
             xm = x.reshape(B * t, -1)
             if spec.activation == "relu":      # fc1: start of the FC block
                 fc_res = xm
-            y = xm @ p["w"] + p["b"]
+            y = matmul(xm, spec.name, p)
             if spec.activation == "relu":
                 y = torch.relu(y)
             if spec.residual and fc_res is not None \
@@ -235,15 +259,18 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
 
 def forward(params, cfg: TDSConfig, feats: torch.Tensor,
             state: Optional[dict] = None, use_int8: bool = False,
-            kernels=None):
+            kernels=None, prepared: Optional[dict] = None):
     """feats: (T, n_mfcc). Returns (log_probs (T', V), new_state).
 
-    state=None => offline (zero left context).  The B=1 slice of
-    `forward_batched`: single-stream and slot-pooled decoding share one
-    code path."""
+    state=None => offline (zero left context).  use_int8 routes the
+    FC/head products through the int8 path (ASRPU's 8-bit MAC;
+    `prepared` from `quantize_params` skips the per-call weight
+    quantization).  The B=1 slice of `forward_batched`: single-stream
+    and slot-pooled decoding share one code path."""
     st_in = state if state is not None \
         else init_stream_state(cfg, feats.device)
     bst = {k: v[None] for k, v in st_in.items()}
     logp, ns = forward_batched(params, cfg, feats[None], bst,
-                               use_int8=use_int8, kernels=kernels)
+                               use_int8=use_int8, kernels=kernels,
+                               prepared=prepared)
     return logp[0], {k: v[0] for k, v in ns.items()}

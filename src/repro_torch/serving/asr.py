@@ -25,7 +25,8 @@ sample buffers and metrics as they were — the invariant the
 probe-bisection quarantine (`_step_isolated`) replays depend on.
 
 Two API layers:
-  * slot level — `feed_slot` / `slot_best` / `reset_slot`.
+  * slot level — `feed_slot` / `pump` / `slot_best` / `reset_slot`
+    (what the deprecated ASRPU command shims in core/scheduler drive).
   * session level — `open()` -> Session.push/poll/finish, plus the
     `serve(utterances)` convenience (continuous batching over whole
     utterances, results in input order).
@@ -110,7 +111,8 @@ class AsrEngine(Engine):
                               kernels=kernels)[:, :, :nfr]
         feats = feats.reshape(b, w * nfr, -1)
         return tds.forward_batched(self.params, prog.tds_cfg, feats,
-                                   stream_state, kernels=kernels)
+                                   stream_state, use_int8=prog.use_int8,
+                                   kernels=kernels, prepared=self._prepared)
 
     def _run_step(self, stream_state, beam_state, samples, slots):
         """One slot-batched decoding step over a GATHERED sub-batch.
@@ -159,6 +161,21 @@ class AsrEngine(Engine):
             self.device)
         self._stream_state = stream_state
         self._beam = beam
+
+    def adopt_state(self, old: "AsrEngine") -> None:
+        """Take over another engine's in-flight slot-pool state (sample
+        buffers, left context, beam, step counts).  The deprecated
+        configure-command shims use it: they rebuild the engine on
+        reconfiguration without losing mid-utterance state."""
+        if old.n_slots != self.n_slots or old.device != self.device:
+            raise ValueError(f"adopt_state: {old.n_slots} slots on "
+                             f"{old.device} into {self.n_slots} slots on "
+                             f"{self.device}")
+        self._slot_bufs = old._slot_bufs
+        self._slot_steps = old._slot_steps
+        self._stream_state = old._stream_state
+        self._beam = old._beam
+        self.n_steps = old.n_steps
 
     def reset_slot(self, slot: int) -> None:
         """Utterance boundary in one slot: clear its buffer, left
@@ -323,7 +340,10 @@ class AsrEngine(Engine):
         often the end of the last word, is dropped).  Only slots whose
         buffer holds samples never covered by a decoded frame (more than
         the retained framing overlap) are padded, to exactly one full
-        window, so a flush runs at most once per session."""
+        window, so a flush runs at most once per session.  Programs
+        with `flush_tail=False` (the command shims) never flush."""
+        if not self.program.flush_tail:
+            return
         for slot, sess in enumerate(self._owner):
             if sess is None or not sess.finished:
                 continue
@@ -332,6 +352,14 @@ class AsrEngine(Engine):
                 self._slot_bufs[slot] = np.concatenate(
                     [self._slot_bufs[slot],
                      np.zeros((self._need - n,), np.float32)])
+
+    def pump(self) -> int:
+        """Run decoding steps until no slot has a full window left;
+        returns the number of steps."""
+        n = 0
+        while self._step():
+            n += 1
+        return n
 
     def slot_best(self, slot: int, final: bool = False) -> dict:
         """Best hypothesis of one slot as host arrays; final=True commits
@@ -379,7 +407,8 @@ class AsrEngine(Engine):
         if not (session.finished and not self.slot_can_step(slot)):
             return False
         # not closeable while a tail flush is pending
-        return self._slot_bufs[slot].shape[0] <= self._overlap
+        return (not self.program.flush_tail
+                or self._slot_bufs[slot].shape[0] <= self._overlap)
 
     def _finalize_slot(self, slot: int) -> dict:
         self._ensure_state()   # finish() before any step still finalizes

@@ -4,8 +4,8 @@
 An `AsrProgram` (acoustic model + hypothesis expansion + decoding step
 geometry, compiled into a static `StepPlan`) wrapped in an
 `EngineConfig` that adds the slot-pool size and the kernel policy.  A
-configured engine never mutates its program.  This slice serves the
-fp32 program on one device: there is no mesh, and fault injection
+configured engine never mutates its program.  Both programs, fp32 and
+int8, are served on one device: there is no mesh, and fault injection
 (`faults`) comes with a later slice.
 """
 from __future__ import annotations
@@ -40,6 +40,12 @@ class AsrProgram:
     # to this many windows into the acoustic forward's row dimension,
     # reading each FC weight matrix once per multi-window step.
     max_windows_per_step: int = 4
+    # On finish(), a session whose buffer still holds samples no decoded
+    # frame has covered gets that trailing partial window zero-padded
+    # and decoded by one last step before finalize.  The deprecated
+    # ASRPU command shims disable it: the paper's DecodingStep/best
+    # commands have no end-of-input signal and decode whole windows only.
+    flush_tail: bool = True
     # Per-push input cap (samples), ~60 s at 16 kHz.
     max_push_samples: int = 960_000
 
@@ -53,16 +59,19 @@ class AsrProgram:
 
     def step_plan(self) -> StepPlan:
         """The static setup-thread schedule for one decoding step."""
-        return make_step_plan(self.tds_cfg, self.feat_cfg, self.step_ms)
+        return make_step_plan(self.tds_cfg, self.feat_cfg, self.step_ms,
+                              self.dec_cfg.beam_size)
 
     def prepare_params(self, params, device):
-        """Build-time weight preparation: `(params on device, None)` for
-        the fp32 program.  int8 programs come with a later slice."""
-        if self.use_int8:
-            from repro_torch.models.tds import INT8_SLICE
-            raise NotImplementedError(INT8_SLICE)
-        from repro_torch.models.tds import params_from_numpy
-        return params_from_numpy(params, device), None
+        """Build-time weight preparation, returning `(params, prepared)`
+        on `device`: int8 programs quantize every FC/head weight matrix
+        once, there (`tds.quantize_params`), so that the hot path only
+        quantizes activations; fp32 programs get `prepared=None`."""
+        from repro_torch.models import tds
+        params = tds.params_from_numpy(params, device)
+        prepared = (tds.quantize_params(params, self.tds_cfg)
+                    if self.use_int8 else None)
+        return params, prepared
 
     def validate_input(self, chunk: np.ndarray) -> None:
         """Admission-time validation of one pushed audio chunk: reject

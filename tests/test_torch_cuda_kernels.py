@@ -9,7 +9,8 @@ tests/test_torch_kernels.py.  Run on a machine with a card:
 Tolerances: logmel rtol 1e-4, atol 1e-3; layernorm and tds_conv
 atol 1e-5 (rtol 1e-5); hypothesis unit idx/valid exact, pb/pnb rtol
 1e-5 — the kernels sum in another order than cuBLAS and the plain
-version's unordered scatter_add.
+version's unordered scatter_add.  int8_matmul: bitwise (integer sums
+are exact in any order, and the rescale is the same two fp32 products).
 """
 import numpy as np
 import pytest
@@ -17,8 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (hypothesis_unit as thu,  # noqa: E402
-                                 layernorm as tln, logmel as tlm, ref,
-                                 tds_conv as ttc)
+                                 int8_matmul as tim, layernorm as tln,
+                                 logmel as tlm, ops, ref, tds_conv as ttc)
 
 pytestmark = pytest.mark.cuda
 NEG_INF = -1e30
@@ -109,8 +110,36 @@ def test_hypothesis_unit_kernel_matches_plain(cuda, seed, b, n, k, beam,
         torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (64, 1200, 1200), (32, 1520, 1520), (16, 1840, 1840), (16, 1840, 9000),
+    (8, 128, 128), (100, 200, 96), (1, 1200, 600), (5, 37, 29),
+    (33, 2100, 70), (17, 4100, 3)])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
+    """Main-path shapes, the CPU sweep, and ragged M, K and N (K beyond
+    one 2048-byte staging pass, K not a multiple of 16)."""
+    x, w = _t(cuda, m, m, k), _t(cuda, n, k, n)
+    wq, ws = ops.prepare_int8_weights(w)
+    xq, xs = ops.quantize_rows(x)
+    got = tim.int8_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul(xq, wq, xs, ws))
+    # a row-major (K, N) weight is copied into the kernel's layout
+    assert torch.equal(tim.int8_matmul(xq, wq.contiguous(), xs, ws), got)
+
+
+def test_int8_matmul_kernel_exact_at_full_scale(cuda):
+    """|acc| = 127^2 * 1840 > 2^24 stays exact."""
+    xq = torch.full((16, 1840), 127, dtype=torch.int8, device=cuda)
+    wq = torch.full((1840, 40), -127, dtype=torch.int8, device=cuda)
+    xs = torch.ones(16, device=cuda)
+    ws = torch.ones(40, device=cuda)
+    got = tim.int8_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.int8_matmul(xq, wq, xs, ws))
+    assert float(got[0, 0]) == float(np.float32(-127 * 127 * 1840))
+
+
 def test_wrappers_count_launches_and_refuse_bad_input(cuda):
-    from repro_torch.kernels import ops
     ops.reset_launch_counts()
     x = _t(cuda, 0, 4, 64)
     tln.layernorm(x, _t(cuda, 1, 64), _t(cuda, 2, 64))
@@ -120,3 +149,11 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         tln.layernorm(x, _t(cuda, 1, 64).cpu(), _t(cuda, 2, 64))
     assert ops.launch_counts()["layernorm"] == 1
+    xq, xs = ops.quantize_rows(x)
+    wq, ws = ops.prepare_int8_weights(_t(cuda, 3, 64, 24))
+    tim.int8_matmul(xq, wq, xs, ws)
+    with pytest.raises(ValueError):
+        tim.int8_matmul(xq.float(), wq, xs, ws)               # not int8
+    with pytest.raises(ValueError):
+        tim.int8_matmul(xq, wq[:32], xs, ws)                  # K mismatch
+    assert ops.launch_counts()["int8_matmul"] == 1

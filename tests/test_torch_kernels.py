@@ -13,7 +13,10 @@ Tolerances (two frameworks, two BLAS libraries, sums in other orders):
   * layernorm, tds_conv: atol 1e-5 (rtol 1e-5) — fp32 sums of at most a
     few hundred terms of O(1) values;
   * hypothesis unit: idx/valid exact, pb/pnb rtol 1e-5 — exp/log differ
-    by an ulp across frameworks.
+    by an ulp across frameworks;
+  * int8 path: bitwise — the integer product is exact in both packages,
+    and quantization and rescale are the same IEEE fp32 operations in
+    the same order.
 """
 import numpy as np
 import pytest
@@ -23,11 +26,12 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.policy import KernelPolicy as JaxPolicy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import (hypothesis_unit as thu,  # noqa: E402
-                                 layernorm as tln, logmel as tlm,
-                                 tds_conv as ttc)
+                                 int8_matmul as tim, layernorm as tln,
+                                 logmel as tlm, ref as tref, tds_conv as ttc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
 
 torch.set_num_threads(1)
@@ -59,6 +63,103 @@ def test_logmel_matches_jax(t, c, mode):
     got = tops.logmel(_t(p), _t(fb), _t(dct))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul and its quantization helpers
+# ---------------------------------------------------------------------------
+INT8_SHAPES = [(8, 128, 128), (32, 256, 64), (100, 200, 96), (1, 1200, 600),
+               (128, 128, 128)]       # the sweep of tests/test_kernels.py
+
+
+def _int8_operands(seed, m, k, n):
+    r = np.random.RandomState(seed)
+    xq = r.randint(-127, 128, (m, k)).astype(np.int8)
+    wq = r.randint(-127, 128, (k, n)).astype(np.int8)
+    xs = (r.rand(m) * 0.05 + 1e-3).astype(np.float32)
+    ws = (r.rand(n) * 0.05 + 1e-3).astype(np.float32)
+    return xq, wq, xs, ws
+
+
+@pytest.mark.parametrize("mode", JAX_MODES)
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+def test_int8_matmul_ref_matches_jax(m, k, n, mode):
+    """The plain version against the JAX oracle and the Pallas kernel in
+    interpret mode (through the JAX package's own padding dispatch)."""
+    xq, wq, xs, ws = _int8_operands(m + k + n, m, k, n)
+    want = jops._int8_dispatch(jnp.asarray(xq), jnp.asarray(wq),
+                               jnp.asarray(xs), jnp.asarray(ws), mode,
+                               bm=128, bn=128, bk=128)
+    got = tref.int8_matmul(_t(xq), _t(wq), _t(xs), _t(ws))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_int8_matmul_exact_beyond_fp32_integers():
+    """|acc| up to 127^2 * 1840 > 2^24: the accumulator stays exact (an
+    fp32 product would round it)."""
+    k = 1840
+    xq = np.full((3, k), 127, np.int8)
+    xq[1, ::2] = -127
+    xq[2, 0] = 1
+    wq = np.full((k, 5), 127, np.int8)
+    wq[3, 1] = -1
+    xs = np.array([1.0, 0.5, 2.0], np.float32)
+    ws = np.array([1.0, 1.0, 0.25, 3.0, 1.0], np.float32)
+    acc = xq.astype(np.int64) @ wq.astype(np.int64)
+    assert np.abs(acc).max() > 2 ** 24
+    got = tref.int8_matmul(_t(xq), _t(wq), _t(xs), _t(ws)).numpy()
+    np.testing.assert_array_equal(
+        got, acc.astype(np.float32) * xs[:, None] * ws[None, :])
+    np.testing.assert_array_equal(got, np.asarray(jref.int8_matmul(
+        jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(xs), jnp.asarray(ws))))
+
+
+@pytest.mark.parametrize("m,k", [(64, 1200), (16, 1840), (9, 200), (1, 1200),
+                                 (3, 7)])
+def test_quantize_rows_and_prepare_match_jax(m, k):
+    x = _np(m * k, m, k, scale=2.0)
+    jq, js = jops.quantize_rows(jnp.asarray(x))
+    tq, ts = tops.quantize_rows(_t(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jwq, jws = jops.prepare_int8_weights(jnp.asarray(x))
+    twq, tws = tops.prepare_int8_weights(_t(x))
+    assert tuple(twq.shape) == (m, k) and twq.t().is_contiguous()
+    np.testing.assert_array_equal(twq.numpy(), np.asarray(jwq))
+    np.testing.assert_array_equal(tws.numpy(), np.asarray(jws))
+
+
+def test_quantize_rows_zero_row_and_ties():
+    x = np.zeros((2, 4), np.float32)
+    x[1] = [127.0, 0.5, 1.5, -2.5]       # scale 1: halves round to even
+    tq, ts = tops.quantize_rows(_t(x))
+    assert tq[0].tolist() == [0, 0, 0, 0] and float(ts[0]) == 0.0
+    assert tq[1].tolist() == [127, 0, 2, -2]
+    jq, _ = jops.quantize_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+
+
+@pytest.mark.parametrize("mode", JAX_MODES)
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES + [(9, 200, 96)])
+def test_int8_matmul_pipeline_matches_jax(m, k, n, mode):
+    """Float in, float out: quantize both operands, int8 product, rescale;
+    prepared weights give the same bits as the one-shot call."""
+    x, w = _np(m, m, k), _np(n, k, n)
+    want = jops.int8_matmul(jnp.asarray(x), jnp.asarray(w),
+                            policy=JaxPolicy(mode))
+    got = tops.int8_matmul(_t(x), _t(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    wq, ws = tops.prepare_int8_weights(_t(w))
+    assert torch.equal(tops.int8_matmul_prepared(_t(x), wq, ws), got)
+
+
+def test_int8_matmul_prepared_refuses_a_mesh_axis():
+    x, w = _t(_np(0, 4, 16)), _t(_np(1, 16, 8))
+    wq, ws = tops.prepare_int8_weights(w)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        tops.int8_matmul_prepared(x, wq, ws, axis="model")
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +330,12 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     bb = tops.hypothesis_unit(h, pb, pnb, 8, 5.0)
     for key in a:
         assert torch.equal(a[key], bb[key]), key
+    xq, wq, xs, ws = (_t(a) for a in _int8_operands(10, 5, 40, 24))
+    assert torch.equal(tim.int8_matmul(xq, wq, xs, ws),
+                       tref.int8_matmul(xq, wq, xs, ws))
     assert tops.launch_counts() == {"logmel": 0, "tds_conv": 0,
-                                    "layernorm": 0, "hypothesis_unit": 0}
+                                    "layernorm": 0, "hypothesis_unit": 0,
+                                    "int8_matmul": 0}
 
 
 def test_kernel_policy_resolution():

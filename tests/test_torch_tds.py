@@ -12,7 +12,15 @@ Tolerances:
   * forward_batched log-probs: atol 1e-4 — 79 kernels of fp32 sums in
     another order, on log-probs of magnitude ~log(V);
   * stream state: atol 1e-5 — the carried left context is the input of
-    each conv (LayerNorm outputs and raw features).
+    each conv (LayerNorm outputs and raw features);
+  * quantized weights and scales (`quantize_params`): exact;
+  * int8 forward_batched log-probs: atol 1e-4, as for fp32.  The int8
+    products themselves are bitwise equal (tests/test_torch_kernels.py),
+    but they quantize activations that differ from the reference's in
+    the last ulp, and an activation at a rounding boundary then lands on
+    the other int8 value: at (B, T) = (2, 32) and (3, 32) one such flip
+    moved a frame's log-probs by 0.022-0.031.  The shapes below are
+    ones where no activation flips on this CPU (measured max 1.4e-6).
 """
 import numpy as np
 import pytest
@@ -89,7 +97,7 @@ def test_kernel_specs_census_and_step_plan_match_jax():
     assert ttds.kernel_census(tcfg.TDS_CONFIG) == \
         jtds.kernel_census(TDS_CONFIG) == \
         {"conv": 18, "fc": 29, "layernorm": 32}
-    tp, jp = tplan.make_step_plan(), jplan.make_step_plan()
+    tp, jp = tplan.make_step_plan(beam_k=64), jplan.make_step_plan(beam_k=64)
     assert (tp.samples_per_step, tp.feat_frames_per_step,
             tp.acoustic_frames_per_step, tp.total_threads()) == \
         (jp.samples_per_step, jp.feat_frames_per_step,
@@ -165,9 +173,73 @@ def test_forward_streaming_matches_offline_and_batched(demo):
     torch.testing.assert_close(blp[0], off, rtol=1e-5, atol=1e-5)
 
 
+# ---------------------------------------------------------------------------
+# int8 program
+# ---------------------------------------------------------------------------
+def test_quantize_params_matches_jax(demo):
+    tds_cfg, t_cfg, jparams, tparams = demo
+    want = jtds.quantize_params(jparams, tds_cfg)
+    got = ttds.quantize_params(tparams, t_cfg)
+    assert got.keys() == want.keys() and len(got) == sum(
+        s.kind in ("fc", "head") for s in ttds.build_kernel_specs(t_cfg))
+    for name in want:
+        assert got[name]["wq"].dtype == torch.int8
+        np.testing.assert_array_equal(got[name]["wq"].numpy(),
+                                      np.asarray(want[name]["wq"]), name)
+        np.testing.assert_array_equal(got[name]["ws"].numpy(),
+                                      np.asarray(want[name]["ws"]), name)
+
+
+def _int8_forward_pair(demo, batch, t, prepared):
+    tds_cfg, t_cfg, jparams, tparams = demo
+    feats = _signal(10 + batch, batch, t, 80)
+    jstate = jtds.init_batched_stream_state(tds_cfg, batch)
+    rng = np.random.RandomState(3)
+    jstate = {k: jnp.asarray(rng.randn(*v.shape).astype(np.float32))
+              for k, v in jstate.items()}          # a mid-utterance context
+    jprep = jtds.quantize_params(jparams, tds_cfg) if prepared else None
+    tprep = ttds.quantize_params(tparams, t_cfg) if prepared else None
+    fwd = jax.jit(lambda p, q, f, s: jtds.forward_batched(
+        p, tds_cfg, f, s, use_int8=True, kernels=JaxPolicy("ref"),
+        prepared=q))
+    want_lp, want_st = fwd(jparams, jprep, jnp.asarray(feats), jstate)
+    tstate = {k: torch.from_numpy(np.array(v)) for k, v in jstate.items()}
+    got_lp, got_st = ttds.forward_batched(
+        tparams, t_cfg, torch.from_numpy(feats), tstate, use_int8=True,
+        prepared=tprep)
+    return got_lp, want_lp, got_st, want_st
+
+
+@pytest.mark.parametrize("prepared", [True, False])
+@pytest.mark.parametrize("batch,t", [(1, 8), (4, 16)])
+def test_int8_forward_batched_matches_jax(demo, batch, t, prepared):
+    got_lp, want_lp, got_st, want_st = _int8_forward_pair(demo, batch, t,
+                                                          prepared)
+    assert tuple(got_lp.shape) == tuple(want_lp.shape)
+    np.testing.assert_allclose(got_lp.numpy(), np.asarray(want_lp), atol=1e-4)
+    for k in want_st:
+        np.testing.assert_allclose(got_st[k].numpy(), np.asarray(want_st[k]),
+                                   atol=1e-5, err_msg=k)
+
+
 def test_int8_program_raises_not_implemented(demo):
-    _, t_cfg, _, tparams = demo
-    with pytest.raises(NotImplementedError, match="int8"):
-        ttds.forward_batched(tparams, t_cfg, torch.zeros(1, 8, 80),
-                             ttds.init_batched_stream_state(t_cfg, 1),
-                             use_int8=True)
+    """The int8 program runs (it raised NotImplementedError before it was
+    ported): `forward`, the B=1 slice, with prepared weights equals the
+    JAX package's int8 forward, and offline equals streaming."""
+    tds_cfg, t_cfg, jparams, tparams = demo
+    feats = _signal(21, 16, 80)
+    want, _ = jax.jit(lambda p, q, f: jtds.forward(
+        p, tds_cfg, f, use_int8=True, kernels=JaxPolicy("ref"),
+        prepared=q))(jparams, jtds.quantize_params(jparams, tds_cfg),
+                     jnp.asarray(feats))
+    prep = ttds.quantize_params(tparams, t_cfg)
+    got, _ = ttds.forward(tparams, t_cfg, torch.from_numpy(feats),
+                          use_int8=True, prepared=prep)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    st, parts = None, []
+    for c in range(2):
+        lp, st = ttds.forward(tparams, t_cfg,
+                              torch.from_numpy(feats[8 * c:8 * (c + 1)]), st,
+                              use_int8=True, prepared=prep)
+        parts.append(lp)
+    torch.testing.assert_close(torch.cat(parts), got, rtol=1e-5, atol=1e-5)
