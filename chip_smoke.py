@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's streaming ASR decode path on one GPU.
+"""Smoke run of the PyTorch port on one GPU: the streaming ASR decode path
+and batched LM serving.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero (no phase is caught):
-  1. build   — nvcc builds the five Hopper kernels from
-               src/repro_torch/kernels/csrc/ (one process per source).
+  1. build   — nvcc builds the seven Hopper kernels from the six sources
+               in src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
                the main path's shapes (int8_matmul bitwise, also at a
                ragged shape).
@@ -28,6 +29,21 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                (where one exists) at the full-width step shapes, the
                bound, step times per (b, w) for both programs, a profiler
                breakdown of one step of each.
+  LM phases (h2o-danube-1.8b at full width, seeded random weights):
+  7. lm kernels — flash_attention and rmsnorm vs their plain versions in
+               bf16 and fp32 at the prefill/decode shapes: GQA 32/8 with
+               D = 80, Sq < Skv, a window smaller than S, ragged S.
+  8. lm serve — bf16 `LmEngine` (4 slots, buckets 512/2048/6144, 32 new
+               tokens) serves 8 prompts of 100-6144 tokens, three longer
+               than the 4096 window; launch counts must be 24 flash
+               launches per prefill and 49 rmsnorm launches per forward;
+               prefill time per bucket, decode step time, tokens/s.
+  9. lm parity — the same model in fp32 served with the kernel and the
+               plain policy (4 prompts, one past the window): equal
+               tokens, prefill logits close; bf16 prefill logits close.
+ 10. lm timing — each LM kernel, its plain version and the library call
+               at S = 512/2048/6144 (and rmsnorm's decode rows), bounds,
+               a profiler breakdown of a prefill and a decode step.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -51,20 +67,24 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))     # the port, from this checkout
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.tds_asr import (DECODER_CONFIG,  # noqa: E402
                                          FEATURE_CONFIG, TDS_CONFIG)
 from repro_torch.core import features, lexicon as lx  # noqa: E402
 from repro_torch.data.pipeline import SyntheticASR  # noqa: E402
 from repro_torch.core.scheduler import ASRPU  # noqa: E402
 from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
+                                 flash_attention as kfa,
                                  hypothesis_unit as khu, int8_matmul as kim,
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
-from repro_torch.models import tds  # noqa: E402
-from repro_torch.serving import AsrEngine, AsrProgram, EngineConfig  # noqa: E402
+from repro_torch.models import LM, tds  # noqa: E402
+from repro_torch.core.treeutil import tree_map  # noqa: E402
+from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
+                                 EngineConfig, LmEngine, LmProgram)
 
 OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
@@ -74,8 +94,10 @@ SEED = 0
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 KERNELS = ("logmel", "tds_conv", "layernorm", "hypothesis_unit",
            "int8_matmul")
+LM_KERNELS = ("rmsnorm", "flash_attention")
 
 # tolerances of the kernel checks (kernel vs plain version on the card)
 TOL = {"logmel": dict(rtol=1e-4, atol=1e-3),
@@ -100,7 +122,41 @@ REPLACES = {
     "layernorm": "src/repro/kernels/layernorm.py:32",
     "hypothesis_unit": "src/repro/kernels/hypothesis_unit.py:45",
     "int8_matmul": "src/repro/kernels/int8_matmul.py:42",
+    "rmsnorm": "src/repro/kernels/layernorm.py:32",
+    "flash_attention": "src/repro/kernels/flash_attention.py:80",
 }
+SOURCES = {"rmsnorm": "layernorm"}      # kernel -> csrc file stem
+
+# LM kernels vs their plain versions: both compute in fp32 and round once
+# to the output type, so bf16 may differ by one bf16 ulp (2^-8 relative)
+# where the fp32 values straddle a rounding boundary.
+LM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# LM prefill logits, kernel path vs plain path, as max|diff| over
+# max|logit|: fp32 paths differ only in summation order (~1e-6 per
+# attention output), bf16 paths by bf16 roundings compounded over 24
+# layers.
+LM_LOGIT_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+LM_ARCH = "h2o-danube-1.8b"
+LM_BUCKETS = (512, 2048, 6144)
+LM_MAX_NEW = 32
+LM_SLOTS = 4
+# 8 prompts for the bf16 serve: three past the 4096 window; the first
+# four admit alone, the second four after the first wave finishes, as
+# one group per bucket (2048: two rows).  4 prompts for the fp32
+# kernel-vs-plain serve, one past the window: each admits alone, so no
+# multi-row group reaches the plain path's 6144 bucket (its scores are
+# 4.8 GB per row there).
+LM_PROMPTS = (100, 6144, 700, 4500, 1800, 5000, 300, 2048)
+LM_PARITY_PROMPTS = (4500, 300, 1500, 100)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def fail(msg: str) -> None:
@@ -445,10 +501,11 @@ def full_phase(dev, system, utts, use_int8=False):
     counts = ops.launch_counts()
     steps = list(eng.step_shapes)
     n_steps = len(steps)
-    expect = {"logmel": n_steps, "tds_conv": 18 * n_steps,
-              "layernorm": 32 * n_steps,
-              "hypothesis_unit": sum(w for _, _, w in steps),
-              "int8_matmul": 29 * n_steps if use_int8 else 0}
+    expect = {name: 0 for name in counts}       # the LM kernels: none
+    expect.update({"logmel": n_steps, "tds_conv": 18 * n_steps,
+                   "layernorm": 32 * n_steps,
+                   "hypothesis_unit": sum(w for _, _, w in steps),
+                   "int8_matmul": 29 * n_steps if use_int8 else 0})
     print(f"[{tag}] served {len(utts)} utterances over 4 slots in "
           f"{wall:.3f} s (first use included): {n_steps} steps, "
           f"(n_active, b, w) = {steps}", flush=True)
@@ -742,9 +799,18 @@ def profile_step(dev, system, utts, step_ms: float,
         eng.feed_slot(s, utts[s])
     eng._step_slots([0, 1, 2, 3], 4, commit=False)
     torch.cuda.synchronize()
+    return device_breakdown(
+        lambda: eng._step_slots([0, 1, 2, 3], 4, commit=False), tag,
+        "b=4 w=4 kernel-path step", step_ms)
+
+
+def device_breakdown(fn, tag: str, what: str, step_ms: float) -> dict:
+    """Device time by kernel over one call of `fn` (warmed up by the
+    caller) under the profiler, and the device's idle share of the
+    unprofiled wall time `step_ms` of the same call."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng._step_slots([0, 1, 2, 3], 4, commit=False)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -759,7 +825,7 @@ def profile_step(dev, system, utts, step_ms: float,
         print(f"[profile] {tag}: the profiler recorded no device events: "
               f"device busy time and idle share not measured", flush=True)
         return {"step_ms": step_ms, "device_busy_ms": None}
-    print(f"[profile] {tag} b=4 w=4 kernel-path step: {n_events} device "
+    print(f"[profile] {tag} {what}: {n_events} device "
           f"events, device busy {busy:.3f} ms of the unprofiled "
           f"{step_ms:.3f} ms step: idle share "
           f"{max(0.0, 1 - busy / step_ms):.3f}", flush=True)
@@ -777,6 +843,340 @@ def profile_step(dev, system, utts, step_ms: float,
             "device_events": n_events,
             "by_kernel": [list(r) for r in rows[:60]],
             "host_by_op": [list(r) for r in host[:40]]}
+
+
+# ---------------------------------------------------------------------------
+# LM phases: h2o-danube-1.8b at full width
+# ---------------------------------------------------------------------------
+def attn_pairs(sq: int, skv: int, window, causal: bool = True) -> int:
+    """Unmasked (q, k) pairs of one head, q right-aligned to the end of
+    kv: the work the flash kernel's inputs need."""
+    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attn_inputs(dev, gen, b, h, kv, sq, skv, d, dtype):
+    return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                 for shape in ((b, h, sq, d), (b, kv, skv, d),
+                               (b, kv, skv, d)))
+
+
+def check_lm_kernels(dev) -> dict:
+    """flash_attention and rmsnorm vs their plain versions (LM_TOL) at
+    the full-width shapes, bf16 and fp32."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    err = {}
+    # (B, H, K, Sq, Skv, D, causal, window): the three prefill buckets, a
+    # 2-row group, Sq < Skv, a window smaller than S, a ragged S
+    cases = [(1, 32, 8, 512, 512, 80, True, 4096),
+             (1, 32, 8, 2048, 2048, 80, True, 4096),
+             (1, 32, 8, 6144, 6144, 80, True, 4096),
+             (2, 32, 8, 2048, 2048, 80, True, 4096),
+             (2, 32, 8, 77, 2100, 80, True, 4096),
+             (1, 32, 8, 1000, 1000, 80, True, 300),
+             (1, 32, 8, 300, 300, 80, True, 4096)]
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for b, h, kv, sq, skv, d, causal, win in cases:
+            q, k, v = attn_inputs(dev, gen, b, h, kv, sq, skv, d, dtype)
+            got = kfa.flash_attention(q, k, v, causal=causal, window=win)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(q, k, v, causal=causal, window=win)
+            d_ = (got.float() - want.float()).abs().max().item()
+            err["flash_attention"] = max(err.get("flash_attention", 0.0), d_)
+            label = (f"{tag} B={b} H={h}/{kv} Sq={sq} Skv={skv} D={d} "
+                     f"w={win}")
+            try:
+                torch.testing.assert_close(got, want, **LM_TOL[dtype])
+            except AssertionError as e:
+                fail(f"flash_attention {label}: kernel disagrees with its "
+                     f"plain version: {e}")
+            print(f"[lm kernels] flash_attention {label:44s} max|err| "
+                  f"{d_:.3e} ok", flush=True)
+            del q, k, v, got, want
+        torch.cuda.empty_cache()
+        for rows in (1, 4, 512, 2048, 6144):
+            x = torch.randn((rows, 2560), generator=gen).to(dev, dtype)
+            sc = (1 + 0.1 * torch.randn((2560,), generator=gen)).to(dev)
+            got = kln.rmsnorm(x, sc)
+            torch.cuda.synchronize()
+            want = ref.rmsnorm(x, sc)
+            d_ = (got.float() - want.float()).abs().max().item()
+            err["rmsnorm"] = max(err.get("rmsnorm", 0.0), d_)
+            try:
+                torch.testing.assert_close(got, want, **LM_TOL[dtype])
+            except AssertionError as e:
+                fail(f"rmsnorm {tag} R={rows}: kernel disagrees with its "
+                     f"plain version: {e}")
+            print(f"[lm kernels] rmsnorm {tag} R={rows} D=2560: max|err| "
+                  f"{d_:.3e} ok", flush=True)
+    return err
+
+
+def lm_prompts(lengths, vocab: int, seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, n).astype(np.int32) for n in lengths]
+
+
+def lm_engine(dev, cfg, params, policy) -> LmEngine:
+    program = LmProgram(cfg, cache_len=LM_BUCKETS[-1] + LM_MAX_NEW,
+                        max_new=LM_MAX_NEW, prefill_buckets=LM_BUCKETS)
+    return LmEngine(EngineConfig(program, n_slots=LM_SLOTS, kernels=policy),
+                    params, device=dev)
+
+
+def timed_engine(eng: LmEngine):
+    """Record each prefill's (batch, bucket) and each decode step's wall
+    time (ms, synchronized) on `eng`; returns the two lists."""
+    prefills, steps = [], []
+    prefill, decode = eng._prefill, eng.lm.decode_step
+
+    def timed_prefill(tokens, lengths):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(tokens, lengths)
+        torch.cuda.synchronize()
+        prefills.append((tuple(tokens.shape),
+                         (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def timed_decode(params, cache, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(params, cache, batch)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._prefill = timed_prefill
+    eng.lm.decode_step = timed_decode
+    return prefills, steps
+
+
+def lm_serve_phase(dev, cfg, params) -> dict:
+    """The main LM path: bf16 full width through `LmEngine`."""
+    eng = lm_engine(dev, cfg, params, KernelPolicy("auto"))
+    prefills, steps = timed_engine(eng)
+    eng.serve(lm_prompts((64,), cfg.vocab_size, seed=SEED + 9))   # warm-up
+    prefills.clear()
+    steps.clear()
+    prompts = lm_prompts(LM_PROMPTS, cfg.vocab_size)
+    n0 = eng.n_steps
+    torch.cuda.synchronize()
+    # ---- the main path: counts set to 0 just before, read just after --
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.serve(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_pre, n_dec = len(prefills), eng.n_steps - n0
+    expect = {name: 0 for name in counts}
+    expect["flash_attention"] = cfg.n_layers * n_pre
+    expect["rmsnorm"] = (2 * cfg.n_layers + 1) * (n_pre + n_dec)
+    print(f"[lm serve] {cfg.name} bf16, {LM_SLOTS} slots: {len(prompts)} "
+          f"requests of {list(LM_PROMPTS)} tokens, {n_pre} prefills "
+          f"{[p[0] for p in prefills]}, {n_dec} decode steps in "
+          f"{wall:.3f} s", flush=True)
+    print(f"[lm serve] launch counts {counts}, expected {expect}", flush=True)
+    if counts != expect or not n_pre or not n_dec:
+        fail(f"LM launch counts {counts} != expected {expect}")
+    for i, toks in enumerate(out):
+        if len(toks) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in toks):
+            fail(f"LM request {i}: {len(toks)} tokens, range "
+                 f"[{min(toks)}, {max(toks)}] (vocab {cfg.vocab_size})")
+    n_tok = sum(len(t) for t in out)
+    by_bucket = {}
+    for shape, ms in prefills:
+        by_bucket.setdefault(f"B={shape[0]} S={shape[1]}", []).append(ms)
+    for key, ts in sorted(by_bucket.items()):
+        print(f"[lm serve] prefill {key}: {', '.join(f'{t:.2f}' for t in ts)}"
+              f" ms", flush=True)
+    step_ms = float(np.median(steps))
+    print(f"[lm serve] decode step at {LM_SLOTS} slots: median {step_ms:.3f}"
+          f" ms (min {min(steps):.3f}, max {max(steps):.3f}) over {n_dec}; "
+          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s "
+          f"(prefills included)", flush=True)
+    return {"engine": eng, "counts": counts, "prefills": prefills,
+            "prefill_ms": {k: float(np.median(v))
+                           for k, v in by_bucket.items()},
+            "decode_step_ms": step_ms, "decode_steps": steps,
+            "n_prefills": n_pre, "n_decode_steps": n_dec, "wall_s": wall,
+            "tokens": n_tok, "tokens_per_s": n_tok / wall}
+
+
+def padded(prompt, bucket, dev):
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :len(prompt)] = prompt
+    return (torch.from_numpy(toks).to(dev),
+            torch.tensor([len(prompt)], dtype=torch.int32, device=dev))
+
+
+def logit_gap(lm_k, lm_r, params, prompt, bucket, ring, vocab, dev) -> float:
+    """max|kernel - plain| / max|plain| of one prompt's prefill logits."""
+    toks, lens = padded(prompt, bucket, dev)
+    lk, _ = lm_k.prefill(params, {"tokens": toks}, lengths=lens,
+                         cache_len=ring)
+    lr, _ = lm_r.prefill(params, {"tokens": toks}, lengths=lens,
+                         cache_len=ring)
+    lk, lr = lk[:, :vocab].float(), lr[:, :vocab].float()
+    if not torch.isfinite(lk).all():
+        fail(f"non-finite prefill logits at {len(prompt)} tokens")
+    return ((lk - lr).abs().max() / lr.abs().max()).item()
+
+
+def lm_parity_phase(dev, cfg, params) -> dict:
+    """Kernel path vs plain path: fp32 tokens equal and prefill logits
+    close; bf16 prefill logits close."""
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = tree_map(lambda a: a.float(), params)
+    prompts = lm_prompts(LM_PARITY_PROMPTS, cfg.vocab_size, seed=SEED + 1)
+    res, engines = {}, {}
+    for mode in ("kernel", "ref"):
+        eng = lm_engine(dev, cfg32, params32, KernelPolicy(mode))
+        t0 = time.perf_counter()
+        res[mode] = eng.serve(prompts)
+        torch.cuda.synchronize()
+        print(f"[lm parity] fp32 policy={mode}: {len(prompts)} requests of "
+              f"{list(LM_PARITY_PROMPTS)} tokens, {eng.n_steps} decode "
+              f"steps, {time.perf_counter() - t0:.3f} s", flush=True)
+        engines[mode] = eng
+    n_eq = sum(a == b for a, b in zip(res["kernel"], res["ref"]))
+    print(f"[lm parity] fp32 tokens equal for {n_eq}/{len(prompts)} "
+          f"requests", flush=True)
+    if n_eq != len(prompts):
+        fail(f"fp32 kernel and plain paths' tokens differ: "
+             f"{res['kernel']} vs {res['ref']}")
+    ring = engines["kernel"]._ring_len
+    gaps = {}
+    for dtype, lms, p in (
+            (torch.float32, (engines["kernel"].lm, engines["ref"].lm),
+             params32),
+            (torch.bfloat16, (LM(cfg, KernelPolicy("kernel")),
+                              LM(cfg, KernelPolicy("ref"))), params)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for prompt in (prompts[0], prompts[1]):
+            bucket = engines["kernel"]._bucket(len(prompt))
+            g = logit_gap(*lms, p, prompt, bucket, ring, cfg.vocab_size, dev)
+            gaps[f"{tag} {len(prompt)} tokens"] = g
+            print(f"[lm parity] {tag} prefill logits, {len(prompt)} tokens "
+                  f"in bucket {bucket}: max|kernel - plain| / max|plain| = "
+                  f"{g:.3e} (limit {LM_LOGIT_RTOL[dtype]})", flush=True)
+            if g > LM_LOGIT_RTOL[dtype]:
+                fail(f"{tag} prefill logits: kernel vs plain relative gap "
+                     f"{g} > {LM_LOGIT_RTOL[dtype]}")
+    del engines, params32
+    torch.cuda.empty_cache()
+    return {"fp32_tokens_equal": n_eq, "logit_gaps": gaps}
+
+
+def lm_timing_phase(dev, cfg) -> dict:
+    """Per-launch device times of the LM kernels at the full-width
+    shapes, their plain versions, the library calls and the bounds."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    H, K, D, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.attn_window
+    out = {"flash_attention": {}, "rmsnorm": {}}
+    for S in LM_BUCKETS:
+        q, k, v = attn_inputs(dev, gen, 1, H, K, S, S, D, torch.bfloat16)
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & \
+            (pos[:, None] - pos[None, :] < win)
+
+        def sdpa(q=q, k=k, v=v, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+        try:
+            lib_err = (sdpa().float() - ref.flash_attention(
+                q, k, v, causal=True, window=win).float()).abs().max().item()
+        except (RuntimeError, TypeError) as e:    # a yardstick only
+            print(f"[lm timing] scaled_dot_product_attention refused S={S}: "
+                  f"{e}", flush=True)
+            sdpa, lib_err = None, None
+        pairs = attn_pairs(S, S, win)
+        flops = 4 * D * H * pairs
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        r = {"ms": device_ms(lambda q=q, k=k, v=v: kfa.flash_attention(
+                 q, k, v, causal=True, window=win), n=10),
+             "plain_ms": device_ms(lambda q=q, k=k, v=v: ref.flash_attention(
+                 q, k, v, causal=True, window=win), n=5),
+             "library_ms": None if sdpa is None else device_ms(sdpa, n=10),
+             "bound_ms": bound_ms(nbytes, flops, PEAK_BF16),
+             "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16
+             else "operations",
+             "pairs": pairs, "flops": flops, "bytes": nbytes,
+             "library_max_abs_err": lib_err}
+        out["flash_attention"][S] = r
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.1f}")
+        print(f"[lm timing] flash_attention bf16 S={S} (1, {H}/{K}, {S}, {D}) "
+              f"w={win}: kernel {r['ms'] * 1e3:.1f} us, plain "
+              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib} us "
+              f"(max|diff| {lib_err}), bound {r['bound_ms'] * 1e3:.1f} us "
+              f"({r['bound_by']}; {pairs} pairs/head); "
+              f"{flops / r['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    D_ = cfg.d_model
+    for rows in (1, LM_SLOTS) + LM_BUCKETS:
+        x = torch.randn((rows, D_), generator=gen).to(dev, torch.bfloat16)
+        sc = torch.ones((D_,), device=dev)
+        sc16 = sc.to(torch.bfloat16)
+        nbytes = 2 * 2 * rows * D_ + 4 * D_
+        flops = 4 * rows * D_
+        r = {"ms": device_ms(lambda x=x, sc=sc: kln.rmsnorm(x, sc)),
+             "plain_ms": device_ms(lambda x=x, sc=sc: ref.rmsnorm(x, sc)),
+             "library_ms": device_ms(lambda x=x, sc16=sc16: F.rms_norm(
+                 x, (D_,), weight=sc16, eps=1e-6)),
+             "bound_ms": bound_ms(nbytes, flops, PEAK_BF16),
+             "bound_by": "bytes", "bytes": nbytes}
+        out["rmsnorm"][rows] = r
+        print(f"[lm timing] rmsnorm bf16 ({rows}, {D_}): kernel "
+              f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"F.rms_norm {r['library_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.3f} us (bytes); "
+              f"{nbytes / r['ms'] / 1e6:.1f} GB/s", flush=True)
+    return out
+
+
+def lm_kernel_rows(cfg, timing) -> dict:
+    """The kernels JSON numbers of the LM kernels: the launches of one
+    6144-token prefill (24 flash launches at S = 6144; 48 rmsnorm
+    launches over 6144 rows and the final one over the last row)."""
+    S, L = LM_BUCKETS[-1], cfg.n_layers
+    fa, rn = timing["flash_attention"][S], timing["rmsnorm"]
+    rows = {"flash_attention": {
+        key: None if fa[key] is None else L * fa[key]
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    rows["flash_attention"]["bound_by"] = fa["bound_by"]
+    rows["rmsnorm"] = {key: 2 * L * rn[S][key] + rn[1][key]
+                       for key in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+    rows["rmsnorm"]["bound_by"] = "bytes"
+    rows["flash_attention"]["work"] = (
+        f"the {L} launches of one {S}-token prefill (device time)")
+    rows["rmsnorm"]["work"] = (
+        f"the {2 * L + 1} launches of one {S}-token prefill: {2 * L} over "
+        f"{S} rows, 1 over the last row (device time)")
+    return rows
+
+
+def lm_profile(eng, dev, vocab, prefill_ms, step_ms) -> dict:
+    """Profiler breakdowns of one 2048-token prefill (1 row) and one
+    decode step at LM_SLOTS slots on the bf16 kernel path."""
+    toks, lens = padded(lm_prompts((2048,), vocab, seed=SEED + 4)[0], 2048,
+                        dev)
+    eng._prefill(toks, lens)
+    pre = device_breakdown(lambda: eng._prefill(toks, lens), "lm bf16",
+                           "1-row 2048-token prefill", prefill_ms)
+    batch = {"tokens": eng._tokens}
+    eng.lm.decode_step(eng.params, eng.cache, batch)
+    dec = device_breakdown(
+        lambda: eng.lm.decode_step(eng.params, eng.cache, batch), "lm bf16",
+        f"decode step at {LM_SLOTS} slots", step_ms)
+    return {"prefill_2048": pre, "decode_step": dec}
 
 
 # ---------------------------------------------------------------------------
@@ -840,6 +1240,36 @@ def main() -> None:
     prof8 = profile_step(dev, system, utts, steps_ms["int8 kernel b=4 w=4"],
                          use_int8=True)
     torch.cuda.synchronize()
+    del system
+    torch.cuda.empty_cache()
+
+    # 7. LM kernel checks
+    lm_errs = check_lm_kernels(dev)
+    torch.cuda.empty_cache()
+
+    # 8. the LM main path: full-width bf16 serving
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.attn_window}; "
+          f"{n_params} parameters ({cfg.dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    serve = lm_serve_phase(dev, cfg, params)
+
+    # 9. kernel path vs plain path
+    parity = lm_parity_phase(dev, cfg, params)
+
+    # 10. LM timing and profile
+    lm_timing = lm_timing_phase(dev, cfg)
+    lm_prof = lm_profile(serve["engine"], dev, cfg.vocab_size,
+                         serve["prefill_ms"]["B=1 S=2048"],
+                         serve["decode_step_ms"])
+    torch.cuda.synchronize()
+    lm_rows = lm_kernel_rows(cfg, lm_timing)
 
     kernels = []
     for name in KERNELS:
@@ -859,16 +1289,40 @@ def main() -> None:
         })
         if r["context_ms"] is not None:
             kernels[-1]["fp32_matmul_ms"] = r["context_ms"]
+    for name in LM_KERNELS:
+        r = lm_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/"
+                      f"{SOURCES.get(name, name)}.cu",
+            "replaces": REPLACES[name], "launches": serve["counts"][name],
+            "max_abs_err": lm_errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "work": r["work"]})
+    lm_results = {
+        "arch": cfg.name, "parameters": n_params,
+        "launch_counts": serve["counts"],
+        "prefills": serve["prefills"], "prefill_ms": serve["prefill_ms"],
+        "decode_step_ms": serve["decode_step_ms"],
+        "decode_steps_ms": serve["decode_steps"],
+        "n_prefills": serve["n_prefills"],
+        "n_decode_steps": serve["n_decode_steps"],
+        "wall_s": serve["wall_s"], "tokens": serve["tokens"],
+        "tokens_per_s": serve["tokens_per_s"], "parity": parity,
+        "timing": {k: {str(n): r for n, r in v.items()}
+                   for k, v in lm_timing.items()},
+        "profile": lm_prof}
     (OUT / "results.json").write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "build_s": build_s, "kernels": kernels, "steps": steps,
         "launch_counts": counts, "logp_max_abs_err": lp_err,
         "int8_steps": steps8, "int8_launch_counts": counts8,
         "int8_logp_max_abs_err": lp_err8, "shim_launch_counts": shim_counts,
-        "step_ms": steps_ms, "profile": prof, "profile_int8": prof8},
-        indent=1))
+        "step_ms": steps_ms, "profile": prof, "profile_int8": prof8,
+        "lm": lm_results}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
-          f"{counts8}", flush=True)
+          f"{counts8}; on the LM path: {serve['counts']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

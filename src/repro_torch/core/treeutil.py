@@ -6,9 +6,12 @@ and the decoder `BeamState` (a NamedTuple of tensors) — carries a
 leading slot axis.  Broadcast a single-stream init to B slots, and
 reset one slot back to a fresh init (utterance boundary in that slot).
 Both return new tensors: pool state is never updated in place.
+`params_from_numpy` carries a parameter tree of arrays (the reference's
+included) across as tensors.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +39,19 @@ def set_slot(tree, slot, fresh):
         out[slot] = f
         return out
     return tree_map(put, tree, fresh)
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A parameter (or cache) tree of arrays — numpy, or anything
+    `np.asarray` accepts, the JAX package's arrays included — or tensors,
+    as torch tensors on `device`.  bfloat16 leaves (ml_dtypes' `bfloat16`
+    in numpy) are carried bit for bit through their uint16 view."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    a = np.array(tree, order="C")        # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)

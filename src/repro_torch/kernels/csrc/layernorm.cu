@@ -1,11 +1,18 @@
-// Row LayerNorm for Hopper: fp32 two-pass statistics, then the affine step.
+// Row LayerNorm and RMSNorm for Hopper, fp32 statistics.
 //
-// Replaces the TPU kernel `norm_pallas(kind="layernorm")`
-// (src/repro/kernels/layernorm.py).  One block per row (D <= a few
-// thousand): the row is read from device memory once into shared memory,
-// the mean and then the mean of squared deviations are reduced with warp
-// shuffles plus a shared-memory pass (the same two-pass statistics as the
-// TPU kernel), and the normalised, scaled and shifted row is written once.
+// Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py),
+// both kinds.  One block per row (D <= a few thousand): the row is read
+// from device memory once into shared memory as fp32, the statistics are
+// reduced with warp shuffles plus a shared-memory pass, and the
+// normalised row is written once.
+//   * layernorm (fp32 rows): the mean, then the mean of squared
+//     deviations (the same two-pass statistics as the TPU kernel), then
+//     (x - mu) * rsqrt(var + eps) * scale + bias.
+//   * rmsnorm (fp32 or bf16 rows, fp32 scale): var = mean(x^2), then
+//     (x * rsqrt(var + eps)) * scale, cast to the row's type last, the
+//     order of `apply_norm` in src/repro/models/layers.py.
+// Both are bound by bytes: each row is read once and written once.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include "smem.cuh"
 
@@ -57,6 +64,46 @@ layernorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
     out[base + i] = (xs[i] - mu) * inv * scale[i] + bias[i];
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+               T* __restrict__ out, int D, float eps) {
+  extern __shared__ float xs[];    // the row, as fp32
+  __shared__ float red[33];
+  const size_t base = (size_t)blockIdx.x * D;
+  float q = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const float v = to_float(x[base + i]);
+    xs[i] = v;
+    q = fmaf(v, v, q);
+  }
+  const float var = block_sum(q, red) / (float)D;
+  const float inv = rsqrtf(var + eps);
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    store(out + base + i, (xs[i] * inv) * scale[i]);
+}
+
+template <typename T>
+int rmsnorm_go(const void* x, const void* scale, void* out, int R, int D,
+               float eps, cudaStream_t stream) {
+  const size_t smem = (size_t)D * sizeof(float);
+  static size_t allowed = 0;           // dynamic smem opted in so far
+  const cudaError_t e = allow_smem(rmsnorm_kernel<T>, smem, &allowed);
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_kernel<T><<<R, LN_THREADS, smem, stream>>>(
+      (const T*)x, (const float*)scale, (T*)out, D, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int layernorm_launch(const void* x, const void* scale,
@@ -71,4 +118,14 @@ extern "C" int layernorm_launch(const void* x, const void* scale,
       (const float*)x, (const float*)scale, (const float*)bias, (float*)out,
       D, eps);
   return (int)cudaGetLastError();
+}
+
+// bf16: x and out are bf16, else fp32; scale is fp32 either way.
+extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out,
+                              int R, int D, float eps, int bf16,
+                              void* stream) {
+  if (R <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) return rmsnorm_go<__nv_bfloat16>(x, scale, out, R, D, eps, s);
+  return rmsnorm_go<float>(x, scale, out, R, D, eps, s);
 }

@@ -1,16 +1,19 @@
-"""Row LayerNorm with fp32 statistics (mean, then mean of squared deviations).
+"""Row LayerNorm and RMSNorm with fp32 statistics.
 
-Replaces the TPU kernel `norm_pallas(kind="layernorm")`
-(src/repro/kernels/layernorm.py); its `kind="rmsnorm"` half serves the
-LM stack and is not ported yet.  CUDA source: `csrc/layernorm.cu`.
+Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py):
+`layernorm` its `kind="layernorm"` half (the TDS acoustic model),
+`rmsnorm` its `kind="rmsnorm"` half (every norm of the LM stack).  CUDA
+source: `csrc/layernorm.cu`.  Each wrapper counts its own launches.
 
-What bounds it on the H100: bytes.  Each row of D <= 1840 floats is read
-once and written once, and the arithmetic is a handful of operations per
-element.  The design: one block per row, the row staged in shared
-memory so the two reduction passes and the affine step read device
-memory once, warp-shuffle reductions.
+What bounds them on the H100: bytes.  Each row (D <= 1840 floats for the
+TDS LayerNorms, D = 2560 bf16 for h2o-danube-1.8b) is read once and
+written once, and the arithmetic is a handful of operations per element.
+The design: one block per row, the row staged in shared memory as fp32
+so the reduction and the normalising pass read device memory once,
+warp-shuffle reductions.
 
-On a CPU tensor the wrapper runs the plain version (`ref.layernorm`).
+On a CPU tensor a wrapper runs its plain version (`ref.layernorm`,
+`ref.rmsnorm`).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0        # kernel launches made by this wrapper
+launches = 0            # kernel launches made by `layernorm`
+rmsnorm_launches = 0    # kernel launches made by `rmsnorm`
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -41,4 +45,29 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         R, D, float(eps), _build.stream(dev))
     _build.check(err, "layernorm")
     launches += 1
+    return out
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: (R, D) bf16 or f32; scale: (D,) f32 -> (R, D) in x's dtype."""
+    global rmsnorm_launches
+    if not x.is_cuda:
+        return ref.rmsnorm(x, scale, eps=eps)
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rmsnorm: expected float32 or bfloat16 rows, got "
+                         f"{x.dtype}")
+    _build.require(x, "x", x.dtype, 2, dev)
+    _build.require(scale, "scale", torch.float32, 1, dev)
+    R, D = x.shape
+    if scale.shape[0] != D:
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}")
+    out = torch.empty_like(x)
+    err = _build.lib().rmsnorm_launch(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), R, D, float(eps),
+        int(x.dtype == torch.bfloat16), _build.stream(dev))
+    _build.check(err, "rmsnorm")
+    rmsnorm_launches += 1
     return out

@@ -1,6 +1,7 @@
 """Public kernel entry points, dispatched by `KernelPolicy`.
 
-Port of the ASR half of `repro/kernels/ops.py`.  Each function
+Port of `repro/kernels/ops.py` (all but `beam_prune` and the mesh
+helpers).  Each function
 resolves its policy against the device of its input (see
 `kernels/policy.py`): ``ref`` runs the plain PyTorch version in
 `kernels/ref.py` (CPU or card), ``kernel`` the CUDA kernel's wrapper
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hypothesis_unit as _hu
 from repro_torch.kernels import int8_matmul as _im
 from repro_torch.kernels import layernorm as _ln
@@ -20,23 +22,48 @@ from repro_torch.kernels import tds_conv as _tc
 from repro_torch.kernels.policy import resolve
 
 KERNEL_MODULES = {"logmel": _lm, "tds_conv": _tc, "layernorm": _ln,
-                  "hypothesis_unit": _hu, "int8_matmul": _im}
+                  "hypothesis_unit": _hu, "int8_matmul": _im,
+                  "rmsnorm": _ln, "flash_attention": _fa}
+# the module attribute holding a kernel's count, where it is not
+# `launches` (layernorm.py counts its two wrappers apart)
+_COUNTERS = {"rmsnorm": "rmsnorm_launches"}
 
 
 def launch_counts() -> dict:
     """Launches each CUDA kernel's wrapper has made: {name: count}."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, _COUNTERS.get(name, "launches"))
+            for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for name, mod in KERNEL_MODULES.items():
+        setattr(mod, _COUNTERS.get(name, "launches"), 0)
 
 
 def layernorm(x, scale, bias, *, eps=1e-5, policy=None):
     if resolve(policy, x) == "ref":
         return _ref.layernorm(x, scale, bias, eps=eps)
     return _ln.layernorm(x.contiguous(), scale, bias, eps=eps)
+
+
+def rmsnorm(x, scale, *, eps=1e-6, policy=None):
+    """x: (R, D) bf16/f32; scale: (D,) f32 -> (R, D) in x's dtype."""
+    if resolve(policy, x) == "ref":
+        return _ref.rmsnorm(x, scale, eps=eps)
+    return _ln.rmsnorm(x.contiguous(), scale.float().contiguous(), eps=eps)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, policy=None):
+    """q: (B, H, Sq, D); k, v: (B, K, Skv, D) with K | H -> (B, H, Sq, D).
+
+    Forward attention with fp32 softmax, q right-aligned to the end of
+    kv.  The kernel path makes the operands contiguous (a transposed
+    view, such as the model's (B, S, H, D) activations seen as
+    (B, H, S, D), is copied once)."""
+    if resolve(policy, q) == "ref":
+        return _ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window)
 
 
 def logmel(power, fb, dct, policy=None):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the Hopper kernels on the ASR decode path.
+"""Plain PyTorch versions of the port's Hopper kernels.
 
 Port of the matching functions of `repro/kernels/ref.py`.  Each is the
 semantic ground truth its CUDA kernel is held against on the card, and
@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30                      # matches core/hypothesis.py
+MASK = -1e30                         # attention mask value
 # dead candidates key under an out-of-range value: > any 31-bit prefix
 # hash.  Torch's uint32 supports few ops, so keys are int64.
 HASH_SENTINEL = 0xFFFFFFFF
@@ -35,6 +36,41 @@ def layernorm(x, scale, bias, eps=1e-5):
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    """x: (T, D) any float dtype; fp32 statistics, output in x's dtype:
+    `(xf * rsqrt(mean(xf^2) + eps)) * scale`, cast last."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """q: (B, H, Sq, D); k, v: (B, K, Skv, D) with K | H (K = H is the
+    reference's pre-expanded GQA; query head h reads kv head h // (H/K)).
+    fp32 scores and softmax, mask value -1e30, q positions right-aligned
+    to the end of kv; output in q's dtype."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if k.shape[1] != H:
+        k = k.repeat_interleave(H // k.shape[1], dim=1)
+        v = v.repeat_interleave(H // v.shape[1], dim=1)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    # in place where it can be: at a 6144-token prefill one (B, H, Sq,
+    # Skv) fp32 score tensor is 4.8 GB per batch row
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()).mul_(scale)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= (qpos - kpos) < window
+    p = torch.softmax(s.masked_fill_(~m, MASK), dim=-1)
+    del s
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def logmel(power, fb, dct):

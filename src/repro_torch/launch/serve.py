@@ -1,23 +1,32 @@
-"""ASR serving launcher, port of the ASR mode of `repro/launch/serve.py`.
+"""Serving launcher, port of the asr and lm modes of `repro/launch/serve.py`.
 
-The paper's system as an `AsrEngine`: sessions stream 80 ms audio
-chunks via Session.push/poll/finish; with --streams N > 1 the N-slot
-pool decodes N concurrent utterances through one slot-batched step
-(continuous batching).  Runs on the GPU unless --device names another.
+  * --mode asr : the paper's system as an `AsrEngine`: sessions stream
+                 80 ms audio chunks via Session.push/poll/finish; with
+                 --streams N > 1 the N-slot pool decodes N concurrent
+                 utterances through one slot-batched step.
+  * --mode lm  : batched LM serving (`LmEngine`) of the tiny config of
+                 --arch (the dense family: h2o-danube-1.8b by default;
+                 the reference's default mamba2-1.3b waits for the SSM
+                 slice), --requests prompts over --slots slots.
+Runs on the GPU unless --device names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4 --int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --requests 3 \
+      --slots 2 --prompt-len 8 --max-new 4
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.policy import MODES, KernelPolicy
-from repro_torch.serving import AsrEngine, AsrProgram, EngineConfig
+from repro_torch.serving import (AsrEngine, AsrProgram, EngineConfig,
+                                 LmEngine, LmProgram)
 
 
 def asr_demo_system():
@@ -115,9 +124,47 @@ def serve_asr_multistream(args):
     return results
 
 
+def serve_lm(args):
+    """Batched LM serving of the tiny config of `args.arch`: prompts of
+    varying lengths (so bucketed admission is exercised) over an
+    `args.slots`-slot pool.  Returns {request index: tokens}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    cfg = get_config(args.arch).tiny()
+    params = LM(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    plens = [max(1, args.prompt_len - (i % 4)) for i in range(args.requests)]
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in plens]
+    program = LmProgram(cfg, cache_len=args.prompt_len + args.max_new,
+                        max_new=args.max_new)
+    engine = LmEngine(EngineConfig(program, n_slots=args.slots,
+                                   kernels=KernelPolicy(args.kernels)),
+                      params, device=args.device)
+    t0 = time.time()
+    outputs = engine.serve(prompts)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    dt = time.time() - t0
+    total_tokens = sum(len(v) for v in outputs)
+    print(f"served {len(outputs)} requests, {total_tokens} tokens, "
+          f"{engine.n_steps} decode steps on {engine.device} in {dt:.2f}s "
+          f"({total_tokens/dt:.1f} tok/s) over buckets {program.buckets()}")
+    return dict(enumerate(outputs))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="asr", choices=["asr"])
+    ap.add_argument("--mode", default="asr", choices=["lm", "asr"])
+    ap.add_argument("--arch", default="h2o-danube-1.8b",
+                    help="LM arch, served at its tiny() size (the dense "
+                         "family: h2o-danube-1.8b, qwen2-72b, chatglm3-6b; "
+                         "the reference's default mamba2-1.3b waits for "
+                         "the SSM slice)")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--utterances", type=int, default=None,
                     help="utterance count (default: 2, or one per slot "
                          "when --streams > 1)")
@@ -135,6 +182,8 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions on the CPU)")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args)
     if args.streams > 1:
         return serve_asr_multistream(args)
     return serve_asr(args)

@@ -19,11 +19,11 @@ import math
 from dataclasses import dataclass
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.configs.tds_asr import TDSConfig
 from repro_torch.core import treeutil
+from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
 from repro_torch.device import fp32_numerics
 
 
@@ -134,17 +134,6 @@ def init_tds(generator: torch.Generator, cfg: TDSConfig, device="cpu",
                             1.0 / math.sqrt(spec.n_in)),
                 "b": torch.zeros((spec.n_out,), device=device, dtype=dtype)}
     return params
-
-
-def params_from_numpy(tree, device="cpu") -> dict:
-    """A parameter tree of arrays (numpy, or anything `np.asarray`
-    accepts — the JAX package's parameters included — or tensors) as
-    torch tensors on `device`."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return torch.tensor(np.asarray(tree), device=device)
 
 
 def init_stream_state(cfg: TDSConfig, device="cpu") -> dict:

@@ -1,0 +1,392 @@
+"""Dense / GQA decoder-only LM, port of `repro/models/transformer.py`.
+
+The reference's generic LM covers dense, MoE, SSM and hybrid stacks in
+one code path; this port covers the dense attention family (every layer
+an attention layer with a gated MLP; RoPE, 2D-RoPE or none; sliding
+windows; QKV bias).  MoE, Mamba layers, M-RoPE and frontend embeddings
+raise `NotImplementedError` naming the ROADMAP item that brings them.
+
+Parameters keep the reference's tree and its stacked layout: each leaf
+under `params["layers"]["p{p}"]` carries a leading repeat axis R, layer
+i = r*P + p.  The reference scans over that axis; here a Python loop
+indexes it (`_layer_params`).
+
+Entry points (functions of (params, ...), as in the reference):
+  prefill(params, batch, lengths=None, cache_len=None)
+      full-sequence forward: (last-token logits (B, Vp), decode cache).
+  decode_step(params, cache, batch)
+      one-token step against the cache: (logits, next token, cache).
+      The new KV is written into the cache's own tensors, in place,
+      after the layer loop (the serving pool is updated, not copied);
+      `kpos` and `offset` come back as new tensors.
+
+Prefill attention goes through the flash-attention kernel and every
+rmsnorm through the norm kernel (`KernelPolicy`, per call); decode
+attention and the matrix products are plain torch, as the reference
+leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
+from repro_torch.core.treeutil import tree_map
+from repro_torch.models import layers
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def pad_vocab(v: int, multiple: int = 512) -> int:
+    """Megatron-style vocab padding so embed/head shard evenly."""
+    return -(-v // multiple) * multiple
+
+
+class LM:
+    """The dense LM over a `ModelConfig`.  `policy` (a `KernelPolicy`;
+    the serving engine passes `EngineConfig.kernels`) selects the kernel
+    or the plain path of the prefill attention and the norms."""
+
+    def __init__(self, cfg: ModelConfig, policy=None):
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers are not ported yet (ROADMAP "
+                f"Queue 1, item 10: models/moe.py)")
+        if cfg.ssm is not None or "m" in cfg.layer_pattern:
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba (SSM) layers are not ported yet "
+                f"(ROADMAP Queue 1, item 10: models/mamba.py)")
+        if cfg.rope == "mrope":
+            raise NotImplementedError(
+                f"{cfg.name}: M-RoPE is not ported yet (ROADMAP Queue 1, "
+                f"item 10: the VLM backbone)")
+        if not cfg.embed_inputs:
+            raise NotImplementedError(
+                f"{cfg.name}: frontend embeddings (embed_inputs=False) are "
+                f"not ported yet (ROADMAP Queue 1, item 10)")
+        self.cfg = cfg
+        self.policy = policy
+        self.P = cfg.period
+        if cfg.n_layers % self.P:
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no "
+                             f"multiple of the period {self.P}")
+        self.R = cfg.n_layers // self.P
+        self.Vp = pad_vocab(cfg.vocab_size)
+        self.dtype = DTYPES[cfg.dtype]
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def _init_sublayer(self, gen, device) -> dict:
+        cfg = self.cfg
+        d = cfg.d_model
+        qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+        out = {"norm1": layers.init_norm(d, cfg.norm, device=device),
+               "mixer": {
+                   "wqkv": layers.init_linear(gen, d, qkv_out, cfg.qkv_bias,
+                                              self.dtype, device),
+                   "wo": layers.init_linear(gen, cfg.n_heads * cfg.head_dim,
+                                            d, dtype=self.dtype,
+                                            device=device)}}
+        if cfg.d_ff > 0:
+            out["norm2"] = layers.init_norm(d, cfg.norm, device=device)
+            out["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, self.dtype, device)
+        return out
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters with the reference's tree, shapes and std,
+        drawn from `generator` on its own device (a CUDA generator draws
+        them on the card).  Torch cannot reproduce JAX's random streams:
+        parity tests carry the reference's parameters across with
+        `params_from_numpy` instead."""
+        cfg = self.cfg
+        device = generator.device
+        params = {"final_norm": layers.init_norm(cfg.d_model, cfg.norm,
+                                                 device=device)}
+        std = 1.0 / math.sqrt(cfg.d_model)
+        w = torch.randn((self.Vp, cfg.d_model), generator=generator,
+                        device=generator.device)
+        params["embed"] = {"w": (w * std).to(device=device, dtype=self.dtype)}
+        del w
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.init_linear(
+                generator, cfg.d_model, self.Vp, dtype=self.dtype,
+                device=device)
+        stacked = {}
+        for p in range(self.P):
+            per_layer = [self._init_sublayer(generator, device)
+                         for _ in range(self.R)]
+            stacked[f"p{p}"] = _stack(per_layer)
+        params["layers"] = stacked
+        return params
+
+    # ------------------------------------------------------------------
+    # caches
+    # ------------------------------------------------------------------
+    def cache_len(self, seq_len: int) -> int:
+        if self.cfg.attn_window is not None:
+            return min(seq_len, self.cfg.attn_window)
+        return seq_len
+
+    def init_cache(self, batch: int, seq_len: int, *, per_slot: bool = False,
+                   device="cpu") -> dict:
+        """Decode cache.  per_slot=True gives every batch row its own
+        position metadata — kpos (B, Sc) and offset (B,) — so a serving
+        slot pool can hold streams at unequal positions; the default
+        scalar offset / shared (Sc,) kpos assumes all rows aligned."""
+        cfg = self.cfg
+        Sc = self.cache_len(seq_len)
+        shp = (self.R, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
+        lay = {f"p{p}": {"k": torch.zeros(shp, dtype=self.dtype,
+                                          device=device),
+                         "v": torch.zeros(shp, dtype=self.dtype,
+                                          device=device)}
+               for p in range(self.P)}
+        i32 = dict(dtype=torch.int32, device=device)
+        if per_slot:
+            return {"layers": lay, "kpos": torch.full((batch, Sc), -1, **i32),
+                    "offset": torch.zeros((batch,), **i32)}
+        return {"layers": lay, "kpos": torch.full((Sc,), -1, **i32),
+                "offset": torch.zeros((), **i32)}
+
+    # ------------------------------------------------------------------
+    # forward pieces
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _positions(B: int, S: int, device, offset=0) -> torch.Tensor:
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
+        return (pos + offset).expand(B, S)
+
+    def _embed(self, params, tokens) -> torch.Tensor:
+        return params["embed"]["w"][tokens.long()]
+
+    def _logits(self, params, x) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return torch.matmul(x, params["embed"]["w"].t())
+        return layers.linear(params["lm_head"], x)
+
+    def _rope_tables(self, positions):
+        """RoPE cos/sin of `positions`, shared by every layer's q and k."""
+        cfg = self.cfg
+        if cfg.rope == "none":
+            return None
+        return layers.rope_tables(positions,
+                                  layers.rope_width(cfg.head_dim, cfg.rope),
+                                  cfg.rope_theta)
+
+    def _qkv(self, p_mix, x, positions, tables):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        qkv = layers.linear(p_mix["wqkv"], x)
+        Hq = cfg.n_heads * cfg.head_dim
+        Hk = cfg.n_kv_heads * cfg.head_dim
+        q = qkv[..., :Hq].reshape(B, S, cfg.n_heads, cfg.head_dim)
+        k = qkv[..., Hq:Hq + Hk].reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = qkv[..., Hq + Hk:].reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        q = layers.apply_rope(q, positions, cfg.rope, cfg.rope_theta, tables)
+        k = layers.apply_rope(k, positions, cfg.rope, cfg.rope_theta, tables)
+        return q, k, v
+
+    def _attn_full(self, p_mix, x, positions, tables):
+        """Prefill attention. Returns (out, (k, v))."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = self._qkv(p_mix, x, positions, tables)
+        out = layers.attention_chunked(q, k, v, causal=True,
+                                       window=cfg.attn_window,
+                                       policy=self.policy)
+        out = layers.linear(p_mix["wo"],
+                            out.reshape(B, S, cfg.n_heads * cfg.head_dim))
+        return out, (k, v)
+
+    def _attn_decode(self, p_mix, x, positions, tables, kv_cache, kpos_m):
+        """Decode attention: the cache is read-only here; the new (k, v)
+        is attended as a separate softmax column and returned, so the
+        layer loop emits only (B, 1, K, Dh) slices that the caller
+        writes into the cache once, after the loop.  `kpos_m`: the
+        cache positions with the slot being rewritten masked (-1)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        q, k, v = self._qkv(p_mix, x, positions, tables)
+        out = layers.attention_decode(q, kv_cache["k"], kv_cache["v"],
+                                      positions[:, 0], kpos_m,
+                                      window=cfg.attn_window,
+                                      k_new=k, v_new=v)
+        out = layers.linear(p_mix["wo"],
+                            out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+        return out, {"k": k, "v": v}
+
+    def _sublayer(self, lp, x, positions, tables, cache_p, kpos_m, decode):
+        cfg = self.cfg
+        h = layers.apply_norm(lp["norm1"], x, cfg.norm, policy=self.policy)
+        if decode:
+            out, new_cache = self._attn_decode(lp["mixer"], h, positions,
+                                               tables, cache_p, kpos_m)
+        else:
+            # causal: right-padding (bucketed prefill) cannot leak into
+            # real positions, so no mask is needed here
+            out, (k, v) = self._attn_full(lp["mixer"], h, positions, tables)
+            new_cache = {"k": k, "v": v}
+        x = x + out
+        if cfg.d_ff > 0:
+            h = layers.apply_norm(lp["norm2"], x, cfg.norm,
+                                  policy=self.policy)
+            x = x + layers.apply_mlp(lp["mlp"], h, cfg.act)
+        return x, new_cache
+
+    def _layers(self, params, x, positions, cache=None, *, decode=False):
+        """The layer loop (the reference's `_scan_layers`).  Prefill
+        returns (x, per-layer KV stacked to (R, B, S, K, Dh)); decode
+        reads each layer's cache slice, then writes every layer's new KV
+        into the cache tensors in place after the loop and returns (x,
+        cache with new kpos/offset)."""
+        tables = self._rope_tables(positions)
+        if not decode:
+            kv = {f"p{p}": {"k": [], "v": []} for p in range(self.P)}
+            for r in range(self.R):
+                for p in range(self.P):
+                    lp = _layer_params(params["layers"][f"p{p}"], r)
+                    x, nc = self._sublayer(lp, x, positions, tables, None,
+                                           None, False)
+                    kv[f"p{p}"]["k"].append(nc["k"])
+                    kv[f"p{p}"]["v"].append(nc["v"])
+            return x, {"layers": {name: {n: torch.stack(t) for n, t in d.items()}
+                                  for name, d in kv.items()}}
+
+        kpos = cache["kpos"]
+        offset = cache["offset"]
+        # per-slot serving cache: offset (B,), kpos (B, Sc) — each batch
+        # row keeps its own write slot / positions (see init_cache)
+        per_slot = offset.dim() == 1
+        slot = offset % max(1, kpos.shape[-1])
+        kpos = kpos.clone()
+        # every layer masks the slot being (re)written: it holds the
+        # evicted entry, and the new token is attended as its own column
+        kpos_m = kpos.clone()
+        if per_slot:
+            rows = torch.arange(kpos.shape[0], device=kpos.device)
+            kpos[rows, slot] = offset
+            kpos_m[rows, slot] = -1
+        else:
+            kpos[slot] = offset
+            kpos_m[slot] = -1
+        new = {f"p{p}": {"k": [], "v": []} for p in range(self.P)}
+        for r in range(self.R):
+            for p in range(self.P):
+                lay = cache["layers"][f"p{p}"]
+                cp = {"k": lay["k"][r], "v": lay["v"][r]}
+                lp = _layer_params(params["layers"][f"p{p}"], r)
+                x, nc = self._sublayer(lp, x, positions, tables, cp, kpos_m,
+                                       True)
+                new[f"p{p}"]["k"].append(nc["k"])
+                new[f"p{p}"]["v"].append(nc["v"])
+        for p in range(self.P):
+            old = cache["layers"][f"p{p}"]
+            for name in ("k", "v"):
+                upd = torch.stack(new[f"p{p}"][name])     # (R, B, 1, K, Dh)
+                if per_slot:
+                    # row b writes its own cache slot[b]
+                    rows = torch.arange(old[name].shape[1],
+                                        device=upd.device)
+                    old[name][:, rows, slot] = upd[:, :, 0].to(old[name].dtype)
+                else:
+                    old[name][:, :, slot] = upd[:, :, 0].to(old[name].dtype)
+        return x, {"layers": cache["layers"], "kpos": kpos,
+                   "offset": offset + 1}
+
+    # ------------------------------------------------------------------
+    # public entry points
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch, lengths=None, cache_len=None):
+        """Full-seq forward. Returns (last-token logits (B, Vp), cache).
+
+        `lengths` (B,) enables the masked (bucketed) path: each row's
+        tokens beyond lengths[b] are right-padding — logits come from
+        position lengths[b]-1 and the cache is assembled with PER-ROW
+        position metadata (kpos (B, Sc), offset (B,)) so rows drop
+        straight into a per-slot serving pool.  `cache_len` overrides
+        the assembled ring width (the pool's ring may be narrower than
+        the padded bucket)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        dev = x.device
+        positions = self._positions(B, S, dev)
+        x, cache = self._layers(params, x, positions)
+        if lengths is None:
+            x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
+                                  policy=self.policy)
+            logits = self._logits(params, x)[:, 0]
+            # assemble the decode cache; SWA ring by the decode path
+            Sc = self.cache_len(S)
+            if Sc != S:
+                cache["layers"] = tree_map(lambda a: a[:, :, -Sc:],
+                                           cache["layers"])
+                cache["kpos"] = torch.arange(S - Sc, S, dtype=torch.int32,
+                                             device=dev)
+            else:
+                cache["kpos"] = torch.arange(S, dtype=torch.int32, device=dev)
+            cache["offset"] = torch.full((), S, dtype=torch.int32, device=dev)
+            return logits, cache
+
+        # ---- masked path: per-row last token + per-row ring assembly ----
+        lengths = lengths.to(device=dev, dtype=torch.int64)
+        last = torch.clamp(lengths - 1, 0, S - 1)                 # (B,)
+        brow = torch.arange(B, device=dev)
+        xl = x[brow, last][:, None]                               # (B,1,D)
+        xl = layers.apply_norm(params["final_norm"], xl, cfg.norm,
+                               policy=self.policy)
+        logits = self._logits(params, xl)[:, 0]
+        Sc = self.cache_len(S) if cache_len is None else int(cache_len)
+        # cache row j of stream b holds position start_b + j, where
+        # start_b = max(len_b - Sc, 0): the last min(len, Sc) real
+        # positions land in rows 0.. (prompts longer than the ring
+        # arrive trimmed, mirroring the SWA decode convention)
+        start = torch.clamp(lengths - Sc, min=0)                  # (B,)
+        pos_rows = start[:, None] + torch.arange(Sc, device=dev)[None, :]
+        rows = torch.clamp(pos_rows, max=S - 1)                   # (B, Sc)
+        cache["layers"] = tree_map(lambda a: a[:, brow[:, None], rows],
+                                   cache["layers"])
+        cache["kpos"] = torch.where(pos_rows < lengths[:, None], pos_rows,
+                                    torch.full_like(pos_rows, -1)
+                                    ).to(torch.int32)
+        cache["offset"] = lengths.to(torch.int32)
+        return logits, cache
+
+    def decode_step(self, params, cache, batch):
+        """One-token step. batch: tokens (B, 1).
+
+        Returns (logits (B, Vp) f32, next_token (B,) int64, cache): the
+        cache's KV tensors are updated in place (see the module
+        docstring)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        B = x.shape[0]
+        pos = cache["offset"]
+        if pos.dim() == 1:                 # per-slot offsets: (B,) -> (B, 1)
+            pos = pos[:, None]
+        positions = self._positions(B, 1, x.device, offset=pos)
+        x, new_cache = self._layers(params, x, positions, cache, decode=True)
+        x = layers.apply_norm(params["final_norm"], x, cfg.norm,
+                              policy=self.policy)
+        logits = self._logits(params, x)[:, 0].float()
+        # mask vocab padding before sampling
+        logits[:, cfg.vocab_size:] = -torch.inf
+        next_tok = torch.argmax(logits, dim=-1)
+        return logits, next_tok, new_cache
+
+
+def _stack(trees: list) -> dict:
+    """A list of identical parameter trees -> one tree of (R, ...) leaves."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _layer_params(tree: dict, r: int) -> dict:
+    """Layer r's parameters: every stacked leaf indexed on its R axis."""
+    return tree_map(lambda a: a[r], tree)

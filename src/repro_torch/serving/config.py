@@ -1,20 +1,21 @@
-"""Declarative serving configuration, port of the ASR half of
-`repro/serving/config.py`.
+"""Declarative serving configuration, port of `repro/serving/config.py`.
 
-An `AsrProgram` (acoustic model + hypothesis expansion + decoding step
-geometry, compiled into a static `StepPlan`) wrapped in an
-`EngineConfig` that adds the slot-pool size and the kernel policy.  A
-configured engine never mutates its program.  Both programs, fp32 and
-int8, are served on one device: there is no mesh, and fault injection
-(`faults`) comes with a later slice.
+One frozen program per workload — an `AsrProgram` (acoustic model +
+hypothesis expansion + decoding step geometry, compiled into a static
+`StepPlan`) or an `LmProgram` (LM arch + cache/generation budget) —
+wrapped in an `EngineConfig` that adds the slot-pool size and the kernel
+policy.  A configured engine never mutates its program.  Everything is
+served on one device: there is no mesh, and fault injection (`faults`)
+comes with a later slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.tds_asr import (DECODER_CONFIG, FEATURE_CONFIG,
                                          DecoderConfig, FeatureConfig,
                                          TDSConfig)
@@ -100,6 +101,84 @@ class AsrProgram:
 
 
 @dataclass(frozen=True)
+class LmProgram:
+    """Batched LM serving program: arch + pooled-cache geometry.
+
+    `prefill_buckets` bounds the prefill shapes: prompts are right-padded
+    to the smallest covering bucket and prefilled through one masked
+    multi-row prefill per bucket.  Empty = powers of two from 8 up to the
+    first one covering the longest legal prompt.
+    """
+    model_cfg: ModelConfig
+    cache_len: int
+    max_new: int
+    prefill_buckets: Tuple[int, ...] = ()
+
+    @property
+    def max_prompt_len(self) -> int:
+        return self.cache_len - self.max_new
+
+    def buckets(self) -> Tuple[int, ...]:
+        if self.prefill_buckets:
+            bs = tuple(sorted(set(int(b) for b in self.prefill_buckets)))
+            if bs[-1] < self.max_prompt_len:
+                raise ValueError(
+                    f"largest prefill bucket {bs[-1]} does not cover the "
+                    f"longest legal prompt ({self.max_prompt_len})")
+        else:
+            out, b = [8], 8
+            while b < self.max_prompt_len:
+                b *= 2
+                out.append(b)
+            bs = tuple(out)
+        # the reference's prefill chunking (attention chunks, SSD chunk
+        # size) requires every bucket S to satisfy S % min(chunk, S) == 0;
+        # the port keeps the check so that both accept the same programs
+        chunks = [self.model_cfg.attn_chunk_q, self.model_cfg.attn_chunk_kv]
+        if self.model_cfg.ssm is not None:
+            chunks.append(self.model_cfg.ssm.chunk_size)
+        for b in bs:
+            for c in chunks:
+                if b % min(c, b):
+                    raise ValueError(
+                        f"prefill bucket {b} not divisible by chunk {c}")
+        return bs
+
+    def validate_prompt(self, prompt_len: int) -> None:
+        if prompt_len < 1:
+            raise ValueError("prompt must contain at least one token")
+        if prompt_len + self.max_new > self.cache_len:
+            raise ValueError(
+                f"prompt_len={prompt_len} + max_new={self.max_new} exceeds "
+                f"cache_len={self.cache_len}")
+
+    def validate_input(self, prompt: np.ndarray) -> None:
+        """Admission-time validation of a pushed prompt: token ids must
+        be an integral 1-D vector inside the vocabulary — an
+        out-of-range id indexes garbage through the embedding gather (or
+        faults the device) inside the shared prefill batch, so it is
+        rejected before it can be co-batched."""
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 1:
+            raise ValueError(
+                f"prompt must be a 1-D token vector, got shape "
+                f"{prompt.shape}")
+        if not np.issubdtype(prompt.dtype, np.integer):
+            raise ValueError(
+                f"prompt must hold integer token ids, got dtype "
+                f"{prompt.dtype}")
+        self.validate_prompt(prompt.shape[0])
+        vocab = self.model_cfg.vocab_size
+        if prompt.size and (prompt.min() < 0 or prompt.max() >= vocab):
+            raise ValueError(
+                f"prompt token ids must be in [0, {vocab}), got range "
+                f"[{prompt.min()}, {prompt.max()}]")
+
+
+Program = Union[AsrProgram, LmProgram]
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """A program plus the slot-pool size it is served over.
 
@@ -109,7 +188,7 @@ class EngineConfig:
     busy and the queue is full; None = unbounded).  `session_deadline`
     reaps sessions older than that many seconds.  `faults` must stay None
     until fault injection is ported."""
-    program: AsrProgram
+    program: Program
     n_slots: int = 1
     kernels: KernelPolicy = field(default_factory=KernelPolicy)
     max_queue: Optional[int] = None
@@ -130,3 +209,16 @@ class EngineConfig:
             raise NotImplementedError(
                 "fault injection is not ported yet: EngineConfig.faults "
                 "must be None")
+
+
+def make_engine(config: EngineConfig, params, device=None):
+    """Build the engine matching `config.program`'s workload type, on
+    `device` (the card unless the caller names another)."""
+    from repro_torch.serving.asr import AsrEngine
+    from repro_torch.serving.lm import LmEngine
+
+    if isinstance(config.program, AsrProgram):
+        return AsrEngine(config, params, device=device)
+    if isinstance(config.program, LmProgram):
+        return LmEngine(config, params, device=device)
+    raise TypeError(f"unknown program type: {type(config.program)!r}")

@@ -17,7 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (hypothesis_unit as thu,  # noqa: E402
+from repro_torch.kernels import (flash_attention as tfa,  # noqa: E402
+                                 hypothesis_unit as thu,
                                  int8_matmul as tim, layernorm as tln,
                                  logmel as tlm, ops, ref, tds_conv as ttc)
 
@@ -157,3 +158,75 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         tim.int8_matmul(xq, wq[:32], xs, ws)                  # K mismatch
     assert ops.launch_counts()["int8_matmul"] == 1
+
+
+_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+        torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(4, 2560), (512, 2560), (37, 80), (5, 64),
+                                 (300, 129), (1, 7)])
+def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
+    """The LM's shapes (decode rows, prefill rows at D = 2560) and
+    ragged ones."""
+    x = _t(cuda, d, t, d).to(dtype)
+    s = 1 + 0.1 * _t(cuda, 1, d)
+    got = tln.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, ref.rmsnorm(x, s), **_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window", [
+    (2, 3, 3, 64, 64, 32, True, None), (2, 3, 3, 64, 128, 32, True, None),
+    (2, 3, 3, 32, 128, 32, False, None), (2, 3, 3, 128, 128, 32, True, 48),
+    (2, 3, 3, 64, 256, 32, True, 17),
+    (1, 32, 8, 300, 300, 80, True, 100),       # GQA 32/8, D = 80, ragged S
+    (2, 32, 8, 77, 200, 80, True, 64),         # Sq < Skv, window < S
+    (1, 32, 8, 513, 513, 80, True, None), (3, 4, 4, 100, 100, 128, False, 30),
+    (2, 8, 2, 40, 40, 16, True, None), (1, 4, 1, 33, 33, 40, True, None),
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
+                                              causal, window, dtype):
+    q = _t(cuda, 1, b, h, sq, d).to(dtype)
+    k = _t(cuda, 2, b, kv, skv, d).to(dtype)
+    v = _t(cuda, 3, b, kv, skv, d).to(dtype)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got, ref.flash_attention(q, k, v, causal=causal, window=window),
+        **_TOL[dtype])
+
+
+def test_lm_kernel_wrappers_count_and_refuse_bad_input(cuda):
+    ops.reset_launch_counts()
+    x = _t(cuda, 0, 4, 64).to(torch.bfloat16)
+    tln.rmsnorm(x, _t(cuda, 1, 64))
+    assert ops.launch_counts()["rmsnorm"] == 1
+    assert ops.launch_counts()["layernorm"] == 0
+    with pytest.raises(ValueError):
+        tln.rmsnorm(x, _t(cuda, 1, 64).to(torch.bfloat16))  # scale not f32
+    with pytest.raises(ValueError):
+        tln.rmsnorm(x.t(), _t(cuda, 1, 4))                  # not contiguous
+    q = _t(cuda, 2, 1, 4, 16, 80)
+    k = _t(cuda, 3, 1, 2, 16, 80)
+    tfa.flash_attention(q, k, k, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q[..., :12].contiguous(),
+                            k[..., :12].contiguous(),
+                            k[..., :12].contiguous())       # D % 8 != 0
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, _t(cuda, 4, 1, 3, 16, 80),
+                            _t(cuda, 4, 1, 3, 16, 80))      # 3 does not divide 4
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, k.to(torch.bfloat16), k)     # mixed dtypes
+    # a transposed (B, S, H, D) view goes through ops, which copies it
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(ops.flash_attention(qs, k, k),
+                               ref.flash_attention(q, k, k),
+                               rtol=1e-5, atol=1e-5)
+    assert ops.launch_counts()["flash_attention"] == 2

@@ -335,7 +335,8 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
                        tref.int8_matmul(xq, wq, xs, ws))
     assert tops.launch_counts() == {"logmel": 0, "tds_conv": 0,
                                     "layernorm": 0, "hypothesis_unit": 0,
-                                    "int8_matmul": 0}
+                                    "int8_matmul": 0, "rmsnorm": 0,
+                                    "flash_attention": 0}
 
 
 def test_kernel_policy_resolution():

@@ -78,7 +78,8 @@ def test_cuda_kernel_sources_and_bindings_agree():
     from repro_torch.kernels import _build
     text = "".join(f.read_text() for f in _build.sources())
     assert {f.stem for f in _build.sources()} == {
-        "logmel", "tds_conv", "layernorm", "hypothesis_unit", "int8_matmul"}
+        "logmel", "tds_conv", "layernorm", "hypothesis_unit", "int8_matmul",
+        "flash_attention"}
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text, name
     assert 'extern "C" const char* repro_error_string(' in text
