@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: the streaming ASR decode path
-and batched LM serving.
+"""Smoke run of the PyTorch port on one GPU: the streaming ASR decode path,
+batched LM serving and the standalone beam-threshold prune.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero (no phase is caught):
-  1. build   — nvcc builds the seven Hopper kernels from the six sources
+  1. build   — nvcc builds the eight Hopper kernels from the seven sources
                in src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
                the main path's shapes (int8_matmul bitwise, also at a
@@ -44,6 +44,15 @@ Phases, in order; any failure exits non-zero (no phase is caught):
  10. lm timing — each LM kernel, its plain version and the library call
                at S = 512/2048/6144 (and rmsnorm's decode rows), bounds,
                a profiler breakdown of a prefill and a decode step.
+  Prune phases (no serving path calls beam_prune, as in the reference):
+ 11. prune check — beam_prune vs its plain version, bitwise, at N = 1 to
+               8448 with beam 1/5/25, at a ragged N = 4,194,307 (the
+               reduction across blocks), and on rows holding a NaN, only
+               -inf, +inf, and a score exactly on the fp32 threshold.
+ 12. prune path — `ops.beam_prune` at the reference benchmark's shape
+               (N = 8448, beam 25), launch counts checked; then the
+               kernel, its plain version and the bound at N = 8448 and
+               N = 4,194,307.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -74,7 +83,7 @@ from repro_torch.core import features, lexicon as lx  # noqa: E402
 from repro_torch.data.pipeline import SyntheticASR  # noqa: E402
 from repro_torch.core.scheduler import ASRPU  # noqa: E402
 from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
-                                 flash_attention as kfa,
+                                 beam_prune as kbp, flash_attention as kfa,
                                  hypothesis_unit as khu, int8_matmul as kim,
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
@@ -98,6 +107,7 @@ PEAK_BF16 = 989e12
 KERNELS = ("logmel", "tds_conv", "layernorm", "hypothesis_unit",
            "int8_matmul")
 LM_KERNELS = ("rmsnorm", "flash_attention")
+PRUNE_KERNELS = ("beam_prune",)
 
 # tolerances of the kernel checks (kernel vs plain version on the card)
 TOL = {"logmel": dict(rtol=1e-4, atol=1e-3),
@@ -124,6 +134,7 @@ REPLACES = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:42",
     "rmsnorm": "src/repro/kernels/layernorm.py:32",
     "flash_attention": "src/repro/kernels/flash_attention.py:80",
+    "beam_prune": "src/repro/kernels/beam_prune.py:44",
 }
 SOURCES = {"rmsnorm": "layernorm"}      # kernel -> csrc file stem
 
@@ -149,6 +160,10 @@ LM_SLOTS = 4
 # 4.8 GB per row there).
 LM_PROMPTS = (100, 6144, 700, 4500, 1800, 5000, 300, 2048)
 LM_PARITY_PROMPTS = (4500, 300, 1500, 100)
+# beam_prune: the reference benchmark's shape (benchmarks/run.py:365), and
+# a ragged N of ~4 M that spreads the max over 1024 blocks
+BP_N, BP_BEAM, BP_BIG = 8448, 25.0, 4_194_307
+BP_CALLS = 4
 
 
 def _leaves(tree):
@@ -1180,6 +1195,120 @@ def lm_profile(eng, dev, vocab, prefill_ms, step_ms) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# prune phases: beam_prune
+# ---------------------------------------------------------------------------
+def prune_scores(dev, n, seed, case="random", beam=BP_BEAM):
+    """(n,) f32 scores, scale 10, for one `case`: "random", "nan" (one
+    NaN), "neg_inf" (all -inf), "pos_inf" (two +inf entries) or "tie" (a
+    score exactly on fp32(max - fp32(beam)), kept, and one an ulp below
+    it, masked); with the indices and values the tie must give."""
+    s = np.random.default_rng(seed).standard_normal(n).astype(np.float32) * 10
+    want = {}
+    if case == "nan":
+        s[n // 3] = np.nan
+    elif case == "neg_inf":
+        s[:] = -np.inf
+    elif case == "pos_inf":
+        s[[1, n - 2]] = np.inf
+    elif case == "tie":
+        i = (int(s.argmax()) + 1) % (n - 1)
+        thr = np.float32(s.max()) - np.float32(beam)
+        s[i], s[i + 1] = thr, np.nextafter(thr, np.float32(-np.inf))
+        want = {i: float(thr), i + 1: float(np.float32(ref.MASK))}
+    return torch.from_numpy(s).to(dev), want
+
+
+def check_beam_prune(dev) -> float:
+    """beam_prune vs its plain version, bitwise (compared as int32 bit
+    patterns).  Returns the max |kernel - plain|: 0.0, since any other
+    outcome fails the run."""
+    cases = [(n, "random", b) for n in (1, 100, 1000, 1025, 8320, BP_N)
+             for b in (1.0, 5.0, 25.0)]
+    cases += [(BP_BIG, "random", BP_BEAM)]
+    cases += [(n, c, b) for n in (BP_N, BP_BIG)
+              for c, b in (("nan", 5.0), ("neg_inf", 5.0),
+                           ("pos_inf", BP_BEAM), ("tie", 0.1))]
+    for i, (n, case, beam) in enumerate(cases):
+        s, tie = prune_scores(dev, n, SEED + 10 + i, case, beam)
+        got = kbp.beam_prune(s, beam)
+        torch.cuda.synchronize()
+        want = ref.beam_prune(s, beam)
+        label = f"N={n} {case} beam={beam}"
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            bad = (got.view(torch.int32) != want.view(torch.int32)).sum()
+            fail(f"beam_prune {label}: {bad.item()} of {n} entries differ "
+                 f"from the plain version (must be bitwise)")
+        for j, v in tie.items():
+            if got[j].item() != v:
+                fail(f"beam_prune {label}: entry {j} is {got[j].item()}, "
+                     f"the threshold semantics give {v}")
+        kept = int((got != ref.MASK).sum().item())
+        print(f"[prune check] {label:34s} bitwise equal ok ({kept} of {n} "
+              f"kept)", flush=True)
+    return 0.0
+
+
+def beam_prune_phase(dev) -> dict:
+    """The prune path: `ops.beam_prune` as the reference benchmark calls
+    it (N = 8448, beam 25), BP_CALLS calls on seeded scores; counts set
+    to 0 just before, read just after; each output checked bitwise
+    against the plain version and for its threshold semantics."""
+    scores = [prune_scores(dev, BP_N, SEED + 100 + i)[0]
+              for i in range(BP_CALLS)]
+    torch.cuda.synchronize()
+    # ---- the main path: counts set to 0 just before, read just after --
+    ops.reset_launch_counts()
+    outs = [ops.beam_prune(s, BP_BEAM) for s in scores]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect = {name: 0 for name in counts}
+    expect["beam_prune"] = BP_CALLS
+    print(f"[prune path] {BP_CALLS} calls of ops.beam_prune at N={BP_N} "
+          f"beam={BP_BEAM}: launch counts {counts}", flush=True)
+    if counts != expect:
+        fail(f"beam_prune launch counts {counts} != expected {expect}")
+    for s, out in zip(scores, outs):
+        keep = s >= s.max() - BP_BEAM
+        if out.shape != s.shape or not torch.equal(out[keep], s[keep]) \
+                or not (out[~keep] == ref.MASK).all():
+            fail("beam_prune output breaks the threshold semantics")
+        if not torch.equal(out.view(torch.int32),
+                           ref.beam_prune(s, BP_BEAM).view(torch.int32)):
+            fail("beam_prune on the prune path differs from its plain "
+                 "version")
+        print(f"[prune path] kept {int(keep.sum().item())} of {BP_N}, "
+              f"max {s.max().item():.4f}", flush=True)
+    return counts
+
+
+def beam_prune_timing(dev) -> dict:
+    """Device time of one call of the kernel and of its plain version at
+    N = 8448 and N = BP_BIG, the kernel with its launch, and the bound:
+    8 N bytes (each score read once, each output written once) at the
+    HBM rate.  No single PyTorch call computes this function."""
+    out = {}
+    for n in (BP_N, BP_BIG):
+        s, _ = prune_scores(dev, n, SEED + 200)
+        nbytes, flops = 8 * n, 2 * n
+        r = {"ms": device_ms(lambda s=s: kbp.beam_prune(s, BP_BEAM)),
+             "plain_ms": device_ms(lambda s=s: ref.beam_prune(s, BP_BEAM)),
+             "launch_inclusive_ms": host_ms(
+                 lambda s=s: kbp.beam_prune(s, BP_BEAM)),
+             "library_ms": None,
+             "bound_ms": bound_ms(nbytes, flops),
+             "two_pass_bound_ms": 12 * n / PEAK_BYTES * 1e3,
+             "bound_by": "bytes", "bytes": nbytes}
+        out[n] = r
+        print(f"[prune timing] beam_prune N={n}: kernel {r['ms'] * 1e3:.2f} "
+              f"us, plain {r['plain_ms'] * 1e3:.2f} us, kernel call with "
+              f"launch {r['launch_inclusive_ms'] * 1e3:.2f} us, library -, "
+              f"bound {r['bound_ms'] * 1e3:.3f} us (bytes, 8N; 12N two-pass "
+              f"{r['two_pass_bound_ms'] * 1e3:.3f} us); "
+              f"{nbytes / r['ms'] / 1e6:.1f} GB/s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1271,6 +1400,11 @@ def main() -> None:
     torch.cuda.synchronize()
     lm_rows = lm_kernel_rows(cfg, lm_timing)
 
+    # 11. beam_prune checks; 12. the prune path and its timing
+    bp_err = check_beam_prune(dev)
+    bp_counts = beam_prune_phase(dev)
+    bp_timing = beam_prune_timing(dev)
+
     kernels = []
     for name in KERNELS:
         r = rows[name]
@@ -1300,6 +1434,18 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "work": r["work"]})
+    for name in PRUNE_KERNELS:
+        r = bp_timing[BP_N]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": bp_counts[name],
+            "max_abs_err": bp_err, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "work": f"one launch at N={BP_N}, beam {BP_BEAM} (device time); "
+                    f"no serving path calls it, as in the reference",
+            "launch_inclusive_ms": r["launch_inclusive_ms"]})
     lm_results = {
         "arch": cfg.name, "parameters": n_params,
         "launch_counts": serve["counts"],
@@ -1313,6 +1459,8 @@ def main() -> None:
         "timing": {k: {str(n): r for n, r in v.items()}
                    for k, v in lm_timing.items()},
         "profile": lm_prof}
+    bp_results = {"launch_counts": bp_counts, "max_abs_err": bp_err,
+                  "timing": {str(n): r for n, r in bp_timing.items()}}
     (OUT / "results.json").write_text(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "build_s": build_s, "kernels": kernels, "steps": steps,
@@ -1320,9 +1468,10 @@ def main() -> None:
         "int8_steps": steps8, "int8_launch_counts": counts8,
         "int8_logp_max_abs_err": lp_err8, "shim_launch_counts": shim_counts,
         "step_ms": steps_ms, "profile": prof, "profile_int8": prof8,
-        "lm": lm_results}, indent=1))
+        "lm": lm_results, "beam_prune": bp_results}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
-          f"{counts8}; on the LM path: {serve['counts']}", flush=True)
+          f"{counts8}; on the LM path: {serve['counts']}; on the prune "
+          f"path: {bp_counts}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -253,6 +253,14 @@ def decode_batched(log_probs: torch.Tensor, lex: Lexicon, lm: BigramLM,
     return st
 
 
+def finalize_batched(state: BeamState, lex: Lexicon, lm: BigramLM,
+                     cfg: DecoderConfig) -> BeamState:
+    """`finalize` over a leading stream axis: (B, K, ...) -> (B, K, ...).
+    `finalize` is elementwise over the hypotheses, so one call covers
+    every stream."""
+    return finalize(state, lex, lm, cfg)
+
+
 def slot_state(state: BeamState, slot) -> BeamState:
     """Slice one stream's (K, ...) beam out of a (B, K, ...) batch."""
     return treeutil.tree_map(lambda a: a[slot], state)
@@ -310,3 +318,32 @@ def materialize_best(b: dict) -> dict:
             "tokens": b["tokens"].cpu().numpy()[:int(b["n_tokens"])
                                                 ].astype(np.int32),
             "score": float(b["score"])}
+
+
+def best_hypothesis(state: BeamState, lex: Lexicon, lm: BigramLM,
+                    cfg: DecoderConfig, *, final: bool = False) -> dict:
+    """Materialize the best hypothesis of one (K, ...) beam as host
+    arrays.  final=True first commits a pending utterance-final word
+    (see `finalize`); the input state is not modified."""
+    if final:
+        state = finalize(state, lex, lm, cfg)
+    return materialize_best(best(state))
+
+
+def greedy_decode(log_probs: torch.Tensor, blank_id: int = 0) -> torch.Tensor:
+    """The paper's baseline: best token per frame, repeats collapsed,
+    blanks dropped.  log_probs (T, V) -> (T,) int32, padded with -1.
+    A scatter, not a boolean mask, so the card never syncs on the
+    number of kept tokens."""
+    T = log_probs.shape[0]
+    dev = log_probs.device
+    ids = torch.argmax(log_probs, dim=-1).to(torch.int32)     # (T,)
+    prev = torch.full_like(ids, -1)
+    prev[1:] = ids[:-1]
+    keep = (ids != blank_id) & (ids != prev)
+    pos = torch.cumsum(keep, 0) - 1
+    # dropped frames all write -1 into the extra slot T, cut off below
+    out = torch.full((T + 1,), -1, dtype=torch.int32, device=dev)
+    out.scatter_(0, torch.where(keep, pos, torch.full_like(pos, T)),
+                 torch.where(keep, ids, torch.full_like(ids, -1)))
+    return out[:T]

@@ -107,3 +107,31 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig = DEFAULT_FEATURE_CONFIG,
         return out.reshape(power.shape[:-1] + (out.shape[-1],))
     mel = power @ fb
     return torch.log(torch.clamp_min(mel, 1e-10)) @ dct
+
+
+def deltas(feats: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Regression-based dynamic features (delta / delta-delta).
+
+    feats: (T, C) -> (T, C) delta coefficients:
+        d_t = sum_n n*(x_{t+n} - x_{t-n}) / (2*sum_n n^2),  edge-padded."""
+    T, C = feats.shape
+    denom = 2.0 * sum(n * n for n in range(1, window + 1))
+    padded = torch.cat([feats[:1].expand(window, C), feats,
+                        feats[-1:].expand(window, C)], dim=0)
+    out = torch.zeros_like(feats)
+    for n in range(1, window + 1):
+        out = out + n * (padded[window + n:window + n + T]
+                         - padded[window - n:window - n + T])
+    return out / denom
+
+
+def mfcc_with_deltas(signal: torch.Tensor,
+                     cfg: FeatureConfig = DEFAULT_FEATURE_CONFIG
+                     ) -> torch.Tensor:
+    """signal: (n_samples,) -> (n_frames, 3*n_mfcc): static + delta +
+    delta-delta.  The static MFCC takes the logmel route: the fused
+    kernel on the card, its plain version on the CPU."""
+    static = mfcc(signal, cfg, use_logmel=True)
+    d1 = deltas(static)
+    d2 = deltas(d1)
+    return torch.cat([static, d1, d2], dim=-1)

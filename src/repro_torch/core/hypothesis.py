@@ -1,6 +1,7 @@
 """The hypothesis unit: candidate struct and payload gathering around the
-fused merge -> threshold -> top-k op.  Port of `repro/core/hypothesis.py`
-(the legacy `merge_duplicates`/`select` stages are not ported).
+fused merge -> threshold -> top-k op, and the legacy `merge_duplicates`/
+`select` stages, kept as the semantic spec of the fused op.  Port of
+`repro/core/hypothesis.py`.
 
 A hypothesis set is a fixed-K struct-of-tensors.  Scores are two CTC
 channels (blank / non-blank); the merge logsumexps each channel
@@ -13,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ref import HASH_SENTINEL as _SENTINEL
 
 NEG_INF = -1e30
 
@@ -27,6 +30,62 @@ class Candidates(NamedTuple):
 
 def total_score(pb: torch.Tensor, pnb: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(pb, pnb)
+
+
+def merge_duplicates(c: Candidates) -> Candidates:
+    """logsumexp-merge the candidates of one (N,) row with equal hash.
+
+    After the merge, one representative per hash (its first occurrence)
+    keeps the combined channels; the rest drop to NEG_INF.  Payload
+    fields of duplicates are identical by construction (same prefix), so
+    they pass through unchanged.  (Legacy stage: the decode path uses
+    the fused `hypothesis_unit_step`.)"""
+    n = c.hash.shape[0]
+    dev = c.hash.device
+    valid = total_score(c.pb, c.pnb) > NEG_INF / 2
+    # the hash's uint32 value, as the reference keys it
+    key = torch.where(valid, c.hash.long() & 0xFFFFFFFF,
+                      torch.full_like(c.hash, _SENTINEL, dtype=torch.long))
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    seg_start = torch.ones((n,), dtype=torch.bool, device=dev)
+    seg_start[1:] = sk[1:] != sk[:-1]
+    seg_id = torch.cumsum(seg_start, 0) - 1                  # (N,)
+
+    def seg_lse(x):
+        m = torch.full((n,), float("-inf"), dtype=x.dtype, device=dev)
+        m = m.scatter_reduce(0, seg_id, x, "amax", include_self=False)
+        s = torch.zeros((n,), dtype=x.dtype, device=dev)
+        s = s.scatter_add(0, seg_id, torch.exp(x - m[seg_id]))
+        out = m + torch.log(torch.clamp_min(s, 1e-37))
+        return torch.where(m > NEG_INF / 2, out, torch.full_like(out, NEG_INF))
+
+    pb_m = seg_lse(c.pb[order])[seg_id]
+    pnb_m = seg_lse(c.pnb[order])[seg_id]
+    keep = seg_start & (sk != _SENTINEL)
+    neg = torch.full_like(pb_m, NEG_INF)
+    inv = torch.argsort(order)
+    return Candidates(c.hash, torch.where(keep, pb_m, neg)[inv],
+                      torch.where(keep, pnb_m, neg)[inv], c.fields)
+
+
+def select(c: Candidates, k: int, beam_threshold: float) -> dict:
+    """Sort + prune one (N,) row: top-k by total score (ties to the
+    lowest index), then the beam threshold.  Returns the new hypothesis
+    set: a dict of (k,) tensors + 'valid'.  (Legacy stage — see
+    `merge_duplicates`.)"""
+    if k > c.hash.shape[0]:      # pad the candidate set up to the beam size
+        c = _pad_candidates(c, k - c.hash.shape[0])
+    tot = total_score(c.pb, c.pnb)
+    top, idx = torch.sort(tot, descending=True, stable=True)
+    top, idx = top[:k], idx[:k]
+    valid = (top > NEG_INF / 2) & (top >= top[0] - beam_threshold)
+    neg = torch.full_like(top, NEG_INF)
+    out = {"hash": c.hash[idx], "pb": torch.where(valid, c.pb[idx], neg),
+           "pnb": torch.where(valid, c.pnb[idx], neg), "valid": valid}
+    for name, arr in c.fields.items():
+        out[name] = arr[idx]
+    return out
 
 
 def _pad_candidates(c: Candidates, pad: int) -> Candidates:

@@ -43,6 +43,7 @@ SIGNATURES = {
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, I, F, P),
     "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, P),
+    "beam_prune_launch": (P, P, P, I, I, F, P),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,7 @@
 """Public kernel entry points, dispatched by `KernelPolicy`.
 
-Port of `repro/kernels/ops.py` (all but `beam_prune` and the mesh
-helpers).  Each function
-resolves its policy against the device of its input (see
+Port of `repro/kernels/ops.py` (all but the mesh helpers).  Each
+function resolves its policy against the device of its input (see
 `kernels/policy.py`): ``ref`` runs the plain PyTorch version in
 `kernels/ref.py` (CPU or card), ``kernel`` the CUDA kernel's wrapper
 (card only).  The wrappers never fall back: a failed build or launch
@@ -12,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import beam_prune as _bp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hypothesis_unit as _hu
 from repro_torch.kernels import int8_matmul as _im
@@ -23,7 +23,8 @@ from repro_torch.kernels.policy import resolve
 
 KERNEL_MODULES = {"logmel": _lm, "tds_conv": _tc, "layernorm": _ln,
                   "hypothesis_unit": _hu, "int8_matmul": _im,
-                  "rmsnorm": _ln, "flash_attention": _fa}
+                  "rmsnorm": _ln, "flash_attention": _fa,
+                  "beam_prune": _bp}
 # the module attribute holding a kernel's count, where it is not
 # `launches` (layernorm.py counts its two wrappers apart)
 _COUNTERS = {"rmsnorm": "rmsnorm_launches"}
@@ -70,6 +71,14 @@ def logmel(power, fb, dct, policy=None):
     if resolve(policy, power) == "ref":
         return _ref.logmel(power, fb, dct)
     return _lm.logmel(power.contiguous(), fb, dct)
+
+
+def beam_prune(scores, beam, policy=None):
+    """scores: (N,) f32 -> scores with entries < max - beam set to -1e30
+    (the hypothesis unit's standalone threshold stage)."""
+    if resolve(policy, scores) == "ref":
+        return _ref.beam_prune(scores, beam)
+    return _bp.beam_prune(scores.contiguous(), beam)
 
 
 def tds_conv(x, w, b, *, stride=1, relu=False, res=None, policy=None):

@@ -79,6 +79,16 @@ def logmel(power, fb, dct):
     return torch.log(torch.clamp_min(mel, 1e-10)) @ dct
 
 
+def beam_prune(scores, beam, mask_value=MASK):
+    """scores: (N,) f32 -> scores with entries < max - beam set to
+    `mask_value`.  The threshold is `best - beam` in fp32 (a Python
+    float does not promote the tensor, as the reference's weak-typed
+    float does not); `amax` propagates NaN, and a NaN threshold masks
+    every entry."""
+    best = scores.amax()
+    return torch.where(scores >= best - beam, scores, mask_value)
+
+
 # ---------------------------------------------------------------------------
 # fused hypothesis unit: hash-merge + beam threshold + top-k
 # ---------------------------------------------------------------------------
@@ -134,6 +144,63 @@ def hypothesis_unit(hashes, pb, pnb, *, k: int, beam: float):
     opb = torch.where(valid, torch.gather(pb_m, 1, pos), neg)
     opnb = torch.where(valid, torch.gather(pnb_m, 1, pos), neg)
     return {"idx": idx, "pb": opb, "pnb": opnb, "valid": valid}
+
+
+def merge_select_sorted(key_s, pb_s, pnb_s, *, k: int, beam: float,
+                        iterative_topk: bool = False):
+    """One hypothesis-unit row over a candidate set pre-sorted by key.
+
+    key_s: (N,) int keys in ascending order — the prefix hash for live
+    candidates, HASH_SENTINEL for dead ones (they sort to the tail and
+    never merge with a live hash).  pb_s / pnb_s: (N,) f32 CTC channels
+    in the same order.  Returns (pos, pb, pnb, valid), each (k,): `pos`
+    (int32) indexes the sorted row, pb/pnb are the merged channels of
+    the selected segment heads (NEG_INF where pruned), `valid` (int32
+    0/1) applies the beam threshold.  `iterative_topk` selects with k
+    argmax passes instead of one sort; both are descending with ties to
+    the lowest index (k <= N, and the scores are bounded below by
+    NEG_INF, so a pass never re-picks an exhausted slot)."""
+    n = key_s.shape[0]
+    head = torch.ones((n,), dtype=torch.bool, device=key_s.device)
+    head[1:] = key_s[1:] != key_s[:-1]                   # segment starts
+    ids = torch.cumsum(head, 0) - 1                      # segment ids
+    live = key_s != HASH_SENTINEL
+
+    pb_m = _seg_lse(pb_s, ids, n)
+    pnb_m = _seg_lse(pnb_s, ids, n)
+
+    rep = head & live                       # one representative per live hash
+    tot = torch.where(rep, torch.logaddexp(pb_m, pnb_m),
+                      torch.full_like(pb_m, NEG_INF))
+    best = tot.max()
+    if iterative_topk:
+        t = tot.clone()
+        pos = torch.empty((k,), dtype=torch.long, device=tot.device)
+        for i in range(k):
+            j = torch.argmax(t)                   # ties -> lowest index
+            pos[i] = j
+            t[j] = float("-inf")
+        top = tot[pos]
+    else:
+        top, pos = torch.sort(tot, descending=True, stable=True)
+        top, pos = top[:k], pos[:k]
+    valid = (top > NEG_INF / 2) & (top >= best - beam)
+    neg = torch.full_like(top, NEG_INF)
+    return (pos.to(torch.int32), torch.where(valid, pb_m[pos], neg),
+            torch.where(valid, pnb_m[pos], neg), valid.to(torch.int32))
+
+
+def tds_conv(x, w, b, stride=1):
+    """Causal strided time conv, unfused.  x: (T_pad, W, Cin) already
+    left-padded by k-1; w: (k, Cin, Cout); b: (Cout,).  Returns
+    (T_in // stride, W, Cout) with T_in = T_pad - (k - 1): the window
+    gather and one einsum, the reference's semantic spec of the conv."""
+    k = w.shape[0]
+    t_out = (x.shape[0] - (k - 1)) // stride
+    off = (torch.arange(t_out, device=x.device)[:, None] * stride
+           + torch.arange(k, device=x.device)[None, :])
+    win = x[off]                                    # (t_out, k, W, Cin)
+    return torch.einsum("tkwc,kcd->twd", win, w) + b
 
 
 def tds_conv_fused(x, w, b, *, stride=1, relu=False, res=None):

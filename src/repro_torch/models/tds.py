@@ -161,6 +161,12 @@ def reset_stream_slot(state: dict, slot, cfg: TDSConfig) -> dict:
     return treeutil.set_slot(state, slot, init_stream_state(cfg, dev))
 
 
+def state_bytes(cfg: TDSConfig, bytes_per_el: int = 1) -> int:
+    """Bytes of one stream's left context at `bytes_per_el` per value."""
+    return sum(a.numel() * bytes_per_el
+               for a in init_stream_state(cfg).values())
+
+
 def quantize_params(params, cfg: TDSConfig) -> dict:
     """Pre-quantize every FC/head weight matrix once (int8 + per-output
     scales, on the weights' device): {kernel name: {"wq", "ws"}}.  The

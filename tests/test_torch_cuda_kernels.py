@@ -11,13 +11,16 @@ atol 1e-5 (rtol 1e-5); hypothesis unit idx/valid exact, pb/pnb rtol
 1e-5 — the kernels sum in another order than cuBLAS and the plain
 version's unordered scatter_add.  int8_matmul: bitwise (integer sums
 are exact in any order, and the rescale is the same two fp32 products).
+beam_prune: bitwise (a max is exact in any order; the threshold is one
+fp32 subtraction), NaN and +-inf included.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (flash_attention as tfa,  # noqa: E402
+from repro_torch.kernels import (beam_prune as tbp,  # noqa: E402
+                                 flash_attention as tfa,
                                  hypothesis_unit as thu,
                                  int8_matmul as tim, layernorm as tln,
                                  logmel as tlm, ops, ref, tds_conv as ttc)
@@ -158,6 +161,51 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
     with pytest.raises(ValueError):
         tim.int8_matmul(xq, wq[:32], xs, ws)                  # K mismatch
     assert ops.launch_counts()["int8_matmul"] == 1
+    s = _t(cuda, 4, 1000, scale=10.0)
+    tbp.beam_prune(s, 5.0)
+    for bad in (s.reshape(10, 100), s.to(torch.bfloat16), s[::2],
+                s[:0]):                  # 2-D, bf16, not contiguous, empty
+        with pytest.raises(ValueError):
+            tbp.beam_prune(bad, 5.0)
+    assert ops.launch_counts()["beam_prune"] == 1
+
+
+def _prune_input(dev, n, case, beam):
+    """Scores of N = n (scale 10) for one `case`: "random", "nan" (one
+    NaN), "neg_inf" (all -inf), "pos_inf" (two +inf entries) or "tie"
+    (a score exactly on the fp32 threshold and one an ulp below it)."""
+    s = np.random.RandomState(n).randn(n).astype(np.float32) * 10
+    if case == "nan":
+        s[n // 3] = np.nan
+    elif case == "neg_inf":
+        s[:] = -np.inf
+    elif case == "pos_inf":
+        s[[0, n - 1]] = np.inf
+    elif case == "tie":
+        i = (int(s.argmax()) + 1) % (n - 1)
+        thr = np.float32(s.max()) - np.float32(beam)
+        s[i], s[i + 1] = thr, np.nextafter(thr, np.float32(-np.inf))
+    return torch.from_numpy(s).to(dev)
+
+
+@pytest.mark.parametrize("n,case,beam", [
+    *[(n, "random", b) for n in (1, 100, 1000, 1025, 8320, 8448)
+      for b in (1.0, 5.0, 25.0)],
+    (65536, "random", 25.0), (65537, "random", 25.0),
+    (4_194_307, "random", 25.0),            # across blocks, ragged
+    *[(n, c, b) for n in (8448, 4_194_307)
+      for c, b in (("nan", 5.0), ("neg_inf", 5.0), ("pos_inf", 25.0),
+                   ("tie", 0.1))],
+])
+def test_beam_prune_kernel_matches_plain_bitwise(cuda, n, case, beam):
+    s = _prune_input(cuda, n, case, beam)
+    got = tbp.beam_prune(s, beam)
+    torch.cuda.synchronize()
+    want = ref.beam_prune(s, beam)
+    assert got.dtype == torch.float32 and got.shape == s.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ops.beam_prune(s, beam).view(torch.int32),
+                       want.view(torch.int32))
 
 
 _TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),

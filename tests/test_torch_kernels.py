@@ -16,7 +16,12 @@ Tolerances (two frameworks, two BLAS libraries, sums in other orders):
     by an ulp across frameworks;
   * int8 path: bitwise — the integer product is exact in both packages,
     and quantization and rescale are the same IEEE fp32 operations in
-    the same order.
+    the same order;
+  * beam_prune: bitwise — a max, one fp32 subtraction and comparisons,
+    NaN and +-inf included;
+  * merge_select_sorted: pos/valid exact, pb/pnb rtol 1e-5, as for the
+    hypothesis unit;
+  * unfused tds_conv: atol 1e-5 (rtol 1e-5), as for the fused conv.
 """
 import numpy as np
 import pytest
@@ -29,6 +34,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.policy import KernelPolicy as JaxPolicy  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import beam_prune as tbp  # noqa: E402
 from repro_torch.kernels import (hypothesis_unit as thu,  # noqa: E402
                                  int8_matmul as tim, layernorm as tln,
                                  logmel as tlm, ref as tref, tds_conv as ttc)
@@ -307,6 +313,128 @@ def test_hypothesis_unit_duplicate_hash_merges_mass():
         < 1e-4
 
 
+def _sorted_row(seed, n):
+    """One candidate row sorted by key as the TPU kernel receives it:
+    (uint32 keys, pb, pnb), dead candidates keyed to the sentinel."""
+    h, pb, pnb = (a[0] for a in _candidates(seed, 1, n))
+    live = np.logaddexp(pb, pnb) > NEG_INF / 2
+    key = np.where(live, h.astype(np.uint32), np.uint32(0xFFFFFFFF))
+    order = np.argsort(key, kind="stable")
+    return key[order], pb[order], pnb[order]
+
+
+@pytest.mark.parametrize("iterative_topk", [False, True])
+@pytest.mark.parametrize("seed,n,k,beam", [
+    (0, 12, 4, 5.0), (1, 64, 16, 10.0), (2, 200, 16, 3.0), (3, 130, 32, 1e9),
+    (4, 1040, 128, 25.0),
+])
+def test_merge_select_sorted_matches_jax(seed, n, k, beam, iterative_topk):
+    key, pb, pnb = _sorted_row(seed, n)
+    want = jref.merge_select_sorted(jnp.asarray(key), jnp.asarray(pb),
+                                    jnp.asarray(pnb), k=k, beam=beam,
+                                    iterative_topk=iterative_topk)
+    got = tref.merge_select_sorted(_t(key.astype(np.int64)), _t(pb), _t(pnb),
+                                   k=k, beam=beam,
+                                   iterative_topk=iterative_topk)
+    for i, name in ((0, "pos"), (3, "valid")):
+        assert got[i].dtype == torch.int32
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]),
+                                      err_msg=name)
+    for i, name in ((1, "pb"), (2, "pnb")):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                   rtol=1e-5, atol=0, err_msg=name)
+    other = tref.merge_select_sorted(_t(key.astype(np.int64)), _t(pb),
+                                     _t(pnb), k=k, beam=beam,
+                                     iterative_topk=not iterative_topk)
+    for a, b in zip(got, other):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# unfused tds conv (the reference's semantic spec of the conv)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("k,stride,t,w,cin,cout", [
+    (9, 1, 32, 16, 5, 7), (9, 2, 32, 16, 5, 7), (10, 2, 64, 80, 15, 19),
+    (21, 1, 64, 8, 3, 3), (9, 1, 48, 16, 5, 7), (9, 1, 40, 8, 3, 3),
+    (5, 2, 72, 8, 3, 3),
+])
+def test_tds_conv_unfused_matches_jax(k, stride, t, w, cin, cout):
+    x = _np(k, k - 1 + t, w, cin)
+    wgt = _np(1, k, cin, cout, scale=0.3)
+    b = _np(2, cout)
+    want = jref.tds_conv(jnp.asarray(x), jnp.asarray(wgt), jnp.asarray(b),
+                         stride=stride)
+    got = tref.tds_conv(_t(x), _t(wgt), _t(b), stride=stride)
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    fused = tref.tds_conv_fused(_t(x)[None], _t(wgt), _t(b), stride=stride)[0]
+    np.testing.assert_allclose(got.numpy(), fused.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# beam prune
+# ---------------------------------------------------------------------------
+PRUNE_CASES = ["100/1", "1000/5", "8448/25", "1/25", "1025/5", "nan",
+               "all_neg_inf", "pos_inf", "tie"]
+
+
+def _prune_input(case):
+    """(scores, beam, checks): the sweep of tests/test_kernels.py, N = 1
+    and 1025, and rows holding a NaN, only -inf, +inf, and a score placed
+    exactly on the fp32 threshold (kept) beside one an ulp below it
+    (masked).  `checks` maps index -> expected output."""
+    if "/" in case:
+        n, beam = (int(v) for v in case.split("/"))
+        return _np(n, n, scale=10.0), float(beam), {}
+    s = _np(7, 1000, scale=10.0)
+    if case == "nan":
+        s[337] = np.nan
+        return s, 5.0, {0: NEG_INF, 337: NEG_INF}
+    if case == "all_neg_inf":
+        return np.full(1000, -np.inf, np.float32), 5.0, {0: -np.inf}
+    if case == "pos_inf":
+        s[[3, 900]] = np.inf
+        return s, 25.0, {3: np.inf, 900: np.inf, 0: NEG_INF}
+    i = (int(s.argmax()) + 1) % s.size
+    thr = np.float32(s.max()) - np.float32(0.1)      # fp32, as the reference
+    s[i] = thr
+    s[i + 1] = np.nextafter(thr, np.float32(-np.inf))
+    return s, 0.1, {i: thr, i + 1: NEG_INF}
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("case", PRUNE_CASES)
+def test_beam_prune_matches_jax_bitwise(case):
+    s, beam, checks = _prune_input(case)
+    got = tref.beam_prune(_t(s), beam).numpy()
+    assert got.dtype == np.float32 and got.shape == s.shape
+    want_ref = np.asarray(jref.beam_prune(jnp.asarray(s), beam))
+    want_kernel = np.asarray(jops.beam_prune(jnp.asarray(s), beam,
+                                             policy=JaxPolicy("interpret")))
+    np.testing.assert_array_equal(_bits(got), _bits(want_ref))
+    np.testing.assert_array_equal(_bits(got), _bits(want_kernel))
+    for i, v in checks.items():
+        assert got[i] == np.float32(v), (i, got[i], v)
+
+
+def test_beam_prune_dispatch_on_cpu():
+    """ops.beam_prune under ref and auto on CPU tensors (mirrors
+    tests/test_hypothesis_unit.py's policy-consistency test)."""
+    s = _t(_np(0, 300, scale=10.0))
+    want = np.asarray(jops.beam_prune(jnp.asarray(s.numpy()), 4.0,
+                                      policy=JaxPolicy("interpret")))
+    for policy in (KernelPolicy("ref"), KernelPolicy("auto"), None):
+        got = tops.beam_prune(s, 4.0, policy=policy)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.beam_prune(s, 4.0, policy=KernelPolicy("kernel"))
+
+
 # ---------------------------------------------------------------------------
 # wrappers and dispatch on the CPU
 # ---------------------------------------------------------------------------
@@ -333,10 +461,12 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     xq, wq, xs, ws = (_t(a) for a in _int8_operands(10, 5, 40, 24))
     assert torch.equal(tim.int8_matmul(xq, wq, xs, ws),
                        tref.int8_matmul(xq, wq, xs, ws))
+    sc = _t(_np(11, 64, scale=10.0))
+    assert torch.equal(tbp.beam_prune(sc, 5.0), tops.beam_prune(sc, 5.0))
     assert tops.launch_counts() == {"logmel": 0, "tds_conv": 0,
                                     "layernorm": 0, "hypothesis_unit": 0,
                                     "int8_matmul": 0, "rmsnorm": 0,
-                                    "flash_attention": 0}
+                                    "flash_attention": 0, "beam_prune": 0}
 
 
 def test_kernel_policy_resolution():

@@ -79,9 +79,37 @@ def test_cuda_kernel_sources_and_bindings_agree():
     text = "".join(f.read_text() for f in _build.sources())
     assert {f.stem for f in _build.sources()} == {
         "logmel", "tds_conv", "layernorm", "hypothesis_unit", "int8_matmul",
-        "flash_attention"}
+        "flash_attention", "beam_prune"}
     for name, argtypes in _build.SIGNATURES.items():
         assert f'extern "C" int {name}(' in text, name
     assert 'extern "C" const char* repro_error_string(' in text
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert _build.BUILD_DIR == ROOT / "build" / "kernels"
+
+
+def _top_level_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {n.name for n in tree.body
+            if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+
+
+def test_every_tpu_kernel_and_kernel_function_has_a_port_counterpart():
+    """Each module of the JAX package that reaches `pl.pallas_call` has a
+    kernel in `ops.KERNEL_MODULES`, and every public function of
+    `repro.kernels.ref` and `repro.kernels.ops` one of the same name in
+    the port, apart from the mesh helpers (not ported yet)."""
+    from repro_torch.kernels import ops, ref
+    ref_dir = ROOT / "src" / "repro" / "kernels"
+    pallas = set()
+    for f in sorted(ref_dir.glob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if isinstance(node, ast.Attribute) and node.attr == "pallas_call":
+                pallas.add(f.stem)
+    assert len(pallas) == 7, pallas
+    assert pallas <= set(ops.KERNEL_MODULES), pallas - set(ops.KERNEL_MODULES)
+    mesh = {"shard_local_cols", "overlap_splits", "psum_overlap_matmul"}
+    for name, port in (("ref", ref), ("ops", ops)):
+        want = _top_level_functions(ref_dir / f"{name}.py") - mesh
+        missing = sorted(f for f in want if not callable(getattr(port, f,
+                                                                 None)))
+        assert not missing, (name, missing)
