@@ -253,14 +253,6 @@ def decode_batched(log_probs: torch.Tensor, lex: Lexicon, lm: BigramLM,
     return st
 
 
-def finalize_batched(state: BeamState, lex: Lexicon, lm: BigramLM,
-                     cfg: DecoderConfig) -> BeamState:
-    """`finalize` over a leading stream axis: (B, K, ...) -> (B, K, ...).
-    `finalize` is elementwise over the hypotheses, so one call covers
-    every stream."""
-    return finalize(state, lex, lm, cfg)
-
-
 def slot_state(state: BeamState, slot) -> BeamState:
     """Slice one stream's (K, ...) beam out of a (B, K, ...) batch."""
     return treeutil.tree_map(lambda a: a[slot], state)
@@ -299,6 +291,11 @@ def finalize(state: BeamState, lex: Lexicon, lm: BigramLM,
                              state.lm_state),
         node=torch.where(pend, torch.full_like(state.node, lex.root),
                          state.node))
+
+
+# the reference's vmap of `finalize` over streams; `finalize` is
+# elementwise over the hypotheses, so it takes (B, K, ...) as it is
+finalize_batched = finalize
 
 
 def best(state: BeamState) -> dict:

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import HASH_SENTINEL as _SENTINEL
+from repro_torch.kernels.ref import HASH_SENTINEL as _SENTINEL, _seg_lse
 
 NEG_INF = -1e30
 
@@ -52,16 +52,8 @@ def merge_duplicates(c: Candidates) -> Candidates:
     seg_start[1:] = sk[1:] != sk[:-1]
     seg_id = torch.cumsum(seg_start, 0) - 1                  # (N,)
 
-    def seg_lse(x):
-        m = torch.full((n,), float("-inf"), dtype=x.dtype, device=dev)
-        m = m.scatter_reduce(0, seg_id, x, "amax", include_self=False)
-        s = torch.zeros((n,), dtype=x.dtype, device=dev)
-        s = s.scatter_add(0, seg_id, torch.exp(x - m[seg_id]))
-        out = m + torch.log(torch.clamp_min(s, 1e-37))
-        return torch.where(m > NEG_INF / 2, out, torch.full_like(out, NEG_INF))
-
-    pb_m = seg_lse(c.pb[order])[seg_id]
-    pnb_m = seg_lse(c.pnb[order])[seg_id]
+    pb_m = _seg_lse(c.pb[order], seg_id, n)
+    pnb_m = _seg_lse(c.pnb[order], seg_id, n)
     keep = seg_start & (sk != _SENTINEL)
     neg = torch.full_like(pb_m, NEG_INF)
     inv = torch.argsort(order)

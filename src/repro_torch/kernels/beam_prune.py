@@ -21,6 +21,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0        # kernel launches made by this wrapper
+# largest N that one block handles in one launch (BP_SMALL in the source)
+_SMALL = 1 << 16
 # capacity of the per-block maxima scratch: at most this many blocks
 # (each of at least 4096 scores) in the two-pass path
 _PARTIALS = 1024
@@ -38,10 +40,14 @@ def beam_prune(scores: torch.Tensor, beam: float) -> torch.Tensor:
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"beam_prune: expected 1 <= N < 2**31 scores, got {n}")
     out = torch.empty_like(scores)
-    partial = torch.empty((_PARTIALS,), dtype=torch.float32, device=dev)
+    if n <= _SMALL:         # one launch; the kernel takes no scratch
+        partial, n_partials, n_launch = out, 1, 1
+    else:
+        partial = torch.empty((_PARTIALS,), dtype=torch.float32, device=dev)
+        n_partials, n_launch = _PARTIALS, 2
     err = _build.lib().beam_prune_launch(
-        scores.data_ptr(), out.data_ptr(), partial.data_ptr(), n, _PARTIALS,
+        scores.data_ptr(), out.data_ptr(), partial.data_ptr(), n, n_partials,
         float(beam), _build.stream(dev))
     _build.check(err, "beam_prune")
-    launches += 1
+    launches += n_launch
     return out

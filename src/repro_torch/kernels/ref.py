@@ -146,8 +146,7 @@ def hypothesis_unit(hashes, pb, pnb, *, k: int, beam: float):
     return {"idx": idx, "pb": opb, "pnb": opnb, "valid": valid}
 
 
-def merge_select_sorted(key_s, pb_s, pnb_s, *, k: int, beam: float,
-                        iterative_topk: bool = False):
+def merge_select_sorted(key_s, pb_s, pnb_s, *, k: int, beam: float):
     """One hypothesis-unit row over a candidate set pre-sorted by key.
 
     key_s: (N,) int keys in ascending order — the prefix hash for live
@@ -156,10 +155,9 @@ def merge_select_sorted(key_s, pb_s, pnb_s, *, k: int, beam: float,
     in the same order.  Returns (pos, pb, pnb, valid), each (k,): `pos`
     (int32) indexes the sorted row, pb/pnb are the merged channels of
     the selected segment heads (NEG_INF where pruned), `valid` (int32
-    0/1) applies the beam threshold.  `iterative_topk` selects with k
-    argmax passes instead of one sort; both are descending with ties to
-    the lowest index (k <= N, and the scores are bounded below by
-    NEG_INF, so a pass never re-picks an exhausted slot)."""
+    0/1) applies the beam threshold.  Top-k is one stable descending
+    sort: ties go to the lowest index, as both of the reference's
+    `iterative_topk` settings give."""
     n = key_s.shape[0]
     head = torch.ones((n,), dtype=torch.bool, device=key_s.device)
     head[1:] = key_s[1:] != key_s[:-1]                   # segment starts
@@ -173,17 +171,8 @@ def merge_select_sorted(key_s, pb_s, pnb_s, *, k: int, beam: float,
     tot = torch.where(rep, torch.logaddexp(pb_m, pnb_m),
                       torch.full_like(pb_m, NEG_INF))
     best = tot.max()
-    if iterative_topk:
-        t = tot.clone()
-        pos = torch.empty((k,), dtype=torch.long, device=tot.device)
-        for i in range(k):
-            j = torch.argmax(t)                   # ties -> lowest index
-            pos[i] = j
-            t[j] = float("-inf")
-        top = tot[pos]
-    else:
-        top, pos = torch.sort(tot, descending=True, stable=True)
-        top, pos = top[:k], pos[:k]
+    top, pos = torch.sort(tot, descending=True, stable=True)
+    top, pos = top[:k], pos[:k]
     valid = (top > NEG_INF / 2) & (top >= best - beam)
     neg = torch.full_like(top, NEG_INF)
     return (pos.to(torch.int32), torch.where(valid, pb_m[pos], neg),

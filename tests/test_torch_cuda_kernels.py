@@ -168,6 +168,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         with pytest.raises(ValueError):
             tbp.beam_prune(bad, 5.0)
     assert ops.launch_counts()["beam_prune"] == 1
+    tbp.beam_prune(_t(cuda, 5, 65537), 5.0)     # two passes: two launches
+    assert ops.launch_counts()["beam_prune"] == 3
 
 
 def _prune_input(dev, n, case, beam):
