@@ -32,7 +32,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
   LM phases (h2o-danube-1.8b at full width, seeded random weights):
   7. lm kernels — flash_attention and rmsnorm vs their plain versions in
                bf16 and fp32 at the prefill/decode shapes: GQA 32/8 with
-               D = 80, Sq < Skv, a window smaller than S, ragged S.
+               D = 80, Sq < Skv, a window smaller than S, ragged S.  bf16
+               flash runs on the tensor cores (wgmma, P rounded to bf16
+               before P·V), fp32 flash on the CUDA cores; rmsnorm keeps
+               the row in registers with 16-byte loads.
   8. lm serve — bf16 `LmEngine` (4 slots, buckets 512/2048/6144, 32 new
                tokens) serves 8 prompts of 100-6144 tokens, three longer
                than the 4096 window; launch counts must be 24 flash
@@ -43,7 +46,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                tokens, prefill logits close; bf16 prefill logits close.
  10. lm timing — each LM kernel, its plain version and the library call
                at S = 512/2048/6144 (and rmsnorm's decode rows), bounds,
-               a profiler breakdown of a prefill and a decode step.
+               each flash time as a share of the bf16 peak and against
+               SDPA, each rmsnorm time as a share of its bytes bound and
+               against F.rms_norm; a profiler breakdown of a prefill and
+               a decode step.
   Prune phases (no serving path calls beam_prune, as in the reference):
  11. prune check — beam_prune vs its plain version, bitwise, at N = 1 to
                8448 with beam 1/5/25, at a ragged N = 4,194,307 (the
@@ -138,9 +144,14 @@ REPLACES = {
 }
 SOURCES = {"rmsnorm": "layernorm"}      # kernel -> csrc file stem
 
-# LM kernels vs their plain versions: both compute in fp32 and round once
-# to the output type, so bf16 may differ by one bf16 ulp (2^-8 relative)
-# where the fp32 values straddle a rounding boundary.
+# LM kernels vs their plain versions.  rmsnorm: both compute in fp32 and
+# round once to the output type, so bf16 may differ by one bf16 ulp (2^-8
+# relative) where the fp32 values straddle a rounding boundary.  bf16
+# flash_attention also rounds P to bf16 before the P·V product on the
+# tensor cores (the plain version keeps P in fp32): at most 2^-9 relative
+# per probability, so the output moves by at most 2^-9·max|v| before its
+# own rounding to bf16.  fp32 flash attention runs on the CUDA cores (no
+# TF32) and differs only in summation order.
 LM_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 # LM prefill logits, kernel path vs plain path, as max|diff| over
@@ -1123,15 +1134,20 @@ def lm_timing_phase(dev, cfg) -> dict:
              else "operations",
              "pairs": pairs, "flops": flops, "bytes": nbytes,
              "library_max_abs_err": lib_err}
+        r["peak_share"] = flops / (r["ms"] * 1e-3) / PEAK_BF16
+        r["vs_library"] = (None if r["library_ms"] is None
+                           else r["ms"] / r["library_ms"])
         out["flash_attention"][S] = r
         lib = ("-" if r["library_ms"] is None
-               else f"{r['library_ms'] * 1e3:.1f}")
+               else f"{r['library_ms'] * 1e3:.1f} us, kernel/sdpa "
+                    f"{r['vs_library']:.3f}")
         print(f"[lm timing] flash_attention bf16 S={S} (1, {H}/{K}, {S}, {D}) "
               f"w={win}: kernel {r['ms'] * 1e3:.1f} us, plain "
-              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib} us "
+              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib} "
               f"(max|diff| {lib_err}), bound {r['bound_ms'] * 1e3:.1f} us "
               f"({r['bound_by']}; {pairs} pairs/head); "
-              f"{flops / r['ms'] / 1e9:.1f} TFLOP/s", flush=True)
+              f"{flops / r['ms'] / 1e9:.1f} TFLOP/s = "
+              f"{100 * r['peak_share']:.1f}% of the bf16 peak", flush=True)
         del q, k, v, mask
         torch.cuda.empty_cache()
     D_ = cfg.d_model
@@ -1147,11 +1163,14 @@ def lm_timing_phase(dev, cfg) -> dict:
                  x, (D_,), weight=sc16, eps=1e-6)),
              "bound_ms": bound_ms(nbytes, flops, PEAK_BF16),
              "bound_by": "bytes", "bytes": nbytes}
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["vs_library"] = r["ms"] / r["library_ms"]
         out["rmsnorm"][rows] = r
         print(f"[lm timing] rmsnorm bf16 ({rows}, {D_}): kernel "
               f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
-              f"F.rms_norm {r['library_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.3f} us (bytes); "
+              f"F.rms_norm {r['library_ms'] * 1e3:.2f} us (kernel/library "
+              f"{r['vs_library']:.3f}), bound {r['bound_ms'] * 1e3:.3f} us "
+              f"(bytes; {100 * r['bound_share']:.1f}% of it); "
               f"{nbytes / r['ms'] / 1e6:.1f} GB/s", flush=True)
     return out
 

@@ -8,21 +8,75 @@
 // of kv (q_offset = Skv - Sq).  Per (q, kv) pair: s = (q . k) * scale in
 // fp32, masked to -1e30 outside the causal / window band (or past Skv),
 // then the running max m, denominator l and accumulator acc are updated
-// with masked probabilities zeroed, exactly as the TPU kernel does;
-// the output is acc / max(l, 1e-30), cast to q's type.
+// with masked probabilities zeroed, exactly as the TPU kernel does (a
+// fully masked row outputs 0); the output is acc / max(l, 1e-30), cast
+// once to q's type.
 //
 // What bounds it on the H100: operations.  A prefill of S tokens does
-// 4·D flops per unmasked (q, k) pair and head against O(S·D) bytes.  This
-// first design runs them as fp32 FMAs on the CUDA cores (67 TFLOP/s peak
-// against 989 for bf16 on the tensor cores): one block of 256 threads
-// per (b, h, 64-row q tile) walks the kv tiles of 64 rows that its band
-// touches, so masked tiles cost nothing.  Q and each K tile are staged in
-// shared memory transposed and converted to fp32, so that the score loop
+// 4·D flops per unmasked (q, k) pair and head against O(S·D) bytes, far
+// above the card's 295 flops per byte, so only the tensor cores (989
+// TFLOP/s in bf16, against 67 TFLOP/s of fp32 FMAs on the CUDA cores)
+// can reach the bound.
+//
+// bf16 (`fa_wgmma_kernel`): both products on the tensor cores.
+//   * One block per (b, h, q tile of 128 rows): two consumer warpgroups
+//     of 64 q rows each and one producer warp.  The block walks the kv
+//     tiles of 128 rows that its causal / window band touches; fully
+//     masked tiles are never loaded.  The heaviest q tiles (the latest,
+//     whose band is longest) are launched first.
+//   * Copies: the producer warp moves Q once and each K/V tile into a
+//     three-stage ring with `cp.async` (16 bytes a lane, zero-filled past
+//     S and in the depth padding), and `cp.async.mbarrier.arrive` marks a
+//     stage full when its copies land; consumers release a stage through
+//     an `empty` mbarrier once their products have read it.  Two tiles'
+//     copies are in flight while the current tile's products and softmax
+//     run, and the loop has no block-wide barrier.  cp.async rather than
+//     TMA: it needs no tensor map encoded on the host per call, and it
+//     writes the layout below directly.
+//   * Layout: no swizzle.  Rows are cut into 8 x 16-byte core matrices
+//     (8 rows x 8 values), stored 128 contiguous bytes each, chunk-major
+//     within a group of 8 rows: chunk (r, c) at ((r/8)·DP/8 + c)·128 +
+//     (r%8)·16.  A core matrix spans all 32 banks, so neither the copies
+//     nor the tensor cores' reads conflict, and a depth D = 80 (160-byte
+//     rows, which fill no 128-byte swizzle atom) needs no split into
+//     swizzle widths.  The depth is padded with zeros to DP, a multiple
+//     of 16 (exact for Q·Kᵀ; the padded output columns of P·V are never
+//     stored).
+//   * S = Q·Kᵀ: `wgmma.mma_async` m64n128k16, Q and K both K-major from
+//     shared memory, fp32 accumulators, DP/16 steps.
+//   * O += P·V: P is rounded to bf16 and packed straight from the S
+//     accumulators into A fragments in registers (the m64nNk16
+//     accumulator layout is the register A layout), then `wgmma`
+//     m64nDPk16 reads V (kv rows x D, D contiguous: MN-major) with the
+//     transpose bit, 8 steps per tile.  The next tile's S is issued right
+//     behind it, so the tensor cores run the two back to back.
+//   * Scheduling is left to the warp schedulers: one warpgroup's softmax
+//     overlaps the other's products.  (Forcing the two to take turns at
+//     issuing them with named barriers, as FlashAttention-3 does, was no
+//     faster on the H100 at D = 80.)
+//   * Masks: only tiles that straddle the causal diagonal, the window's
+//     lower edge or the end of kv evaluate the per-element mask; the
+//     interior tiles take a branch without it, where p = 2^(s·scale·
+//     log2(e) - max) is one FMA and one MUFU ex2.
+//   * The one numeric departure from the fp32 reference: P is rounded to
+//     bf16 before P·V (as SDPA's flash backend and FlashAttention-2/3
+//     do); the relative error per probability is at most 2^-9, so the
+//     output moves by at most 2^-9·max|v| before its own rounding.  l
+//     sums the unrounded fp32 probabilities.
+//   * Registers: 64 fp32 S, DP/2 fp32 O and 32 packed P values per
+//     thread, within the 168 a thread that one 288-thread block per SM
+//     leaves: `-Xptxas -v` reports no spill up to DP = 112 and 24 bytes
+//     at DP = 128.
+//
+// fp32 (`flash_attention_kernel`): the port's fp32 contract is "no
+// TF32", and the tensor cores take fp32 only as TF32, so fp32 keeps the
+// CUDA-core design: one block of 256 threads per (b, h, 64-row q tile)
+// walks the kv tiles of 64 rows that its band touches.  Q and each K
+// tile are staged in shared memory transposed, so that the score loop
 // reads one float4 of Q and one of K per d for 16 FMAs; a thread owns a
 // 4 x 4 block of scores, a row's 64 scores live in 16 adjacent lanes
 // (shuffle reductions), and the probabilities go through shared memory
 // for the P·V product, where a thread owns 4 rows x ceil(D/16) columns.
-// Tensor-core `mma`/`wgmma` with TMA-fed tiles is later work.
 //
 // Global loads are 16 bytes (8 bf16 or 4 fp32), so D must be a multiple
 // of 8 and at most 128, and the base pointers 16-byte aligned: the
@@ -35,6 +89,523 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma with cp.async-fed tiles
+// ---------------------------------------------------------------------------
+constexpr int FW_QW = 64;          // q rows per consumer warpgroup
+constexpr int FW_BK = 128;         // kv rows per tile
+constexpr int FW_STAGES = 3;       // K/V tiles in the ring
+constexpr int FW_NWG = 2;          // consumer warpgroups per block
+constexpr int FW_BQ = FW_QW * FW_NWG;
+constexpr int FW_THREADS = 128 * FW_NWG + 32;
+constexpr float FW_MASK = -1e30f;
+constexpr float FW_LOG2E = 1.4426950408889634f;
+
+#define FA_ACC8(d, i)                                                  \
+  "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading
+// (lbo) and stride (sbo) byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accesses of wgmma accumulators across the
+// asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S (64 x 128) = A (64 x 16) . B (16 x 128)ᵀ, A and B K-major in shared
+// memory; acc = 0 overwrites S.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24),
+        FA_ACC8(d, 32), FA_ACC8(d, 40), FA_ACC8(d, 48), FA_ACC8(d, 56)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// O (64 x N) += A (64 x 16, bf16 in registers) . B (16 x N), B MN-major
+// in shared memory (transpose bit set).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31},  "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24),
+        FA_ACC8(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47},  "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24),
+        FA_ACC8(d, 32), FA_ACC8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<112>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47,  "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24),
+        FA_ACC8(d, 32), FA_ACC8(d, 40), FA_ACC8(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31,  "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47,  "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63},  "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_ACC8(d, 0), FA_ACC8(d, 8), FA_ACC8(d, 16), FA_ACC8(d, 24),
+        FA_ACC8(d, 32), FA_ACC8(d, 40), FA_ACC8(d, 48), FA_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Wait until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Arrive on `bar` once all of this thread's earlier cp.async have landed
+// (the arrival counts against the barrier's initial count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// The producer warp's copy of 8·groups rows from r0 of a row-major
+// (S, D) bf16 matrix into the core-matrix layout at `dst`: 16-byte
+// chunks, zero past S and in the depth padding.  Lane l owns row l % 8 of
+// every group of 8 rows and chunk l / 8 of every 4 adjacent chunks, so a
+// warp's copy writes 4 whole core matrices (512 contiguous bytes, no bank
+// conflict) and reads 8 rows x 64 contiguous bytes; all offsets but the
+// row stride are compile-time constants.
+template <int DP>
+__device__ __forceinline__ void fw_copy(uint32_t dst,
+                                        const __nv_bfloat16* __restrict__ src,
+                                        int r0, int S, int D, int groups,
+                                        int lane) {
+  constexpr int NC8 = DP / 8;
+  const int r8 = lane & 7, cq = lane >> 3, nc = D / 8;
+  const __nv_bfloat16* row = src + (size_t)(r0 + r8) * D + cq * 8;
+  const uint32_t a = dst + cq * 128 + r8 * 16;
+  for (int g = 0; g < groups; ++g, row += 8 * (size_t)D) {
+    const bool row_ok = r0 + 8 * g + r8 < S;
+#pragma unroll
+    for (int cb = 0; cb < NC8; cb += 4) {
+      if (cb + 4 > NC8 && cb + cq >= NC8) continue;
+      const bool ok = row_ok && cb + cq < nc;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       a + (uint32_t)((g * NC8 + cb) * 128)),
+                   "l"(ok ? row + cb * 8 : src), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  }
+}
+
+// 2^x (MUFU; +0 for -inf and for -1e30)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Max over the 4 lanes that hold a row's accumulators.
+__device__ __forceinline__ void fw_row_max(float& a, float& b) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// S = Q·Kᵀ of tile `it` over the padded depth, issued once its K/V stage
+// is full; committed, not waited for.
+template <int DP>
+__device__ __forceinline__ void fw_issue_s(float* s, uint32_t qwg,
+                                           uint32_t tiles, uint32_t full0,
+                                           int it) {
+  constexpr int GROUP = DP / 8 * 128;
+  constexpr int TILE = FW_BK / 8 * GROUP;
+  const int st = it % FW_STAGES;
+  mbar_wait(full0 + 8 * st, (it / FW_STAGES) & 1);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const uint32_t kt = tiles + 2 * st * TILE;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss_n128(s, gmma_desc(qwg + kk * 256, 128, GROUP),
+                  gmma_desc(kt + kk * 256, 128, GROUP), kk > 0);
+  wgmma_commit();
+}
+
+// DP: the depth padded to a multiple of 16.  Warpgroups 0 and 1 consume,
+// the last warp produces.
+template <int DP>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ out, int H, int K, int Sq,
+                int Skv, int D, int causal, int window, float scale) {
+  constexpr int NC8 = DP / 8;
+  constexpr int GROUP = NC8 * 128;            // bytes of 8 rows
+  constexpr int TILE = FW_BK / 8 * GROUP;     // bytes of one K or V tile
+  constexpr int NS = 64;                      // S registers per thread
+  constexpr int NO = DP / 2;                  // O registers per thread
+  extern __shared__ __align__(128) unsigned char fw_smem[];
+  const uint32_t sq_base = smem_addr(fw_smem);
+  const uint32_t tiles = sq_base + FW_BQ / 8 * GROUP;      // [stage][K, V]
+  const uint32_t bars = tiles + 2 * FW_STAGES * TILE;  // 7 mbarriers
+  const uint32_t full0 = bars, empty0 = bars + 8 * FW_STAGES;
+  const uint32_t qfull = bars + 16 * FW_STAGES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int kvh = h / (H / K);
+  // heaviest (last) q tiles first: the causal band grows with the tile
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FW_BQ;
+  const int q_offset = Skv - Sq;
+  const __nv_bfloat16* qb = q + (size_t)bh * Sq * D;
+  const __nv_bfloat16* kb = k + (size_t)(b * K + kvh) * Skv * D;
+  const __nv_bfloat16* vb = v + (size_t)(b * K + kvh) * Skv * D;
+
+  // the kv band this q tile can see: [kv_lo, kv_hi)
+  const int qlo = q0 + q_offset;
+  const int qhi = min(q0 + FW_BQ, Sq) - 1 + q_offset;
+  int kv_lo = 0, kv_hi = Skv;
+  if (causal) kv_hi = min(Skv, qhi + 1);
+  if (window > 0) kv_lo = max(0, qlo - window + 1);
+  const int t_lo = kv_lo / FW_BK;
+  const int ntiles = kv_hi > kv_lo ? (kv_hi + FW_BK - 1) / FW_BK - t_lo : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 32);
+      mbar_init(empty0 + 8 * s, 128 * FW_NWG);
+    }
+    mbar_init(qfull, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (warp == 4 * FW_NWG) {
+    // ---- producer warp ----
+    fw_copy<DP>(sq_base, qb, q0, Sq, D, FW_BQ / 8, lane);
+    cp_async_arrive(qfull);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % FW_STAGES;
+      if (it >= FW_STAGES)
+        mbar_wait(empty0 + 8 * s, (it / FW_STAGES - 1) & 1);
+      const int k0 = (t_lo + it) * FW_BK;
+      const uint32_t kt = tiles + 2 * s * TILE;
+      fw_copy<DP>(kt, kb, k0, Skv, D, FW_BK / 8, lane);
+      fw_copy<DP>(kt + TILE, vb, k0, Skv, D, FW_BK / 8, lane);
+      cp_async_arrive(full0 + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  const int wg = warp / 4, wl = warp & 3;
+  const int row0 = 16 * wl + (lane >> 2);     // and row0 + 8
+  const int qpos0 = q0 + wg * FW_QW + row0 + q_offset;
+  const int qpos1 = qpos0 + 8;
+  // this warpgroup's rows, for the choice of masked tiles
+  const int wlo = q0 + wg * FW_QW + q_offset;
+  const int whi = min(q0 + wg * FW_QW + FW_QW, Sq) - 1 + q_offset;
+  const float sl2 = scale * FW_LOG2E;
+  const uint32_t qwg = sq_base + wg * (FW_QW / 8) * GROUP;
+
+  float o[NO], s[NS];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(qfull, 0);
+  if (ntiles > 0) fw_issue_s<DP>(s, qwg, tiles, full0, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % FW_STAGES;
+    const int k0 = (t_lo + it) * FW_BK;
+    const uint32_t vt = tiles + 2 * st * TILE + TILE;
+    wgmma_wait_all();              // S of tile it (and P·V of tile it-1)
+    fence_regs<NS>(s);
+
+    // accumulator j: row row0 + 8·((j>>1)&1), column 8·(j>>2) + 2·(lane&3)
+    // + (j&1)
+    const bool masked = k0 + FW_BK > Skv || (causal && k0 + FW_BK - 1 > wlo) ||
+                        (window > 0 && whi - k0 >= window);
+    float n0, n1, sum0 = 0.f, sum1 = 0.f;
+    if (masked) {
+      // an edge tile: scores scaled, masked to -1e30, masked p zeroed
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int qpos = (j & 2) ? qpos1 : qpos0;
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        s[j] = ok ? s[j] * sl2 : FW_MASK;
+        if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
+      }
+      fw_row_max(mx0, mx1);
+      n0 = fmaxf(m0, mx0);
+      n1 = fmaxf(m1, mx1);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int qpos = (j & 2) ? qpos1 : qpos0;
+        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
+        const float p = ok ? fast_exp2(s[j] - ((j & 2) ? n1 : n0)) : 0.f;
+        s[j] = p;
+        if (j & 2) sum1 += p; else sum0 += p;
+      }
+    } else {
+      // an interior tile: the max of the raw scores (scale > 0), then
+      // p = 2^(s·scale·log2(e) - max) in one FMA and one MUFU op
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
+      }
+      fw_row_max(mx0, mx1);
+      n0 = fmaxf(m0, mx0 * sl2);
+      n1 = fmaxf(m1, mx1 * sl2);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p = fast_exp2(fmaf(s[j], sl2, (j & 2) ? -n1 : -n0));
+        s[j] = p;
+        if (j & 2) sum1 += p; else sum0 += p;
+      }
+    }
+    const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    l0 = l0 * a0 + sum0;     // per-thread partial sums, reduced at the end
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] *= (j & 2) ? a1 : a0;
+
+    // P (bf16, registers) · V
+    uint32_t pa[FW_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk)
+      wgmma_rs<DP>(o, pa[kk], gmma_desc(vt + kk * 2 * GROUP, GROUP, 128));
+    wgmma_commit();
+    // the next tile's S runs on the tensor cores right behind this P·V
+    if (it + 1 < ntiles) fw_issue_s<DP>(s, qwg, tiles, full0, it + 1);
+    if (it + 1 < ntiles)
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    else
+      wgmma_wait_all();
+    fence_regs<NO>(o);
+    // the A fragments are read asynchronously: keep them live until here
+#pragma unroll
+    for (int kk = 0; kk < FW_BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+    mbar_arrive(empty0 + 8 * st);
+  }
+
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  const int r0 = q0 + wg * FW_QW + row0;
+  __nv_bfloat16* ob = out + (size_t)bh * Sq * D;
+#pragma unroll
+  for (int j = 0; j < NO; j += 2) {
+    const int row = (j & 2) ? r0 + 8 : r0;
+    const int col = 8 * (j >> 2) + 2 * (lane & 3);
+    const float den = (j & 2) ? d1 : d0;
+    if (row < Sq && col < D)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * D + col) =
+          __floats2bfloat162_rn(o[j] / den, o[j + 1] / den);
+  }
+}
+
+template <int DP>
+int fw_launch(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int K, int Sq, int Skv, int D, int causal, int window,
+              float scale, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)(FW_BQ + 2 * FW_STAGES * FW_BK) * DP * 2 + 64;
+  static size_t allowed = 0;             // dynamic smem opted in so far
+  const cudaError_t e = allow_smem(fa_wgmma_kernel<DP>, smem, &allowed);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + FW_BQ - 1) / FW_BQ, B * H);
+  fa_wgmma_kernel<DP><<<grid, FW_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, K, Sq, Skv, D, causal,
+      window, scale);
+  return (int)cudaGetLastError();
+}
+
+int fw_dispatch(const void* q, const void* k, const void* v, void* out,
+                int B, int H, int K, int Sq, int Skv, int D, int causal,
+                int window, float scale, cudaStream_t s) {
+  switch ((D + 15) / 16) {
+    case 1: return fw_launch<16>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 2: return fw_launch<32>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 3: return fw_launch<48>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 4: return fw_launch<64>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 5: return fw_launch<80>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 6: return fw_launch<96>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 7: return fw_launch<112>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    case 8: return fw_launch<128>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core FMAs
+// ---------------------------------------------------------------------------
 constexpr int FA_BQ = 64;          // q rows per block
 constexpr int FA_BK = 64;          // kv rows per tile
 constexpr int FA_THREADS = 256;    // 16 x 16: ty owns rows, tx columns
@@ -47,21 +618,7 @@ __device__ __forceinline__ void unpack(const uint4 w, float* f, float) {
   f[3] = __uint_as_float(w.w);
 }
 
-// bf16 is the top half of an fp32; element 0 is the low half of a word
-__device__ __forceinline__ void unpack(const uint4 w, float* f,
-                                       __nv_bfloat16) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows [r0, r0 + rows) of a row-major (S, D) matrix into shared memory
 // as fp32, zero past S.  transposed: dst[d * rows + r]; else
@@ -278,8 +835,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, H, K, Sq, Skv, D, causal,
-                                   window, scale, s);
+    return fw_dispatch(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
+                       scale, s);
   return dispatch<float>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
                          scale, s);
 }

@@ -1,19 +1,31 @@
 // Row LayerNorm and RMSNorm for Hopper, fp32 statistics.
 //
 // Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py),
-// both kinds.  One block per row (D <= a few thousand): the row is read
-// from device memory once into shared memory as fp32, the statistics are
-// reduced with warp shuffles plus a shared-memory pass, and the
-// normalised row is written once.
-//   * layernorm (fp32 rows): the mean, then the mean of squared
-//     deviations (the same two-pass statistics as the TPU kernel), then
-//     (x - mu) * rsqrt(var + eps) * scale + bias.
-//   * rmsnorm (fp32 or bf16 rows, fp32 scale): var = mean(x^2), then
-//     (x * rsqrt(var + eps)) * scale, cast to the row's type last, the
-//     order of `apply_norm` in src/repro/models/layers.py.
-// Both are bound by bytes: each row is read once and written once.
+// both kinds.  Both are bound by bytes: each row is read once and
+// written once, with a handful of operations per element.
+//
+//   * layernorm (fp32 rows; the TDS acoustic model, D <= 1840): one
+//     block per row, the row read once into shared memory as fp32, the
+//     mean, then the mean of squared deviations (the TPU kernel's
+//     two-pass statistics) reduced with warp shuffles plus a
+//     shared-memory pass, then (x - mu) * rsqrt(var + eps) * scale +
+//     bias.
+//   * rmsnorm (fp32 or bf16 rows, fp32 scale; every norm of the LM,
+//     D = 2560): var = mean(x^2) in fp32, then (x * rsqrt(var + eps)) *
+//     scale, rounded once to the row's type, the order of `apply_norm`
+//     in src/repro/models/layers.py.  The row is kept in registers, not
+//     in shared memory, and moved 16 bytes a lane (8 bf16 or 4 fp32;
+//     `scale` as float4, which stays in L1/L2): one block of 256
+//     threads per row (D = 2560 bf16: 320 vectors, one or two a
+//     thread), warp-shuffle sums and one barrier.  A warp per row (4 rows
+//     a block, no barrier at all) measured slower on the H100 at every
+//     row count from 256 to 6144.  A row that is not 16-byte aligned (D
+//     = 7, 129, ...) or longer than 8192 bf16 / 4096 fp32 values takes a
+//     scalar block-per-row kernel that reads the row twice (the second
+//     read from L1/L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include "smem.cuh"
 
 namespace {
@@ -73,33 +85,143 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(LN_THREADS)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-               T* __restrict__ out, int D, float eps) {
-  extern __shared__ float xs[];    // the row, as fp32
-  __shared__ float red[33];
-  const size_t base = (size_t)blockIdx.x * D;
-  float q = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float v = to_float(x[base + i]);
-    xs[i] = v;
-    q = fmaf(v, v, q);
+// ---------------------------------------------------------------------------
+// rmsnorm
+// ---------------------------------------------------------------------------
+constexpr int RN_BLOCK = 256;      // threads per row
+
+// 16 bytes <-> VE floats (8 bf16 or 4 fp32)
+__device__ __forceinline__ void unpack16(const uint4 w, float* f, float) {
+  f[0] = __uint_as_float(w.x);
+  f[1] = __uint_as_float(w.y);
+  f[2] = __uint_as_float(w.z);
+  f[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack16(const uint4 w, float* f,
+                                         __nv_bfloat16) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {      // element 0 is the low half of a word
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
-  const float var = block_sum(q, red) / (float)D;
-  const float inv = rsqrtf(var + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    store(out + base + i, (xs[i] * inv) * scale[i]);
+}
+__device__ __forceinline__ uint4 pack16(const float* f, float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* f, __nv_bfloat16) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    u[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// y = (x · inv) · scale for the VE values of vector `vi`, rounded once.
+template <typename T>
+__device__ __forceinline__ uint4 rms_apply(const float* f, float inv,
+                                           const float* __restrict__ scale,
+                                           int vi) {
+  constexpr int VE = 16 / sizeof(T);
+  float y[VE];
+#pragma unroll
+  for (int c = 0; c < VE / 4; ++c) {
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale) +
+                            vi * (VE / 4) + c);
+    y[4 * c + 0] = (f[4 * c + 0] * inv) * sc.x;
+    y[4 * c + 1] = (f[4 * c + 1] * inv) * sc.y;
+    y[4 * c + 2] = (f[4 * c + 2] * inv) * sc.z;
+    y[4 * c + 3] = (f[4 * c + 3] * inv) * sc.w;
+  }
+  return pack16(y, T());
+}
+
+// Sum of v over a block of RN_BLOCK threads with one barrier; `red` holds
+// one partial per warp.
+__device__ __forceinline__ float block_sum_once(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < RN_BLOCK / 32; ++w) t += red[w];
+  return t;
+}
+
+// One block per row, NV vectors (16 bytes each) per thread, held in
+// registers between the reduction and the output.
+template <typename T, int NV>
+__global__ void __launch_bounds__(RN_BLOCK)
+rmsnorm_row_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   T* __restrict__ out, int D, float eps) {
+  constexpr int VE = 16 / sizeof(T);
+  __shared__ float red[RN_BLOCK / 32];
+  const int nvec = D / VE;
+  const uint4* xr =
+      reinterpret_cast<const uint4*>(x + (size_t)blockIdx.x * D);
+  uint4* orow = reinterpret_cast<uint4*>(out + (size_t)blockIdx.x * D);
+  float f[NV][VE];
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = threadIdx.x + RN_BLOCK * i;
+    if (vi < nvec) {
+      unpack16(xr[vi], f[i], T());
+#pragma unroll
+      for (int e = 0; e < VE; ++e) ss = fmaf(f[i][e], f[i][e], ss);
+    }
+  }
+  const float inv = rsqrtf(block_sum_once(ss, red) / (float)D + eps);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = threadIdx.x + RN_BLOCK * i;
+    if (vi < nvec) orow[vi] = rms_apply<T>(f[i], inv, scale, vi);
+  }
+}
+
+// Any D and alignment: one block per row, scalar loads, the row read
+// twice (the second read hits L1/L2), no shared-memory copy of the row.
+template <typename T>
+__global__ void __launch_bounds__(RN_BLOCK)
+rmsnorm_scalar_kernel(const T* __restrict__ x,
+                      const float* __restrict__ scale, T* __restrict__ out,
+                      int D, float eps) {
+  __shared__ float red[RN_BLOCK / 32];
+  const size_t base = (size_t)blockIdx.x * D;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < D; i += RN_BLOCK) {
+    const float v = to_float(x[base + i]);
+    ss = fmaf(v, v, ss);
+  }
+  const float inv = rsqrtf(block_sum_once(ss, red) / (float)D + eps);
+  for (int i = threadIdx.x; i < D; i += RN_BLOCK)
+    store(out + base + i, (to_float(x[base + i]) * inv) * scale[i]);
+}
+
+template <typename T, int NV>
+int rms_row(const void* x, const void* scale, void* out, int R, int D,
+            float eps, cudaStream_t s) {
+  rmsnorm_row_kernel<T, NV><<<R, RN_BLOCK, 0, s>>>(
+      (const T*)x, (const float*)scale, (T*)out, D, eps);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int rmsnorm_go(const void* x, const void* scale, void* out, int R, int D,
-               float eps, cudaStream_t stream) {
-  const size_t smem = (size_t)D * sizeof(float);
-  static size_t allowed = 0;           // dynamic smem opted in so far
-  const cudaError_t e = allow_smem(rmsnorm_kernel<T>, smem, &allowed);
-  if (e != cudaSuccess) return (int)e;
-  rmsnorm_kernel<T><<<R, LN_THREADS, smem, stream>>>(
+               float eps, cudaStream_t s) {
+  constexpr int VE = 16 / sizeof(T);
+  const bool vec = ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)out) % 16 ==
+                       0 && D % VE == 0;
+  const int per_thread = (D / VE + RN_BLOCK - 1) / RN_BLOCK;
+  if (vec && per_thread <= 4) {
+    if (per_thread <= 1) return rms_row<T, 1>(x, scale, out, R, D, eps, s);
+    if (per_thread <= 2) return rms_row<T, 2>(x, scale, out, R, D, eps, s);
+    return rms_row<T, 4>(x, scale, out, R, D, eps, s);
+  }
+  rmsnorm_scalar_kernel<T><<<R, RN_BLOCK, 0, s>>>(
       (const T*)x, (const float*)scale, (T*)out, D, eps);
   return (int)cudaGetLastError();
 }

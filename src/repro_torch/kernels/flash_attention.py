@@ -13,8 +13,20 @@ end of kv.  Scores, softmax statistics and the accumulator are fp32;
 the mask value is -1e30 and fully masked kv tiles are skipped.
 
 What bounds it on the H100: operations (4·D flops per unmasked (q, k)
-pair and head).  The first design runs them as fp32 FMAs on the CUDA
-cores, one block per (b, h, 64-row q tile); see the source.
+pair and head, far above the card's bytes-to-flops balance).  bf16, the
+LM's type, runs both products on the tensor cores: `wgmma` m64n128k16
+for S = Q·Kᵀ from shared memory, and m64nDk16 for O += P·V with P
+rounded to bf16 and packed from the S accumulators into registers (the
+one departure from the fp32 reference, as in SDPA's flash backend:
+at most 2^-9 relative per probability).  One block per (b, h, 128-row
+q tile): two consumer warpgroups and a producer warp that streams K/V
+tiles of 128 rows into a three-stage ring with `cp.async` and mbarriers,
+in an unswizzled core-matrix layout (a D = 80 row of 160 bytes fills no
+128-byte swizzle atom; the depth is zero-padded to a multiple of 16).
+Only tiles on the causal diagonal, the window's lower edge or the end
+of kv evaluate the mask.  fp32 keeps the CUDA-core kernel (fp32 FMAs,
+one block per (b, h, 64-row q tile)): the tensor cores take fp32 only
+as TF32, which the port's fp32 contract excludes.  See the source.
 
 The kernel takes contiguous (B, H, S, D) operands; `ops.flash_attention`
 makes them contiguous (the model's (B, S, H, D) activations are

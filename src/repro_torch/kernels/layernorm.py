@@ -8,9 +8,14 @@ source: `csrc/layernorm.cu`.  Each wrapper counts its own launches.
 What bounds them on the H100: bytes.  Each row (D <= 1840 floats for the
 TDS LayerNorms, D = 2560 bf16 for h2o-danube-1.8b) is read once and
 written once, and the arithmetic is a handful of operations per element.
-The design: one block per row, the row staged in shared memory as fp32
+`layernorm`: one block per row, the row staged in shared memory as fp32
 so the reduction and the normalising pass read device memory once,
-warp-shuffle reductions.
+warp-shuffle reductions.  `rmsnorm` keeps the row in registers and
+moves 16 bytes a lane (8 bf16 or 4 fp32; `scale` as float4), one block
+of 256 threads per row with one barrier; rows that are not 16-byte
+aligned take a scalar block-per-row kernel.  The statistics and
+rounding are `apply_norm`'s: var = mean(x²) in fp32, then
+(x·rsqrt(var + eps))·scale, rounded once to x's dtype.
 
 On a CPU tensor a wrapper runs its plain version (`ref.layernorm`,
 `ref.rmsnorm`).

@@ -216,10 +216,14 @@ _TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d", [(4, 2560), (512, 2560), (37, 80), (5, 64),
-                                 (300, 129), (1, 7)])
+                                 (300, 129), (1, 7),
+                                 (1, 2560), (3, 2560), (4096, 2560),
+                                 (1, 2568), (3, 2568), (4096, 2568)])
 def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
-    """The LM's shapes (decode rows, prefill rows at D = 2560) and
-    ragged ones."""
+    """The LM's shapes (decode rows, prefill rows at D = 2560), ragged
+    ones (the scalar kernel), and the vector kernel at D = 2560 and at
+    D = 2568, 16-byte aligned but not a multiple of 256 vectors, from
+    one row to 4096."""
     x = _t(cuda, d, t, d).to(dtype)
     s = 1 + 0.1 * _t(cuda, 1, d)
     got = tln.rmsnorm(x, s)
@@ -229,26 +233,50 @@ def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window", [
-    (2, 3, 3, 64, 64, 32, True, None), (2, 3, 3, 64, 128, 32, True, None),
-    (2, 3, 3, 32, 128, 32, False, None), (2, 3, 3, 128, 128, 32, True, 48),
-    (2, 3, 3, 64, 256, 32, True, 17),
-    (1, 32, 8, 300, 300, 80, True, 100),       # GQA 32/8, D = 80, ragged S
-    (2, 32, 8, 77, 200, 80, True, 64),         # Sq < Skv, window < S
-    (1, 32, 8, 513, 513, 80, True, None), (3, 4, 4, 100, 100, 128, False, 30),
-    (2, 8, 2, 40, 40, 16, True, None), (1, 4, 1, 33, 33, 40, True, None),
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window,qscale", [
+    (2, 3, 3, 64, 64, 32, True, None, 1.0),
+    (2, 3, 3, 64, 128, 32, True, None, 1.0),
+    (2, 3, 3, 32, 128, 32, False, None, 1.0),
+    (2, 3, 3, 128, 128, 32, True, 48, 1.0),
+    (2, 3, 3, 64, 256, 32, True, 17, 1.0),
+    (1, 32, 8, 300, 300, 80, True, 100, 1.0),  # GQA 32/8, D = 80, ragged S
+    (2, 32, 8, 77, 200, 80, True, 64, 1.0),    # Sq < Skv, window < S
+    (1, 32, 8, 513, 513, 80, True, None, 1.0),
+    (3, 4, 4, 100, 100, 128, False, 30, 1.0),
+    (2, 8, 2, 40, 40, 16, True, None, 1.0), (1, 4, 1, 33, 33, 40, True, None, 1.0),
+    # D = 64 / 80 / 128 at S a multiple of neither 64 nor 128, with enough
+    # q tiles for two consumer warpgroups per block
+    (1, 32, 8, 1100, 1100, 64, True, None, 1.0),
+    (1, 32, 8, 1100, 1100, 80, True, 700, 1.0),
+    (1, 32, 8, 1100, 1100, 128, True, None, 1.0),
+    (1, 8, 2, 201, 201, 24, True, None, 1.0),   # depth padded to 32
+    (1, 32, 8, 1100, 1100, 80, True, None, 8.0),  # peaky: max moves late
+    (1, 8, 8, 333, 333, 80, True, None, 8.0),
+    (2, 8, 8, 300, 120, 80, True, None, 1.0),   # Sq > Skv: masked rows
+    (1, 8, 8, 1000, 130, 64, True, 50, 1.0),
+    (1, 8, 8, 257, 257, 80, True, None, 1.0),   # GQA ratio 1
+    (1, 8, 2, 257, 257, 80, True, None, 1.0),   # 4
+    (1, 8, 1, 257, 257, 80, True, None, 1.0),   # 8
+    (1, 8, 2, 300, 300, 80, True, 1, 1.0),      # window 1
+    (1, 8, 2, 640, 640, 80, True, 128, 1.0),    # window edges on tiles
+    (1, 32, 8, 1280, 1280, 80, True, 256, 1.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
-                                              causal, window, dtype):
-    q = _t(cuda, 1, b, h, sq, d).to(dtype)
+                                              causal, window, qscale, dtype):
+    """Rows that see no key (Sq > Skv, causal) output 0 in the kernel, as
+    in the TPU kernel; the plain version averages there, so those rows
+    are held to 0 and the rest to the plain version."""
+    q = _t(cuda, 1, b, h, sq, d, scale=qscale).to(dtype)
     k = _t(cuda, 2, b, kv, skv, d).to(dtype)
     v = _t(cuda, 3, b, kv, skv, d).to(dtype)
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(
-        got, ref.flash_attention(q, k, v, causal=causal, window=window),
-        **_TOL[dtype])
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    blind = max(sq - skv, 0) if causal else 0   # rows before the first key
+    assert torch.equal(got[:, :, :blind], torch.zeros_like(got[:, :, :blind]))
+    torch.testing.assert_close(got[:, :, blind:], want[:, :, blind:],
+                               **_TOL[dtype])
 
 
 def test_lm_kernel_wrappers_count_and_refuse_bad_input(cuda):
