@@ -9,7 +9,12 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                in src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
                the main path's shapes (int8_matmul bitwise, also at a
-               ragged shape).
+               ragged shape); tds_conv at every conv of a b=4, w=4 and a
+               b=1, w=1 step, the 17 with their LayerNorm fused in
+               (`tds_conv_ln`) in both designs (a cluster per row, a
+               block per row); layernorm at every LayerNorm launched on
+               its own (`bias_residual_layernorm`: fc2's bias and the FC
+               block's residual in, and final_ln without).
   3. demo    — the demo system through `AsrEngine` at 1 and 4 slots,
                fp32 and int8 programs, KernelPolicy("kernel") vs
                KernelPolicy("ref"): equal words and tokens, scores close.
@@ -20,15 +25,21 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                with the default decoder (K=128, C=32) and seeded random
                weights serves 8 synthetic utterances over 4 slots, once
                with the fp32 and once with the int8 program; every
-               kernel's launch count must match the steps taken (29
-               int8_matmul launches per int8 step), the kernel path's
+               kernel's launch count must match the steps taken (18
+               tds_conv, 17 of them with the LayerNorm fused, and 15
+               layernorm launches per step; 29 int8_matmul launches per
+               int8 step), the kernel path's
                log-probs must match the plain path's (int8: also bitwise
                equal with int8_matmul's plain version substituted) and
                its words must equal the plain path's.
   6. timing  — each kernel, its plain version and the library call
                (where one exists) at the full-width step shapes, the
                bound, step times per (b, w) for both programs, a profiler
-               breakdown of one step of each.
+               breakdown of one step of each.  tds_conv and layernorm also
+               at the b=1, w=1 shapes, the fused conv also in its
+               block-per-row design, both beside a composite yardstick
+               (F.conv2d through cuDNN without TF32, ReLU, residual,
+               F.layer_norm; F.layer_norm((y + b) + res)).
   LM phases (h2o-danube-1.8b at full width, seeded random weights):
   7. lm kernels — flash_attention and rmsnorm vs their plain versions in
                bf16 and fp32 at the prefill/decode shapes: GQA 32/8 with
@@ -198,26 +209,32 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32) -> float:
 # shapes of one full-width step
 # ---------------------------------------------------------------------------
 def conv_shapes(cfg, b: int, w: int):
-    """(name, k, stride, Cin, Cout, T_in, residual) of every conv of one
-    step at b slots and w windows (8 feature frames per window)."""
+    """(name, k, stride, Cin, Cout, T_in, residual, fused) of every conv
+    of one step at b slots and w windows (8 feature frames per window);
+    `fused`: the LayerNorm after it runs in its launch (`tds_conv_ln`)."""
     out, t = [], 8 * w
     feat = cfg.stages[0].feat
-    for spec in tds.build_kernel_specs(cfg):
+    specs = tds.build_kernel_specs(cfg)
+    for i, spec in enumerate(specs):
         if spec.kind == "conv":
             cin, cout = spec.n_in // spec.kernel, spec.n_out // feat
             res = spec.residual and spec.stride == 1 and cin == cout
-            out.append((spec.name, spec.kernel, spec.stride, cin, cout, t, res))
+            out.append((spec.name, spec.kernel, spec.stride, cin, cout, t, res,
+                        specs[i + 1].kind == "layernorm"))
         t //= spec.stride
     return out
 
 
 def ln_shapes(cfg, b: int, w: int):
-    """(rows, D) of every LayerNorm of one step."""
+    """(rows, D, addends) of every LayerNorm launched on its own in one
+    step: the FC block's (with fc2's bias and the block's residual,
+    `addends` True) and final_ln (none); the rest run in a conv."""
     out, t = [], 8 * w
-    for spec in tds.build_kernel_specs(cfg):
+    specs = tds.build_kernel_specs(cfg)
+    for i, spec in enumerate(specs):
         t //= spec.stride
-        if spec.kind == "layernorm":
-            out.append((b * t, spec.n_out))
+        if spec.kind == "layernorm" and specs[i - 1].kind != "conv":
+            out.append((b * t, spec.n_out, specs[i - 1].kind == "fc"))
     return out
 
 
@@ -249,6 +266,11 @@ def conv_inputs(dev, gen, b, k, stride, cin, cout, t, res):
     r = (torch.randn((b, t // stride, 80, cout), generator=gen).to(dev)
          if res else None)
     return x, wt, bias, r
+
+
+def ln_params(dev, gen, d):
+    return ((1 + 0.1 * torch.randn((d,), generator=gen)).to(dev),
+            (0.1 * torch.randn((d,), generator=gen)).to(dev))
 
 
 def hu_inputs(dev, gen, b, n):
@@ -297,23 +319,45 @@ def check_kernels(dev) -> dict:
               f"R={r}")
     torch.cuda.synchronize()
 
+    # every conv of a b=4, w=4 and a b=1, w=1 step; the fused ones in both
+    # designs (split 0: a cluster per row; 1: a block of 512 per row)
     seen = set()
-    for (_, k, s, cin, cout, t, res) in conv_shapes(TDS_CONFIG, 4, 4):
-        if (k, s, cin, cout, t, res) in seen:
-            continue
-        seen.add((k, s, cin, cout, t, res))
-        x, wt, bias, r = conv_inputs(dev, gen, 4, k, s, cin, cout, t, res)
-        close("tds_conv", ktc.tds_conv(x, wt, bias, r, stride=s, relu=True),
-              ref.tds_conv_fused(x, wt, bias, stride=s, relu=True, res=r),
-              f"k={k} s={s} {cin}->{cout} T={t} res={int(res)}")
+    for b, w in ((4, 4), (1, 1)):
+        for (_, k, s, cin, cout, t, res, fused) in conv_shapes(TDS_CONFIG, b,
+                                                               w):
+            key = (b, k, s, cin, cout, t, res, fused)
+            if key in seen:
+                continue
+            seen.add(key)
+            x, wt, bias, r = conv_inputs(dev, gen, b, k, s, cin, cout, t, res)
+            label = f"b={b} k={k} s={s} {cin}->{cout} T={t} res={int(res)}"
+            if not fused:
+                close("tds_conv", ktc.tds_conv(x, wt, bias, r, stride=s,
+                                               relu=True),
+                      ref.tds_conv_fused(x, wt, bias, stride=s, relu=True,
+                                         res=r), label)
+                continue
+            sc, sh = ln_params(dev, gen, 80 * cout)
+            want = ref.tds_conv_ln(x, wt, bias, sc, sh, stride=s, relu=True,
+                                   res=r)
+            for split in (0, 1):
+                close("tds_conv", ktc.tds_conv_ln(x, wt, bias, sc, sh, r,
+                                                  stride=s, relu=True,
+                                                  split=split), want,
+                      f"{label} +LN split={split}")
     torch.cuda.synchronize()
 
-    for rows, d in sorted(set(ln_shapes(TDS_CONFIG, 4, 4))):
-        x = torch.randn((rows, d), generator=gen).to(dev)
-        sc = (1 + 0.1 * torch.randn((d,), generator=gen)).to(dev)
-        bi = (0.1 * torch.randn((d,), generator=gen)).to(dev)
-        close("layernorm", kln.layernorm(x, sc, bi), ref.layernorm(x, sc, bi),
-              f"R={rows} D={d}")
+    for rows, d, addends in sorted(set(ln_shapes(TDS_CONFIG, 4, 4)
+                                       + ln_shapes(TDS_CONFIG, 1, 1))):
+        y = torch.randn((rows, d), generator=gen).to(dev)
+        sc, sh = ln_params(dev, gen, d)
+        ab = (0.1 * torch.randn((d,), generator=gen)).to(dev) \
+            if addends else None
+        r = torch.randn((rows, d), generator=gen).to(dev) if addends else None
+        close("layernorm", kln.bias_residual_layernorm(y, sc, sh, add_bias=ab,
+                                                       res=r),
+              ref.bias_residual_layernorm(y, sc, sh, add_bias=ab, res=r),
+              f"R={rows} D={d} bias+res={int(addends)}")
     torch.cuda.synchronize()
 
     for b, n in ((4, 8320), (4, 4224)):
@@ -529,7 +573,7 @@ def full_phase(dev, system, utts, use_int8=False):
     n_steps = len(steps)
     expect = {name: 0 for name in counts}       # the LM kernels: none
     expect.update({"logmel": n_steps, "tds_conv": 18 * n_steps,
-                   "layernorm": 32 * n_steps,
+                   "layernorm": 15 * n_steps,
                    "hypothesis_unit": sum(w for _, _, w in steps),
                    "int8_matmul": 29 * n_steps if use_int8 else 0})
     print(f"[{tag}] served {len(utts)} utterances over 4 slots in "
@@ -662,29 +706,50 @@ def device_ms(fn, n=20, warmup=3) -> float:
     return float(np.median(times))
 
 
-def timing_phase(dev) -> dict:
-    """Each kernel's launches in one full-width step at b=4, w=4:
-    summed medians of the kernel, the plain version and (where one call
-    computes the same function) the library call, and the bound."""
+def conv_library(x, wv, bias, r, s, sc, sh):
+    """The cuDNN composite yardstick of one conv (+ LayerNorm) launch, never
+    on the port's path: F.conv2d on x viewed as channels-last NCHW and the
+    weight as (Cout, Cin, k, 1) (`wv`, made once), stride (s, 1), then
+    ReLU, the residual and F.layer_norm over each (b, t) row."""
+    y = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), wv, bias,
+                            stride=(s, 1))).permute(0, 2, 3, 1)
+    if r is not None:
+        y = y + r
+    if sc is None:
+        return y
+    d = y.shape[2] * y.shape[3]
+    return F.layer_norm(y.reshape(-1, d), (d,), sc, sh, 1e-5).reshape(y.shape)
+
+
+def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
+    """Each kernel's launches in one full-width step at b slots, w
+    windows (the kernels in `only`): summed medians of the kernel, the
+    plain version and the library call or composite, and the bound.  The
+    fused conv + LayerNorm is also timed in its block-per-row variant
+    (`alt_ms`)."""
 
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = {}
 
     def add(name, launches, fk, fp, fl, nbytes, flops, label,
-            peak=PEAK_FP32, context=None):
+            peak=PEAK_FP32, context=None, alt=None):
         """fk/fp/fl: one call of the kernel / plain version / library;
-        `context`: another call timed for comparison only."""
+        `context`: another call timed for comparison only; `alt`: the
+        kernel's other design."""
         kms, pms = device_ms(fk), device_ms(fp)
         lms = None if fl is None else device_ms(fl)
         cms = None if context is None else device_ms(context)
+        ams = kms if alt is None else device_ms(alt)
         khost = host_ms(fk)
         bnd = bound_ms(nbytes, flops, peak)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=None,
                                        bound_ms=0.0, bytes_s=0.0, ops_s=0.0,
                                        step_launches=0, host_ms=0.0,
-                                       context_ms=None))
+                                       context_ms=None, alt_ms=0.0,
+                                       shapes=[]))
         r["host_ms"] += launches * khost
         r["ms"] += launches * kms
+        r["alt_ms"] += launches * ams
         r["plain_ms"] += launches * pms
         if lms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + launches * lms
@@ -694,63 +759,118 @@ def timing_phase(dev) -> dict:
         r["bytes_s"] += launches * nbytes / PEAK_BYTES
         r["ops_s"] += launches * flops / peak
         r["step_launches"] += launches
-        print(f"[timing] {name:16s} {label:30s} x{launches:<2d} device: "
-              f"kernel {kms * 1e3:9.2f} us  plain {pms * 1e3:9.2f} us  "
+        r["shapes"].append(dict(label=label, launches=launches, ms=kms,
+                                alt_ms=ams, plain_ms=pms, library_ms=lms,
+                                bound_ms=bnd, launch_inclusive_ms=khost))
+        print(f"[timing b={b} w={w}] {name:16s} {label:34s} x{launches:<2d} "
+              f"device: kernel {kms * 1e3:9.2f} us  "
+              + ("" if alt is None else f"block-per-row {ams * 1e3:.2f} us  ")
+              + f"plain {pms * 1e3:9.2f} us  "
               f"library {'-' if lms is None else f'{lms * 1e3:.2f}'} us  "
               f"bound {bnd * 1e3:.3f} us | kernel call with launch "
               f"{khost * 1e3:.2f} us"
               + ("" if cms is None else f" | fp32 matmul {cms * 1e3:.2f} us"),
               flush=True)
 
-    # logmel: R = b * w * 8 = 128 rows
-    fb, dct = feature_tables(dev)
-    p = power_rows(dev, gen, 128)
-    R, Fb, M, C = 128, 257, 80, 80
-    add("logmel", 1, lambda: klm.logmel(p, fb, dct),
-        lambda: ref.logmel(p, fb, dct),
-        lambda: torch.log(torch.clamp(p @ fb, min=1e-10)) @ dct,
-        4 * (R * Fb + Fb * M + M * C + R * C),
-        2 * R * Fb * M + 2 * R * M + 2 * R * M * C, "R=128")
+    # logmel: R = b * w * 8 rows
+    if "logmel" in only:
+        fb, dct = feature_tables(dev)
+        R, Fb, M, C = 8 * b * w, 257, 80, 80
+        p = power_rows(dev, gen, R)
+        add("logmel", 1, lambda: klm.logmel(p, fb, dct),
+            lambda: ref.logmel(p, fb, dct),
+            lambda: torch.log(torch.clamp(p @ fb, min=1e-10)) @ dct,
+            4 * (R * Fb + Fb * M + M * C + R * C),
+            2 * R * Fb * M + 2 * R * M + 2 * R * M * C, f"R={R}")
 
-    # tds_conv: the 18 convs of the step
+    # tds_conv: the 18 convs of the step, 17 with their LayerNorm.  Bytes:
+    # x, the weight, the bias, the residual, the LayerNorm's scale and
+    # shift and the output, once each; operations: the conv's FMAs, the
+    # epilogue, ~8 a value for the LayerNorm.  Library: the cuDNN composite.
     shapes = {}
-    for (_, k, s, cin, cout, t, res) in conv_shapes(TDS_CONFIG, 4, 4):
-        key = (k, s, cin, cout, t, res)
+    for (_, k, s, cin, cout, t, res, fused) in conv_shapes(TDS_CONFIG, b, w):
+        key = (k, s, cin, cout, t, res, fused)
         shapes[key] = shapes.get(key, 0) + 1
-    for (k, s, cin, cout, t, res), n in shapes.items():
-        x, wt, bias, r = conv_inputs(dev, gen, 4, k, s, cin, cout, t, res)
-        t_out = t // s
-        outs = 4 * t_out * 80 * cout
-        nbytes = 4 * (x.numel() + wt.numel() + cout + outs * (2 if res else 1))
-        flops = 2 * outs * k * cin + outs * (3 if res else 2)
-        add("tds_conv", n,
-            lambda x=x, wt=wt, bias=bias, r=r, s=s: ktc.tds_conv(
-                x, wt, bias, r, stride=s, relu=True),
-            lambda x=x, wt=wt, bias=bias, r=r, s=s: ref.tds_conv_fused(
-                x, wt, bias, stride=s, relu=True, res=r),
-            None, nbytes, flops, f"k={k} s={s} {cin}->{cout} T={t}")
+    for (k, s, cin, cout, t, res, fused), n in shapes.items():
+        if "tds_conv" not in only:
+            break
+        x, wt, bias, r = conv_inputs(dev, gen, b, k, s, cin, cout, t, res)
+        sc, sh = ln_params(dev, gen, 80 * cout) if fused else (None, None)
+        wv = wt.permute(2, 1, 0)[..., None].contiguous()
+        outs = b * (t // s) * 80 * cout
+        nbytes = 4 * (x.numel() + wt.numel() + cout
+                      + outs * (2 if res else 1) + (2 * 80 * cout if fused
+                                                    else 0))
+        flops = (2 * outs * k * cin + outs * (3 if res else 2)
+                 + (8 * outs if fused else 0))
+        lib = (lambda x=x, wv=wv, bias=bias, r=r, s=s, sc=sc, sh=sh:
+               conv_library(x, wv, bias, r, s, sc, sh))
+        if fused:
+            want = ref.tds_conv_ln(x, wt, bias, sc, sh, stride=s, relu=True,
+                                   res=r)
+            kern = (lambda x=x, wt=wt, bias=bias, r=r, s=s, sc=sc, sh=sh:
+                    ktc.tds_conv_ln(x, wt, bias, sc, sh, r, stride=s,
+                                    relu=True))
+            alt = (lambda x=x, wt=wt, bias=bias, r=r, s=s, sc=sc, sh=sh:
+                   ktc.tds_conv_ln(x, wt, bias, sc, sh, r, stride=s,
+                                   relu=True, split=1))
+            plain = (lambda x=x, wt=wt, bias=bias, r=r, s=s, sc=sc, sh=sh:
+                     ref.tds_conv_ln(x, wt, bias, sc, sh, stride=s,
+                                     relu=True, res=r))
+        else:
+            want = ref.tds_conv_fused(x, wt, bias, stride=s, relu=True, res=r)
+            kern = (lambda x=x, wt=wt, bias=bias, r=r, s=s: ktc.tds_conv(
+                x, wt, bias, r, stride=s, relu=True))
+            alt = None
+            plain = (lambda x=x, wt=wt, bias=bias, r=r, s=s:
+                     ref.tds_conv_fused(x, wt, bias, stride=s, relu=True,
+                                        res=r))
+        try:                               # a yardstick only: no row value
+            lib_err = (lib() - want).abs().max().item()
+        except RuntimeError as e:
+            print(f"[timing] the cuDNN composite refused k={k} s={s}: {e}",
+                  flush=True)
+            lib, lib_err = None, None
+        label = f"k={k} s={s} {cin}->{cout} T={t}{' +LN' if fused else ''}"
+        if lib_err is not None:
+            label += f" (cuDNN |diff| {lib_err:.1e})"
+        add("tds_conv", n, kern, plain, lib, nbytes, flops, label, alt=alt)
 
-    # layernorm: the 32 LayerNorms of the step
+    # layernorm: the 15 LayerNorms launched on their own (14 with fc2's
+    # bias and the block's residual, final_ln without).  Library: the
+    # composite F.layer_norm((y + b) + res), F.layer_norm for final_ln.
     lns = {}
-    for key in ln_shapes(TDS_CONFIG, 4, 4):
+    for key in ln_shapes(TDS_CONFIG, b, w):
         lns[key] = lns.get(key, 0) + 1
-    for (nr, d), n in sorted(lns.items()):
-        x = torch.randn((nr, d), generator=gen).to(dev)
-        sc = torch.ones((d,), device=dev)
-        bi = torch.zeros((d,), device=dev)
-        add("layernorm", n, lambda x=x, sc=sc, bi=bi: kln.layernorm(x, sc, bi),
-            lambda x=x, sc=sc, bi=bi: ref.layernorm(x, sc, bi),
-            lambda x=x, sc=sc, bi=bi, d=d: F.layer_norm(x, (d,), sc, bi,
-                                                        1e-5),
-            4 * (2 * nr * d + 2 * d), 8 * nr * d, f"R={nr} D={d}")
+    for (nr, d, addends), n in sorted(lns.items()):
+        if "layernorm" not in only:
+            break
+        y = torch.randn((nr, d), generator=gen).to(dev)
+        sc, sh = ln_params(dev, gen, d)
+        ab = torch.randn((d,), generator=gen).to(dev) if addends else None
+        r = torch.randn((nr, d), generator=gen).to(dev) if addends else None
+        add("layernorm", n,
+            lambda y=y, sc=sc, sh=sh, ab=ab, r=r: kln.bias_residual_layernorm(
+                y, sc, sh, add_bias=ab, res=r),
+            lambda y=y, sc=sc, sh=sh, ab=ab, r=r:
+                ref.bias_residual_layernorm(y, sc, sh, add_bias=ab, res=r),
+            (lambda y=y, sc=sc, sh=sh, ab=ab, r=r, d=d: F.layer_norm(
+                (y + ab) + r, (d,), sc, sh, 1e-5)) if addends else
+            (lambda y=y, sc=sc, sh=sh, d=d: F.layer_norm(y, (d,), sc, sh,
+                                                         1e-5)),
+            4 * (nr * d * (3 if addends else 2) + d * (3 if addends else 2)),
+            8 * nr * d + (2 * nr * d if addends else 0),
+            f"R={nr} D={d}{' +bias+res' if addends else ''}")
+    if not ({"hypothesis_unit", "int8_matmul"} & set(only)):
+        return rows
 
     # hypothesis unit: w = 4 launches at (4, 8320), K = 128
-    b, n, k = 4, 8320, 128
-    h, pb, pnb = hu_inputs(dev, gen, b, n)
+    hb, hn, hk = 4, 8320, 128
+    h, pb, pnb = hu_inputs(dev, gen, hb, hn)
     add("hypothesis_unit", 4,
-        lambda: khu.hypothesis_unit(h, pb, pnb, k=k, beam=25.0),
-        lambda: ref.hypothesis_unit(h, pb, pnb, k=k, beam=25.0),
-        None, b * n * 12 + b * k * 13, 20 * b * n,
+        lambda: khu.hypothesis_unit(h, pb, pnb, k=hk, beam=25.0),
+        lambda: ref.hypothesis_unit(h, pb, pnb, k=hk, beam=25.0),
+        None, hb * hn * 12 + hb * hk * 13, 20 * hb * hn,
         "(4, 8320) K=128, 20% dead")
 
     # int8_matmul: the 29 FC/head products of an int8 step.  Library:
@@ -760,7 +880,7 @@ def timing_phase(dev) -> dict:
     for key in fc_shapes(TDS_CONFIG, 4, 4):
         fcs[key] = fcs.get(key, 0) + 1
     for (m, k, n), cnt in sorted(fcs.items()):
-        x, w, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
+        xf, wf, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
         xpad = torch.zeros((max(m, 24), k), dtype=torch.int8, device=dev)
         xpad[:m] = xq
 
@@ -780,7 +900,7 @@ def timing_phase(dev) -> dict:
             lambda xq=xq, wq=wq, xs=xs, ws=ws: ref.int8_matmul(xq, wq, xs, ws),
             int_mm, m * k + k * n + 4 * (m + n + m * n), 2 * m * k * n,
             f"M={m} K={k} N={n}", peak=PEAK_INT8,
-            context=lambda x=x, w=w: x @ w)
+            context=lambda xf=xf, wf=wf: xf @ wf)
     return rows
 
 
@@ -1387,7 +1507,38 @@ def main() -> None:
 
     # 6. timing
     rows = timing_phase(dev)
+    rows11 = timing_phase(dev, 1, 1, only=("tds_conv", "layernorm"))
+    # the floor of one launch in these events: one small elementwise op
+    z = torch.zeros((16, 1840), device=dev)
+    floor_ms = device_ms(lambda: z.add_(1.0))
+    print(f"[timing] launch floor: one elementwise launch over (16, 1840) "
+          f"{floor_ms * 1e3:.2f} us in the same events", flush=True)
     torch.cuda.synchronize()
+    conv_ln = {}
+    for (b, w), rs in (((4, 4), rows), ((1, 1), rows11)):
+        tc, ln = rs["tds_conv"], rs["layernorm"]
+        conv_ln[f"b={b} w={w}"] = {
+            "ms": tc["ms"] + ln["ms"],
+            "conv_block_per_row_ms": tc["alt_ms"] + ln["ms"],
+            "library_ms": (None if None in (tc["library_ms"],
+                                            ln["library_ms"])
+                           else tc["library_ms"] + ln["library_ms"]),
+            "plain_ms": tc["plain_ms"] + ln["plain_ms"],
+            "bound_ms": tc["bound_ms"] + ln["bound_ms"],
+            "tds_conv": {k: tc[k] for k in ("ms", "alt_ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "step_launches", "shapes")},
+            "layernorm": {k: ln[k] for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "step_launches",
+                                             "shapes")}}
+        print(f"[timing b={b} w={w}] conv + LayerNorm work of one step: "
+              f"{tc['step_launches']} tds_conv + {ln['step_launches']} "
+              f"layernorm launches, {(tc['ms'] + ln['ms']) * 1e3:.1f} us "
+              f"(tds_conv {tc['ms'] * 1e3:.1f}, layernorm "
+              f"{ln['ms'] * 1e3:.1f}); conv in the block-per-row design "
+              f"{tc['alt_ms'] * 1e3:.1f} us; cuDNN / F.layer_norm composite "
+              f"{conv_ln[f'b={b} w={w}']['library_ms']} ms; bound "
+              f"{(tc['bound_ms'] + ln['bound_ms']) * 1e3:.2f} us", flush=True)
     steps_ms = step_times(dev, system, utts)
     prof = profile_step(dev, system, utts, steps_ms["kernel b=4 w=4"])
     prof8 = profile_step(dev, system, utts, steps_ms["int8 kernel b=4 w=4"],
@@ -1445,6 +1596,13 @@ def main() -> None:
                     f"step at b=4, w=4 (device time)",
             "launch_inclusive_ms": r["host_ms"],
         })
+        if name == "tds_conv":
+            kernels[-1]["library"] = ("composite: F.conv2d (cuDNN, no TF32) "
+                                      "+ ReLU + residual + F.layer_norm")
+            kernels[-1]["block_per_row_ms"] = r["alt_ms"]
+        if name == "layernorm":
+            kernels[-1]["library"] = ("composite: F.layer_norm((y + b) + "
+                                      "res); F.layer_norm for final_ln")
         if r["context_ms"] is not None:
             kernels[-1]["fp32_matmul_ms"] = r["context_ms"]
     for name in LM_KERNELS:
@@ -1492,6 +1650,7 @@ def main() -> None:
         "int8_steps": steps8, "int8_launch_counts": counts8,
         "int8_logp_max_abs_err": lp_err8, "shim_launch_counts": shim_counts,
         "step_ms": steps_ms, "profile": prof, "profile_int8": prof8,
+        "conv_layernorm": conv_ln, "launch_floor_ms": floor_ms,
         "lm": lm_results, "beam_prune": bp_results}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the prune "

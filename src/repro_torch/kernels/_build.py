@@ -37,8 +37,9 @@ F = ctypes.c_float
 # C signature of every entry point: (argtypes), all return cudaError_t
 SIGNATURES = {
     "logmel_launch": (P, P, P, P, I, I, I, I, P),
-    "tds_conv_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
-    "layernorm_launch": (P, P, P, P, I, I, F, P),
+    "tds_conv_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                        F, P),
+    "layernorm_launch": (P, P, P, P, P, P, I, I, F, P),
     "rmsnorm_launch": (P, P, P, I, I, F, I, P),
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, I, F, P),

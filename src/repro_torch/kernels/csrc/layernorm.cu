@@ -1,15 +1,25 @@
-// Row LayerNorm and RMSNorm for Hopper, fp32 statistics.
+// Row LayerNorm (with an optional bias + residual prologue) and RMSNorm
+// for Hopper, fp32 statistics.
 //
 // Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py),
 // both kinds.  Both are bound by bytes: each row is read once and
 // written once, with a handful of operations per element.
 //
-//   * layernorm (fp32 rows; the TDS acoustic model, D <= 1840): one
-//     block per row, the row read once into shared memory as fp32, the
-//     mean, then the mean of squared deviations (the TPU kernel's
-//     two-pass statistics) reduced with warp shuffles plus a
-//     shared-memory pass, then (x - mu) * rsqrt(var + eps) * scale +
-//     bias.
+//   * layernorm (fp32 rows; the TDS acoustic model, D <= 1840): x =
+//     (y + add_bias) + res, each addend optional and added in fp32 in that
+//     order (the TDS FC block's bias and residual, so the LayerNorm's input
+//     is bit for bit the plain path's), then the mean, then the mean of
+//     squared deviations (the TPU kernel's two-pass statistics), then
+//     (x - mu) * rsqrt(var + eps) * scale + bias.  The row is kept in
+//     registers and moved 16 bytes a lane (D / 4 float4 vectors, one a
+//     thread up to D = 2048): one block of up to 512 threads per row, so
+//     that the 16-64 rows of a decoding step still put many warps in
+//     flight.  Each warp reduces its count, sum and squared deviations
+//     from its own mean with shuffles; one barrier, then every warp
+//     combines the warps' triples exactly (Chan et al.) into the row's
+//     mean and population variance, lane w taking warp w's.  A row that
+//     is not 16-byte aligned or is longer than 8192 values takes a scalar
+//     block-per-row kernel with the row staged in shared memory.
 //   * rmsnorm (fp32 or bf16 rows, fp32 scale; every norm of the LM,
 //     D = 2560): var = mean(x^2) in fp32, then (x * rsqrt(var + eps)) *
 //     scale, rounded once to the row's type, the order of `apply_norm`
@@ -51,8 +61,23 @@ __device__ float block_sum(float v, float* red) {
   return out;
 }
 
+// x[i] = (y[i] + add_bias[i]) + res[i], the addends optional
+__device__ __forceinline__ float ln_input(const float* __restrict__ y,
+                                          const float* __restrict__ add_bias,
+                                          const float* __restrict__ res,
+                                          size_t base, int i) {
+  float v = y[base + i];
+  if (add_bias != nullptr) v = v + __ldg(add_bias + i);
+  if (res != nullptr) v = v + res[base + i];
+  return v;
+}
+
+// Any D and alignment: one block per row, the row staged in shared memory.
 __global__ void __launch_bounds__(LN_THREADS)
-layernorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+layernorm_kernel(const float* __restrict__ y,
+                 const float* __restrict__ add_bias,
+                 const float* __restrict__ res,
+                 const float* __restrict__ scale,
                  const float* __restrict__ bias, float* __restrict__ out,
                  int D, float eps) {
   extern __shared__ float xs[];    // the row
@@ -60,7 +85,7 @@ layernorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const size_t base = (size_t)blockIdx.x * D;
   float s = 0.f;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float v = x[base + i];
+    const float v = ln_input(y, add_bias, res, base, i);
     xs[i] = v;
     s += v;
   }
@@ -74,6 +99,108 @@ layernorm_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   const float inv = rsqrtf(var + eps);
   for (int i = threadIdx.x; i < D; i += blockDim.x)
     out[base + i] = (xs[i] - mu) * inv * scale[i] + bias[i];
+}
+
+constexpr int LV_MAX = 512;        // threads per row, vector kernel
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One block per row, NV float4 vectors a thread, held in registers from
+// the load to the store.
+template <int NV>
+__global__ void __launch_bounds__(LV_MAX)
+layernorm_row_kernel(const float* __restrict__ y,
+                     const float* __restrict__ add_bias,
+                     const float* __restrict__ res,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int D, float eps) {
+  __shared__ float red[3][LV_MAX / 32];
+  const int nvec = D >> 2;
+  const size_t base = (size_t)blockIdx.x * nvec;
+  const float4* yr = reinterpret_cast<const float4*>(y) + base;
+  const float4* rr = reinterpret_cast<const float4*>(res) + base;
+  const float4* ab = reinterpret_cast<const float4*>(add_bias);
+  float4 v[NV], sc[NV], bi[NV];
+  float n = 0.f, s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = threadIdx.x + blockDim.x * i;
+    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (vi < nvec) {
+      sc[i] = __ldg(reinterpret_cast<const float4*>(scale) + vi);
+      bi[i] = __ldg(reinterpret_cast<const float4*>(bias) + vi);
+      v[i] = yr[vi];
+      if (add_bias != nullptr) v[i] = add4(v[i], __ldg(ab + vi));
+      if (res != nullptr) v[i] = add4(v[i], rr[vi]);
+      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+      n += 4.f;
+    }
+  }
+  // each warp's count, sum and squared deviations from its own mean, then
+  // one barrier and the exact combination (Chan et al.) of the two-pass
+  // statistics: mu = sum / D, var = sum of (M2 + count * (mean - mu)^2) / D
+  const float wn = warp_sum(n), wsum = warp_sum(s);
+  const float wmu = wn > 0.f ? wsum / wn : 0.f;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (threadIdx.x + blockDim.x * i < nvec) {
+      const float dx = v[i].x - wmu, dy = v[i].y - wmu, dz = v[i].z - wmu,
+                  dw = v[i].w - wmu;
+      q = fmaf(dx, dx, q);
+      q = fmaf(dy, dy, q);
+      q = fmaf(dz, dz, q);
+      q = fmaf(dw, dw, q);
+    }
+  }
+  q = warp_sum(q);
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][warp] = wn;
+    red[1][warp] = wsum;
+    red[2][warp] = q;
+  }
+  __syncthreads();
+  // lane w of every warp takes warp w's triple (at most 16 warps)
+  const int lane = threadIdx.x & 31;
+  const float cn = lane < nwarps ? red[0][lane] : 0.f;
+  const float cs = lane < nwarps ? red[1][lane] : 0.f;
+  const float mu = warp_sum(cs) / (float)D;
+  float t = 0.f;
+  if (cn > 0.f) {
+    const float d = cs / cn - mu;
+    t = red[2][lane] + cn * d * d;
+  }
+  const float inv = rsqrtf(warp_sum(t) / (float)D + eps);
+  float4* orow = reinterpret_cast<float4*>(out) + base;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = threadIdx.x + blockDim.x * i;
+    if (vi < nvec)
+      orow[vi] = make_float4((v[i].x - mu) * inv * sc[i].x + bi[i].x,
+                             (v[i].y - mu) * inv * sc[i].y + bi[i].y,
+                             (v[i].z - mu) * inv * sc[i].z + bi[i].z,
+                             (v[i].w - mu) * inv * sc[i].w + bi[i].w);
+  }
+}
+
+template <int NV>
+int ln_row(const float* y, const float* ab, const float* res,
+           const float* scale, const float* bias, float* out, int R, int D,
+           float eps, cudaStream_t s) {
+  const int per = (D / 4 + NV - 1) / NV;             // threads with work
+  const int threads = ((per + 31) / 32) * 32;
+  layernorm_row_kernel<NV><<<R, threads, 0, s>>>(y, ab, res, scale, bias,
+                                                 out, D, eps);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -228,17 +355,34 @@ int rmsnorm_go(const void* x, const void* scale, void* out, int R, int D,
 
 }  // namespace
 
-extern "C" int layernorm_launch(const void* x, const void* scale,
+// add_bias (D,) and res (R, D) may be null.
+extern "C" int layernorm_launch(const void* y, const void* add_bias,
+                                const void* res, const void* scale,
                                 const void* bias, void* out, int R, int D,
                                 float eps, void* stream) {
   if (R <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *yp = (const float*)y, *ab = (const float*)add_bias,
+              *rp = (const float*)res, *sc = (const float*)scale,
+              *bi = (const float*)bias;
+  float* op = (float*)out;
+  const bool vec = ((uintptr_t)y | (uintptr_t)add_bias | (uintptr_t)res |
+                    (uintptr_t)scale | (uintptr_t)bias | (uintptr_t)out) %
+                       16 == 0 && D % 4 == 0;
+  const int nvec = D / 4;
+  if (vec && nvec <= 4 * LV_MAX) {
+    if (nvec <= LV_MAX) return ln_row<1>(yp, ab, rp, sc, bi, op, R, D, eps, s);
+    if (nvec <= 2 * LV_MAX)
+      return ln_row<2>(yp, ab, rp, sc, bi, op, R, D, eps, s);
+    return ln_row<4>(yp, ab, rp, sc, bi, op, R, D, eps, s);
+  }
   const size_t smem = (size_t)D * sizeof(float);
   static size_t allowed = 0;           // dynamic smem opted in so far
-  const cudaError_t e = allow_smem(layernorm_kernel, smem, &allowed);
+  const cudaError_t e = allow_smem(layernorm_kernel, smem, &allowed,
+                                   33 * sizeof(float));   // + `red`
   if (e != cudaSuccess) return (int)e;
-  layernorm_kernel<<<R, LN_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)scale, (const float*)bias, (float*)out,
-      D, eps);
+  layernorm_kernel<<<R, LN_THREADS, smem, s>>>(yp, ab, rp, sc, bi, op, D,
+                                               eps);
   return (int)cudaGetLastError();
 }
 

@@ -1,53 +1,80 @@
-"""Row LayerNorm and RMSNorm with fp32 statistics.
+"""Row LayerNorm (with an optional bias + residual prologue) and RMSNorm
+with fp32 statistics.
 
 Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py):
-`layernorm` its `kind="layernorm"` half (the TDS acoustic model),
-`rmsnorm` its `kind="rmsnorm"` half (every norm of the LM stack).  CUDA
-source: `csrc/layernorm.cu`.  Each wrapper counts its own launches.
+`layernorm` and `bias_residual_layernorm` its `kind="layernorm"` half
+(the TDS acoustic model), `rmsnorm` its `kind="rmsnorm"` half (every
+norm of the LM stack).  CUDA source: `csrc/layernorm.cu`.  `layernorm`
+and `bias_residual_layernorm` launch one kernel and count into
+`launches`; `rmsnorm` counts into `rmsnorm_launches`.
 
 What bounds them on the H100: bytes.  Each row (D <= 1840 floats for the
 TDS LayerNorms, D = 2560 bf16 for h2o-danube-1.8b) is read once and
 written once, and the arithmetic is a handful of operations per element.
-`layernorm`: one block per row, the row staged in shared memory as fp32
-so the reduction and the normalising pass read device memory once,
-warp-shuffle reductions.  `rmsnorm` keeps the row in registers and
-moves 16 bytes a lane (8 bf16 or 4 fp32; `scale` as float4), one block
-of 256 threads per row with one barrier; rows that are not 16-byte
-aligned take a scalar block-per-row kernel.  The statistics and
-rounding are `apply_norm`'s: var = mean(x²) in fp32, then
-(x·rsqrt(var + eps))·scale, rounded once to x's dtype.
+Both keep the row in registers and move 16 bytes a lane.  LayerNorm:
+(y + add_bias) + res in fp32 (the TDS FC block's bias and residual,
+which would otherwise be two elementwise launches), the mean, then the
+mean of squared deviations, one block of up to 512 threads per row with
+one barrier (each warp's partial statistics combined exactly).  RMSNorm: one block of 256 threads per row
+with one barrier; var = mean(x²) in fp32, then (x·rsqrt(var + eps))·scale,
+rounded once to x's dtype, as `apply_norm` does.  Rows that are not
+16-byte aligned take scalar block-per-row kernels.
 
-On a CPU tensor a wrapper runs its plain version (`ref.layernorm`,
-`ref.rmsnorm`).
+On a CPU tensor a wrapper runs its plain version
+(`ref.bias_residual_layernorm`, `ref.layernorm`, `ref.rmsnorm`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0            # kernel launches made by `layernorm`
+launches = 0            # launches of `layernorm`/`bias_residual_layernorm`
 rmsnorm_launches = 0    # kernel launches made by `rmsnorm`
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """x: (R, D) f32; scale/bias: (D,) -> (R, D) f32."""
+    return bias_residual_layernorm(x, scale, bias, eps=eps)
+
+
+def bias_residual_layernorm(y: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, *,
+                            add_bias: Optional[torch.Tensor] = None,
+                            res: Optional[torch.Tensor] = None,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of (y + add_bias) + res.  y, res: (R, D) f32; add_bias,
+    scale, bias: (D,) -> (R, D) f32."""
     global launches
-    if not x.is_cuda:
-        return ref.layernorm(x, scale, bias, eps=eps)
-    dev = x.device
-    _build.require(x, "x", torch.float32, 2, dev)
+    if not y.is_cuda:
+        return ref.bias_residual_layernorm(y, scale, bias, add_bias=add_bias,
+                                           res=res, eps=eps)
+    dev = y.device
+    _build.require(y, "y", torch.float32, 2, dev)
     _build.require(scale, "scale", torch.float32, 1, dev)
     _build.require(bias, "bias", torch.float32, 1, dev)
-    R, D = x.shape
+    R, D = y.shape
     if scale.shape[0] != D or bias.shape[0] != D:
-        raise ValueError(f"layernorm: x {tuple(x.shape)}, scale "
+        raise ValueError(f"layernorm: y {tuple(y.shape)}, scale "
                          f"{tuple(scale.shape)}, bias {tuple(bias.shape)}")
-    out = torch.empty_like(x)
+    if add_bias is not None:
+        _build.require(add_bias, "add_bias", torch.float32, 1, dev)
+        if add_bias.shape[0] != D:
+            raise ValueError(f"layernorm: add_bias {tuple(add_bias.shape)} "
+                             f"!= ({D},)")
+    if res is not None:
+        _build.require(res, "res", torch.float32, 2, dev)
+        if res.shape != y.shape:
+            raise ValueError(f"layernorm: res {tuple(res.shape)} != y "
+                             f"{tuple(y.shape)}")
+    out = torch.empty_like(y)
     err = _build.lib().layernorm_launch(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        R, D, float(eps), _build.stream(dev))
+        y.data_ptr(), None if add_bias is None else add_bias.data_ptr(),
+        None if res is None else res.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), R, D, float(eps), _build.stream(dev))
     _build.check(err, "layernorm")
     launches += 1
     return out

@@ -47,6 +47,19 @@ def layernorm(x, scale, bias, *, eps=1e-5, policy=None):
     return _ln.layernorm(x.contiguous(), scale, bias, eps=eps)
 
 
+def bias_residual_layernorm(y, scale, bias, *, add_bias=None, res=None,
+                            eps=1e-5, policy=None):
+    """LayerNorm of (y + add_bias) + res, the addends optional: the TDS
+    FC block's bias and residual added in the LayerNorm's one launch.
+    y, res: (R, D); add_bias, scale, bias: (D,)."""
+    if resolve(policy, y) == "ref":
+        return _ref.bias_residual_layernorm(y, scale, bias, add_bias=add_bias,
+                                            res=res, eps=eps)
+    return _ln.bias_residual_layernorm(
+        y.contiguous(), scale, bias, add_bias=add_bias,
+        res=None if res is None else res.contiguous(), eps=eps)
+
+
 def rmsnorm(x, scale, *, eps=1e-6, policy=None):
     """x: (R, D) bf16/f32; scale: (D,) f32 -> (R, D) in x's dtype."""
     if resolve(policy, x) == "ref":
@@ -95,6 +108,26 @@ def tds_conv(x, w, b, *, stride=1, relu=False, res=None, policy=None):
         out = _tc.tds_conv(x.contiguous(), w, b,
                            None if res is None else res.contiguous(),
                            stride=stride, relu=relu)
+    return out[0] if squeeze else out
+
+
+def tds_conv_ln(x, w, b, ln_scale, ln_bias, *, stride=1, relu=False,
+                res=None, eps=1e-5, policy=None):
+    """`tds_conv`, then LayerNorm over each output frame's W*Cout values
+    (ln_scale, ln_bias: (W*Cout,)), in one launch on the card.
+    x: (B, k-1+T, W, Cin) slot-batched (3-D = B=1)."""
+    mode = resolve(policy, x)
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+        res = None if res is None else res[None]
+    if mode == "ref":
+        out = _ref.tds_conv_ln(x, w, b, ln_scale, ln_bias, stride=stride,
+                               relu=relu, res=res, eps=eps)
+    else:
+        out = _tc.tds_conv_ln(x.contiguous(), w, b, ln_scale, ln_bias,
+                              None if res is None else res.contiguous(),
+                              stride=stride, relu=relu, eps=eps)
     return out[0] if squeeze else out
 
 

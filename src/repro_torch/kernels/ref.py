@@ -38,6 +38,17 @@ def layernorm(x, scale, bias, eps=1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
+def bias_residual_layernorm(y, scale, bias, *, add_bias=None, res=None,
+                            eps=1e-5):
+    """`layernorm((y + add_bias) + res)`, each addend optional, the adds in
+    fp32 in that order (the TDS FC block's bias, then its residual)."""
+    if add_bias is not None:
+        y = y + add_bias
+    if res is not None:
+        y = y + res
+    return layernorm(y, scale, bias, eps=eps)
+
+
 def rmsnorm(x, scale, eps=1e-6):
     """x: (T, D) any float dtype; fp32 statistics, output in x's dtype:
     `(xf * rsqrt(mean(xf^2) + eps)) * scale`, cast last."""
@@ -214,3 +225,14 @@ def tds_conv_fused(x, w, b, *, stride=1, relu=False, res=None):
     if res is not None:
         y = y + res
     return y
+
+
+def tds_conv_ln(x, w, b, ln_scale, ln_bias, *, stride=1, relu=False,
+                res=None, eps=1e-5):
+    """`tds_conv_fused`, then `layernorm` over each (b, t) row of
+    W*Cout values: the TDS conv with the LayerNorm that follows it.
+    Returns (B, T//stride, W, Cout)."""
+    y = tds_conv_fused(x, w, b, stride=stride, relu=relu, res=res)
+    B, t_out = y.shape[:2]
+    return layernorm(y.reshape(B * t_out, -1), ln_scale, ln_bias,
+                     eps=eps).reshape(y.shape)

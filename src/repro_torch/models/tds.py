@@ -12,6 +12,16 @@ the card, plain torch on the CPU).  FC/head products are `torch.matmul`
 in the fp32 program, as the reference leaves them to XLA outside any
 kernel, and go through the int8 kernel (`ops.int8_matmul_prepared`) in
 the int8 program.
+
+The kernel list (`build_kernel_specs`, `kernel_census`: 18 / 29 / 32)
+describes the paper's ASRPU program, not the CUDA launches of a step.
+`forward_batched` fuses on the card: each LayerNorm that directly
+follows a conv runs inside that conv's launch (`ops.tds_conv_ln`: 17 of
+the 18 convs), and each one that follows the FC block takes fc2's bias
+and the block's residual into its own launch
+(`ops.bias_residual_layernorm`), so a step launches 18 conv and 15
+LayerNorm kernels.  The plain versions compute the same sequence of
+operations as the unfused list, number for number.
 """
 from __future__ import annotations
 
@@ -198,13 +208,14 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
     from repro_torch.kernels import ops
 
     def matmul(xm, name, p):
+        """The FC/head product without its bias."""
         if not use_int8:
-            return xm @ p["w"] + p["b"]
+            return xm @ p["w"]
         if prepared is not None and name in prepared:
             pq = prepared[name]
             return ops.int8_matmul_prepared(xm, pq["wq"], pq["ws"],
-                                            policy=kernels) + p["b"]
-        return ops.int8_matmul(xm, p["w"], policy=kernels) + p["b"]
+                                            policy=kernels)
+        return ops.int8_matmul(xm, p["w"], policy=kernels)
 
     fp32_numerics()
     specs = build_kernel_specs(cfg)
@@ -213,8 +224,20 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
     B = feats.shape[0]
     x = feats[:, :, :, None]                         # (B, T, w, 1)
     fc_res = None
-    for spec in specs:
+    fused = set()          # LayerNorms run inside the launch before them
+    for i, spec in enumerate(specs):
+        if spec.name in fused:
+            continue
         p = params[spec.name]
+        # a LayerNorm right after a conv, or after an FC with nothing
+        # between its bias and residual, runs in that launch
+        nxt = specs[i + 1] if i + 1 < len(specs) else None
+        ln = None
+        if nxt is not None and nxt.kind == "layernorm" and (
+                spec.kind == "conv" or (spec.kind == "fc"
+                                        and spec.activation == "none")):
+            ln = params[nxt.name]
+            fused.add(nxt.name)
         if spec.kind == "conv":
             k, s = spec.kernel, spec.stride
             m = x.shape[1]
@@ -223,15 +246,20 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
             xp = torch.cat([state[spec.name], x], dim=1)
             res = x if (spec.residual and s == 1
                         and x.shape[-1] == spec.n_out // w) else None
-            x = ops.tds_conv(xp, p["w"], p["b"], stride=s,
-                             relu=spec.activation == "relu", res=res,
-                             policy=kernels)
+            relu = spec.activation == "relu"
+            if ln is not None:
+                x = ops.tds_conv_ln(xp, p["w"], p["b"], ln["scale"],
+                                    ln["bias"], stride=s, relu=relu, res=res,
+                                    policy=kernels)
+            else:
+                x = ops.tds_conv(xp, p["w"], p["b"], stride=s, relu=relu,
+                                 res=res, policy=kernels)
             new_state[spec.name] = xp[:, -(k - 1):] if k > 1 \
                 else state[spec.name]
-        elif spec.kind == "layernorm":
+        elif spec.kind == "layernorm":         # not fused: final_ln
             t = x.shape[1]
-            xm = ops.layernorm(x.reshape(B * t, -1), p["scale"], p["bias"],
-                               policy=kernels)
+            xm = ops.bias_residual_layernorm(x.reshape(B * t, -1), p["scale"],
+                                             p["bias"], policy=kernels)
             x = xm.reshape(x.shape)
         else:  # fc / head
             t = x.shape[1]
@@ -239,11 +267,18 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
             if spec.activation == "relu":      # fc1: start of the FC block
                 fc_res = xm
             y = matmul(xm, spec.name, p)
-            if spec.activation == "relu":
-                y = torch.relu(y)
-            if spec.residual and fc_res is not None \
-                    and y.shape == fc_res.shape:
-                y = y + fc_res                 # TDS residual: whole FC block
+            res = fc_res if (spec.residual and fc_res is not None
+                             and y.shape == fc_res.shape) else None
+            if ln is not None:                 # fc2 -> ln2: one launch
+                y = ops.bias_residual_layernorm(
+                    y, ln["scale"], ln["bias"], add_bias=p["b"], res=res,
+                    policy=kernels)
+            else:
+                y = y + p["b"]
+                if spec.activation == "relu":
+                    y = torch.relu(y)
+                if res is not None:
+                    y = y + res                # TDS residual: whole FC block
             if spec.name == "head":
                 logp = torch.log_softmax(y, dim=-1)
                 return logp.reshape(B, t, -1), new_state

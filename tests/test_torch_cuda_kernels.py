@@ -7,7 +7,12 @@ tests/test_torch_kernels.py.  Run on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: logmel rtol 1e-4, atol 1e-3; layernorm and tds_conv
-atol 1e-5 (rtol 1e-5); hypothesis unit idx/valid exact, pb/pnb rtol
+atol 1e-5 (rtol 1e-5); the fused conv + LayerNorm and bias + residual +
+LayerNorm also atol 1e-5 (rtol 1e-5): the LayerNorm divides the conv
+sum's rounding (~1e-7 relative, sums in another order than cuBLAS) by the
+row's standard deviation, which is O(1) or larger for these inputs, and
+the bias and residual are the same fp32 adds in the same order as the
+plain version's; hypothesis unit idx/valid exact, pb/pnb rtol
 1e-5 — the kernels sum in another order than cuBLAS and the plain
 version's unordered scatter_add.  int8_matmul: bitwise (integer sums
 are exact in any order, and the rescale is the same two fp32 products).
@@ -19,11 +24,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import tds_asr as tcfg  # noqa: E402
 from repro_torch.kernels import (beam_prune as tbp,  # noqa: E402
                                  flash_attention as tfa,
                                  hypothesis_unit as thu,
                                  int8_matmul as tim, layernorm as tln,
                                  logmel as tlm, ops, ref, tds_conv as ttc)
+from repro_torch.models import tds as ttds  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 NEG_INF = -1e30
@@ -80,6 +87,162 @@ def test_tds_conv_kernel_matches_plain(cuda, batch, k, stride, t, w, cin,
     torch.cuda.synchronize()
     want = ref.tds_conv_fused(x, wgt, b, stride=stride, relu=relu, res=res)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _step_shapes(b, w):
+    """Conv shapes (batch, k, stride, T, W, Cin, Cout, residual, fused)
+    and LayerNorm shapes (rows, D) of one full-width decoding step of
+    b slots and w windows (8 feature frames a window); `fused`: the
+    conv's LayerNorm runs in its launch."""
+    cfg = tcfg.TDS_CONFIG
+    feat = cfg.stages[0].feat
+    specs = ttds.build_kernel_specs(cfg)
+    convs, lns, t = [], [], 8 * w
+    for i, spec in enumerate(specs):
+        if spec.kind == "conv":
+            cin, cout = spec.n_in // spec.kernel, spec.n_out // feat
+            convs.append((b, spec.kernel, spec.stride, t, feat, cin, cout,
+                          spec.residual and spec.stride == 1 and cin == cout,
+                          specs[i + 1].kind == "layernorm"))
+        elif spec.kind == "layernorm":
+            lns.append((b * (t // spec.stride), spec.n_out))
+        t //= spec.stride
+    return sorted(set(convs)), sorted(set(lns))
+
+
+STEP_CONVS = _step_shapes(4, 4)[0] + _step_shapes(1, 1)[0]
+STEP_LNS = _step_shapes(4, 4)[1] + _step_shapes(1, 1)[1]
+
+
+def _conv_ln_inputs(dev, batch, k, stride, t, w, cin, cout, residual):
+    x = _t(dev, k + cin, batch, k - 1 + t, w, cin)
+    wgt = _t(dev, 1, k, cin, cout, scale=0.3)
+    b = _t(dev, 2, cout)
+    res = _t(dev, 3, batch, t // stride, w, cout) if residual else None
+    scale = 1 + _t(dev, 4, w * cout, scale=0.2)
+    return x, wgt, b, res, scale, _t(dev, 5, w * cout)
+
+
+@pytest.mark.parametrize("batch,k,stride,t,w,cin,cout,residual,fused",
+                         STEP_CONVS)
+def test_tds_conv_kernels_match_plain_at_step_shapes(cuda, batch, k, stride,
+                                                     t, w, cin, cout,
+                                                     residual, fused):
+    """Every conv of a b=4, w=4 and a b=1, w=1 step: the plain conv
+    (front_conv) and the conv + LayerNorm in both designs (split 0: a
+    cluster per row; split 1: one block of 512 threads per row)."""
+    x, wgt, b, res, scale, shift = _conv_ln_inputs(cuda, batch, k, stride, t,
+                                                   w, cin, cout, residual)
+    y = ref.tds_conv_fused(x, wgt, b, stride=stride, relu=True, res=res)
+    got = ttc.tds_conv(x, wgt, b, res, stride=stride, relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, y, rtol=1e-5, atol=1e-5)
+    if fused:
+        want = ref.tds_conv_ln(x, wgt, b, scale, shift, stride=stride,
+                               relu=True, res=res)
+        for split in (0, 1):
+            got = ttc.tds_conv_ln(x, wgt, b, scale, shift, res, stride=stride,
+                                  relu=True, split=split)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,k,stride,t,w,cin,cout,residual,split", [
+    (2, 9, 1, 4, 13, 7, 7, True, 0),       # W*Cin odd: 4-byte staging
+    (2, 9, 1, 4, 13, 7, 7, True, 8),       # 13 positions over 8 blocks
+    (1, 10, 2, 2, 12, 5, 7, False, 8),     # blocks 6 and 7 hold nothing
+    (1, 9, 1, 1, 81, 23, 23, True, 0),     # W = 81 over a cluster of 8
+    (3, 9, 1, 4, 81, 23, 23, True, 3),
+    (2, 10, 2, 4, 80, 15, 19, False, 5),
+    (1, 9, 1, 2, 80, 3, 3, True, 7),
+    (200, 9, 1, 1, 80, 15, 15, True, 0),   # 200 rows: a block per row
+    (1, 21, 1, 8, 8, 3, 3, False, 0), (2, 9, 2, 8, 16, 1, 15, False, 0),
+    (70, 9, 1, 1, 200, 24, 24, True, 0),   # the split grows until it fits
+])
+def test_tds_conv_ln_kernel_matches_plain_ragged(cuda, batch, k, stride, t,
+                                                 w, cin, cout, residual,
+                                                 split):
+    x, wgt, b, res, scale, shift = _conv_ln_inputs(cuda, batch, k, stride, t,
+                                                   w, cin, cout, residual)
+    for relu in (False, True):
+        got = ttc.tds_conv_ln(x, wgt, b, scale, shift, res, stride=stride,
+                              relu=relu, split=split)
+        torch.cuda.synchronize()
+        want = ref.tds_conv_ln(x, wgt, b, scale, shift, stride=stride,
+                               relu=relu, res=res)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _aligned_or_not(dev, seed, r, d, misaligned):
+    """(r, d) values, contiguous; `misaligned` puts row 0 4 bytes past a
+    16-byte boundary (the scalar kernel)."""
+    if not misaligned:
+        return _t(dev, seed, r, d)
+    buf = torch.empty(r * d + 1, device=dev)
+    out = buf[1:].view(r, d)
+    out.copy_(_t(dev, seed, r, d))
+    return out
+
+
+@pytest.mark.parametrize("r,d,misaligned", [*[(r, d, False)
+                                               for r, d in STEP_LNS],
+                                             (37, 80, False), (5, 129, False),
+                                             (3, 7, False), (16, 1840, True),
+                                             (4, 2560, False),
+                                             (2, 8192, False),
+                                             (2, 8196, False)])
+def test_bias_residual_layernorm_kernel_matches_plain(cuda, r, d,
+                                                      misaligned):
+    """Every LayerNorm shape of a b=4, w=4 and a b=1, w=1 step with and
+    without each addend, ragged D and a misaligned row (scalar kernel),
+    and D past one and two vectors a thread."""
+    y = _aligned_or_not(cuda, d, r, d, misaligned)
+    res = _aligned_or_not(cuda, d + 1, r, d, misaligned)
+    ab = _t(cuda, 3, d)
+    scale, shift = 1 + _t(cuda, 1, d, scale=0.2), _t(cuda, 2, d)
+    for add_bias, rr in ((ab, res), (ab, None), (None, res), (None, None)):
+        got = tln.bias_residual_layernorm(y, scale, shift, add_bias=add_bias,
+                                          res=rr)
+        torch.cuda.synchronize()
+        want = ref.bias_residual_layernorm(y, scale, shift,
+                                           add_bias=add_bias, res=rr)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tln.layernorm(y, scale, shift),
+                               ref.layernorm(y, scale, shift),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fused_wrappers_count_launches_and_refuse_bad_input(cuda):
+    ops.reset_launch_counts()
+    x, wgt, b, res, scale, shift = _conv_ln_inputs(cuda, 2, 9, 1, 4, 16, 5,
+                                                   5, True)
+    ttc.tds_conv_ln(x, wgt, b, scale, shift, res, relu=True)
+    ops.tds_conv_ln(x, wgt, b, scale, shift, res=res, relu=True)
+    assert ops.launch_counts()["tds_conv"] == 2
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    for bad in (dict(x=xt), dict(scale=scale.cpu()), dict(res=res.cpu()),
+                dict(scale=scale[:-1].contiguous()),
+                dict(wgt=_t(cuda, 6, 9, 5, 25), b=_t(cuda, 6, 25))):
+        a = dict(x=x, wgt=wgt, b=b, scale=scale, res=res)
+        a.update(bad)                          # the last: Cout > 24
+        with pytest.raises(ValueError):
+            ttc.tds_conv_ln(a["x"], a["wgt"], a["b"], a["scale"], shift,
+                            a["res"], relu=True)
+    assert ops.launch_counts()["tds_conv"] == 2
+    y, ab = _t(cuda, 7, 8, 64), _t(cuda, 8, 64)
+    s64, r = _t(cuda, 9, 64), _t(cuda, 10, 8, 64)
+    tln.bias_residual_layernorm(y, s64, s64, add_bias=ab, res=r)
+    ops.bias_residual_layernorm(y, s64, s64, add_bias=ab, res=r.t().t())
+    assert ops.launch_counts()["layernorm"] == 2
+    for bad in (dict(y=_t(cuda, 11, 64, 8).t()), dict(ab=ab.cpu()),
+                dict(r=r.cpu()), dict(r=r[:4].contiguous()),
+                dict(ab=_t(cuda, 12, 63))):
+        a = dict(y=y, ab=ab, r=r)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            tln.bias_residual_layernorm(a["y"], s64, s64, add_bias=a["ab"],
+                                        res=a["r"])
+    assert ops.launch_counts()["layernorm"] == 2
 
 
 def _candidates(dev, seed, b, n, n_hash, dead_rate=0.2):

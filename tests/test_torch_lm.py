@@ -6,7 +6,8 @@ sliding window 64 at tiny size, RoPE; chatglm3-6b: 2D-RoPE, QKV bias,
 2 kv heads; qwen2-72b: QKV bias, RoPE theta 1e6), cast to fp32; the JAX
 package initialises the parameters and `params_from_numpy` carries them
 across.  Tolerances: logits atol 1e-4, caches atol 1e-5 (fp32, two
-frameworks); the bf16 case at the relative 2e-2 of tests/test_models.py.
+frameworks); the bf16 prefill and decode at the relative 2e-2 of
+tests/test_models.py.
 """
 import dataclasses
 
@@ -212,6 +213,38 @@ def test_bf16_prefill_matches_jax():
     assert tc["layers"]["p0"]["k"].dtype == torch.bfloat16
     a, b = _np(tl_)[:, :V], _np(jl_)[:, :V]
     assert np.abs(a - b).max() / (np.abs(b).max() + 1e-9) < 2e-2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_decode_matches_jax(arch):
+    """bf16 decode: a masked prefill of a 70- and a 10-token prompt into a
+    ring of 64 (the longer one arrives trimmed and the ring wraps), then
+    6 decode steps fed each package's own greedy tokens.  Tokens equal
+    at every step, logits at the relative 2e-2 of the bf16 prefill."""
+    jlm, jp, tlm, tp = _models(arch, "bfloat16")
+    V = jlm.cfg.vocab_size
+    ring = 64
+    toks = _toks(6, 2, 96, V)
+    lens = np.array([70, 10], np.int32)
+    jl_, jc = jlm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                          lengths=jnp.asarray(lens), cache_len=ring)
+    tl_, tc = tlm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                          lengths=torch.from_numpy(lens), cache_len=ring)
+    assert tc["layers"]["p0"]["k"].dtype == torch.bfloat16
+    jtok = jnp.argmax(jl_[:, :V], axis=-1).astype(jnp.int32)[:, None]
+    ttok = torch.argmax(tl_[:, :V], dim=-1)[:, None]
+    jdecode = jax.jit(jlm.decode_step)
+    for step in range(6):
+        assert ttok.tolist() == np.asarray(jtok).tolist(), step
+        jlog, jnext, jc = jdecode(jp, jc, {"tokens": jtok})
+        tlog, tnext, tc = tlm.decode_step(tp, tc, {"tokens": ttok})
+        assert str(tlog.dtype) == f"torch.{jlog.dtype}", step
+        a, b = _np(tlog)[:, :V], _np(jlog)[:, :V]
+        assert np.abs(a - b).max() / (np.abs(b).max() + 1e-9) < 2e-2, step
+        jtok, ttok = jnext[:, None], tnext[:, None]
+    assert ttok.tolist() == np.asarray(jtok).tolist()
+    assert tc["offset"].tolist() == np.asarray(jc["offset"]).tolist() == \
+        [76, 16]
 
 
 @pytest.mark.parametrize("arch,what", [
