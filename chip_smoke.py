@@ -2,16 +2,21 @@
 """Smoke run of the PyTorch port on one GPU: the streaming ASR decode path,
 batched LM serving and the standalone beam-threshold prune.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--before DIR]
+
+`--before DIR` (a checkout of the parent commit) also times DIR's
+int8_matmul and hypothesis_unit kernels beside this checkout's.
 
 Phases, in order; any failure exits non-zero (no phase is caught):
   1. build   — nvcc builds the eight Hopper kernels from the seven sources
                in src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
-               the main path's shapes (int8_matmul bitwise, also at a
-               ragged shape); tds_conv at every conv of a b=4, w=4 and a
-               b=1, w=1 step, the 17 with their LayerNorm fused in
-               (`tds_conv_ln`) in both designs (a cluster per row, a
+               the main path's shapes: int8_matmul bitwise at the FC/head
+               shapes of a b=4, w=4 and a b=1, w=1 step and two ragged
+               ones, fused with the row quantization (the main path's)
+               and on pre-quantized rows; tds_conv at every conv of a
+               b=4, w=4 and a b=1, w=1 step, the 17 with their LayerNorm
+               fused in (`tds_conv_ln`) in both designs (a cluster per row, a
                block per row); layernorm at every LayerNorm launched on
                its own (`bias_residual_layernorm`: fc2's bias and the FC
                block's residual in, and final_ln without).
@@ -28,10 +33,16 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                kernel's launch count must match the steps taken (18
                tds_conv, 17 of them with the LayerNorm fused, and 15
                layernorm launches per step; 29 int8_matmul launches per
-               int8 step), the kernel path's
+               int8 step, each quantizing its own rows: the plain
+               `quantize_rows` must run no time), the kernel path's
                log-probs must match the plain path's (int8: also bitwise
                equal with int8_matmul's plain version substituted) and
-               its words must equal the plain path's.
+               its words must equal the plain path's.  Then the
+               candidate rows the fp32 engine feeds the hypothesis unit
+               in a b=4, w=4 step (the utterances' first, and their third
+               after two committed steps) are captured by a hook around
+               its wrapper, checked against the plain version, and their
+               live count L and head count H printed.
   6. timing  — each kernel, its plain version and the library call
                (where one exists) at the full-width step shapes, the
                bound, step times per (b, w) for both programs, a profiler
@@ -39,7 +50,12 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                at the b=1, w=1 shapes, the fused conv also in its
                block-per-row design, both beside a composite yardstick
                (F.conv2d through cuDNN without TF32, ReLU, residual,
-               F.layer_norm; F.layer_norm((y + b) + res)).
+               F.layer_norm; F.layer_norm((y + b) + res)).  The
+               hypothesis unit on the captured decoder rows, beside
+               synthetic (4, 8320) rows; int8_matmul from fp32 rows
+               (quantization included) at b=4, w=4 and b=1, w=1, beside
+               pre-quantized rows, the plain `quantize_rows` and
+               `quantize_rows` + `torch._int_mm` + rescale.
   LM phases (h2o-danube-1.8b at full width, seeded random weights):
   7. lm kernels — flash_attention and rmsnorm vs their plain versions in
                bf16 and fp32 at the prefill/decode shapes: GQA 32/8 with
@@ -374,19 +390,72 @@ def check_kernels(dev) -> dict:
                   f"({b},{n}) K=128 {key}")
     torch.cuda.synchronize()
 
-    # the four full-width FC/head shapes at b=4, w=4, and ragged ones
-    for m, k, n in sorted(set(fc_shapes(TDS_CONFIG, 4, 4))) + [
+    # the FC/head shapes of a b=4, w=4 and a b=1, w=1 step, and ragged
+    # ones: the fused quantize + product (the main path's) and the
+    # product of pre-quantized rows, both bitwise
+    for m, k, n in sorted(set(fc_shapes(TDS_CONFIG, 4, 4)
+                              + fc_shapes(TDS_CONFIG, 1, 1))) + [
             (5, 37, 29), (17, 4100, 3)]:
-        _, _, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
-        got = kim.int8_matmul(xq, wq, xs, ws)
+        x, _, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
         want = ref.int8_matmul(xq, wq, xs, ws)
-        if not torch.equal(got, want):
-            bad = (got != want).sum().item()
-            fail(f"int8_matmul M={m} K={k} N={n}: {bad} of {got.numel()} "
-                 f"entries differ from the plain version (must be bitwise)")
-        close("int8_matmul", got, want, f"M={m} K={k} N={n} (bitwise)")
+        for label, got in (
+                ("fused", kim.int8_matmul_fused(x, wq, ws)),
+                ("pre-quantized", kim.int8_matmul(xq, wq, xs, ws))):
+            if not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                fail(f"int8_matmul {label} M={m} K={k} N={n}: {bad} of "
+                     f"{got.numel()} entries differ from the plain version "
+                     f"(must be bitwise)")
+            close("int8_matmul", got, want,
+                  f"M={m} K={k} N={n} {label} (bitwise)")
     torch.cuda.synchronize()
     return err
+
+
+def check_hypothesis_rows(rows) -> float:
+    """The hypothesis unit on captured decoder rows against its plain
+    version: idx and valid exact, pb/pnb within TOL; max |err|."""
+    err = 0.0
+    for i, (h, pb, pnb, k, beam) in enumerate(rows):
+        got = khu.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+        want = ref.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+        for key in ("idx", "valid"):
+            if not torch.equal(got[key], want[key]):
+                bad = (got[key] != want[key]).sum().item()
+                fail(f"hypothesis_unit on decoder rows (call {i}): {key} "
+                     f"differs in {bad} of {got[key].numel()} entries")
+        for key in ("pb", "pnb"):
+            d = (got[key] - want[key]).abs().max().item()
+            err = max(err, d)
+            try:
+                torch.testing.assert_close(got[key], want[key],
+                                           **TOL["hypothesis_unit"])
+            except AssertionError as e:
+                fail(f"hypothesis_unit on decoder rows (call {i}) {key}: {e}")
+    torch.cuda.synchronize()
+    print(f"[kernels] hypothesis_unit  {len(rows)} captured decoder calls "
+          f"{tuple(rows[0][0].shape)}: idx/valid exact, max|err| {err:.3e} ok",
+          flush=True)
+    return err
+
+
+def row_census(rows) -> dict:
+    """Live candidates L and distinct live hashes (heads) H per captured
+    row: they size the kernel's grouping and selection."""
+    ls, hs = [], []
+    for h, pb, pnb, _, _ in rows:
+        live = torch.logaddexp(pb, pnb) > ref.NEG_INF / 2
+        for r in range(h.shape[0]):
+            hl = h[r][live[r]]
+            ls.append(int(hl.numel()))
+            hs.append(int(torch.unique(hl).numel()))
+    out = {"calls": len(rows), "rows": len(ls), "N": int(rows[0][0].shape[1]),
+           "L": ls, "H": hs}
+    print(f"[hypothesis rows] {len(rows)} calls x {rows[0][0].shape[0]} rows "
+          f"of N={out['N']}: live L min/median/max {min(ls)}/"
+          f"{int(np.median(ls))}/{max(ls)}, heads H {min(hs)}/"
+          f"{int(np.median(hs))}/{max(hs)}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -531,14 +600,122 @@ def full_width_utterances(words, n=8):
 
 @contextlib.contextmanager
 def plain_int8_products():
-    """Run int8_matmul's plain version in place of its kernel (`ops`
-    looks the wrapper up on its module at every call)."""
-    kernel = kim.int8_matmul
-    kim.int8_matmul = ref.int8_matmul
+    """Run the int8 product's plain version (`quantize_rows`, then
+    `ref.int8_matmul`) in place of its fused kernel (`ops` looks the
+    wrapper up on its module at every call)."""
+    kernel = kim.int8_matmul_fused
+    kim.int8_matmul_fused = lambda x, wq, ws: ref.int8_matmul_prepared(
+        x, wq, ws)
     try:
         yield
     finally:
-        kim.int8_matmul = kernel
+        kim.int8_matmul_fused = kernel
+
+
+@contextlib.contextmanager
+def counting_quantizations():
+    """Count the calls of the plain `quantize_rows` (`ops` and
+    `ref.int8_matmul_prepared` look it up on `ref` at every call); yields
+    a one-element list holding the count."""
+    plain, count = ref.quantize_rows, [0]
+
+    def counted(x):
+        count[0] += 1
+        return plain(x)
+    ref.quantize_rows = counted
+    try:
+        yield count
+    finally:
+        ref.quantize_rows = plain
+
+
+def capture_decoder_rows(dev, system, utts, advance=2):
+    """The candidate rows the full-width fp32 engine feeds the hypothesis
+    unit in one b=4, w=4 step, after `advance` committed steps (0: the
+    utterances' first step): a hook around the kernel's wrapper (which `ops`
+    looks up on its module at every call) keeps a copy of each call's
+    inputs.  Returns [(hashes, pb, pnb, k, beam)] of the step's w calls."""
+    eng = full_engine(dev, system, KernelPolicy("kernel"))
+    for s in range(4):
+        eng.feed_slot(s, utts[s])
+    for _ in range(advance):
+        eng._step_slots([0, 1, 2, 3], 4)
+    rows, kernel = [], khu.hypothesis_unit
+
+    def hook(h, pb, pnb, *, k, beam):
+        rows.append((h.clone(), pb.clone(), pnb.clone(), k, beam))
+        return kernel(h, pb, pnb, k=k, beam=beam)
+    khu.hypothesis_unit = hook
+    try:
+        eng._step_slots([0, 1, 2, 3], 4, commit=False)
+    finally:
+        khu.hypothesis_unit = kernel
+    torch.cuda.synchronize()
+    if len(rows) != 4:
+        fail(f"captured {len(rows)} hypothesis-unit calls in a w=4 step")
+    return rows
+
+
+class Before:
+    """The parent checkout's `int8_matmul` and `hypothesis_unit` kernels
+    (`--before DIR`), built from DIR's sources with the same nvcc flags
+    and called through their C entry points as the parent's wrappers
+    called them: the "before" of the timing, on the same card in the same
+    run.  Never on the port's path."""
+
+    def __init__(self, root: pathlib.Path):
+        import ctypes
+        csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
+        out = OUT / "before"
+        out.mkdir(parents=True, exist_ok=True)
+        objs = []
+        for name in ("int8_matmul", "hypothesis_unit"):
+            obj = out / f"{name}.o"
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c",
+                            str(csrc / f"{name}.cu"), "-o", str(obj)],
+                           check=True, capture_output=True, timeout=600)
+            objs.append(str(obj))
+        so = out / "libbefore.so"
+        subprocess.run([_build._nvcc(), "-shared", "-o", str(so), *objs],
+                       check=True, capture_output=True, timeout=600)
+        self.lib = ctypes.CDLL(str(so))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib.int8_matmul_launch.argtypes = [P, P, P, P, P, I, I, I, I, P]
+        self.lib.hypothesis_unit_launch.argtypes = [P, P, P, P, P, P, P, P, I,
+                                                    I, I, I, F, P]
+        print(f"[before] built {root}'s int8_matmul and hypothesis_unit",
+              flush=True)
+
+    def int8_matmul(self, xq, xs, wq, ws):
+        M, K = xq.shape
+        wqt = wq.t().contiguous()
+        N = wqt.shape[0]
+        out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+        vec = K % 16 == 0 and xq.data_ptr() % 16 == 0 \
+            and wqt.data_ptr() % 16 == 0
+        err = self.lib.int8_matmul_launch(
+            xq.data_ptr(), wqt.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), M, N, K, int(vec), _build.stream(xq.device))
+        if err:
+            fail(f"the parent's int8_matmul failed: cudaError {err}")
+        return out
+
+    def hypothesis_unit(self, h, pb, pnb, *, k, beam):
+        B, N = h.shape
+        dev = h.device
+        n_pad = 1 << max(0, (N - 1).bit_length())
+        outs = (torch.empty((B, k), dtype=torch.int32, device=dev),
+                torch.empty((B, k), dtype=torch.float32, device=dev),
+                torch.empty((B, k), dtype=torch.float32, device=dev),
+                torch.empty((B, k), dtype=torch.bool, device=dev),
+                torch.empty((B, n_pad, 2), dtype=torch.float32, device=dev))
+        err = self.lib.hypothesis_unit_launch(
+            h.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
+            *(t.data_ptr() for t in outs), B, N, n_pad, k, float(beam),
+            _build.stream(dev))
+        if err:
+            fail(f"the parent's hypothesis_unit failed: cudaError {err}")
+        return outs
 
 
 def full_engine(dev, system, policy, n_slots=4, use_int8=False):
@@ -565,10 +742,12 @@ def full_phase(dev, system, utts, use_int8=False):
     # ---- the main path: counts set to 0 just before, read just after --
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    results = eng.serve(utts)
-    torch.cuda.synchronize()
+    with counting_quantizations() as quantized:
+        results = eng.serve(utts)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    quantizations = quantized[0]
     steps = list(eng.step_shapes)
     n_steps = len(steps)
     expect = {name: 0 for name in counts}       # the LM kernels: none
@@ -582,6 +761,12 @@ def full_phase(dev, system, utts, use_int8=False):
     print(f"[{tag}] launch counts {counts}, expected {expect}", flush=True)
     if counts != expect or not n_steps:
         fail(f"launch counts {counts} != expected {expect}")
+    # the int8 products quantize their rows in their own launch: the
+    # plain `quantize_rows` (~8 launches a call) ran no time
+    print(f"[{tag}] plain quantize_rows calls: {quantizations}", flush=True)
+    if quantizations:
+        fail(f"{tag}: {quantizations} plain quantize_rows calls on the "
+             f"main path (each product must quantize its rows itself)")
     shapes = {(b, w) for _, b, w in steps}
     if not ({b for b, _ in shapes} >= {1, 2, 4}
             and {w for _, w in shapes} >= {1, 2, 4}):
@@ -721,7 +906,8 @@ def conv_library(x, wv, bias, r, s, sc, sh):
     return F.layer_norm(y.reshape(-1, d), (d,), sc, sh, 1e-5).reshape(y.shape)
 
 
-def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
+def timing_phase(dev, b=4, w=4, only=KERNELS, hu_rows=(), hu_first=(),
+                 before=None) -> dict:
     """Each kernel's launches in one full-width step at b slots, w
     windows (the kernels in `only`): summed medians of the kernel, the
     plain version and the library call or composite, and the bound.  The
@@ -732,14 +918,16 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
     rows = {}
 
     def add(name, launches, fk, fp, fl, nbytes, flops, label,
-            peak=PEAK_FP32, context=None, alt=None):
+            peak=PEAK_FP32, context=None, alt=None, extra=None):
         """fk/fp/fl: one call of the kernel / plain version / library;
         `context`: another call timed for comparison only; `alt`: the
-        kernel's other design."""
+        kernel's other design; `extra`: {key: call} timed beside, summed
+        into the row's `<key>_ms`."""
         kms, pms = device_ms(fk), device_ms(fp)
         lms = None if fl is None else device_ms(fl)
         cms = None if context is None else device_ms(context)
         ams = kms if alt is None else device_ms(alt)
+        ems = {key: device_ms(f) for key, f in (extra or {}).items()}
         khost = host_ms(fk)
         bnd = bound_ms(nbytes, flops, peak)
         r = rows.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=None,
@@ -747,6 +935,8 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
                                        step_launches=0, host_ms=0.0,
                                        context_ms=None, alt_ms=0.0,
                                        shapes=[]))
+        for key, ms in ems.items():
+            r[f"{key}_ms"] = r.get(f"{key}_ms", 0.0) + launches * ms
         r["host_ms"] += launches * khost
         r["ms"] += launches * kms
         r["alt_ms"] += launches * ams
@@ -761,7 +951,9 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
         r["step_launches"] += launches
         r["shapes"].append(dict(label=label, launches=launches, ms=kms,
                                 alt_ms=ams, plain_ms=pms, library_ms=lms,
-                                bound_ms=bnd, launch_inclusive_ms=khost))
+                                bound_ms=bnd, launch_inclusive_ms=khost,
+                                **{f"{key}_ms": ms for key, ms in
+                                   ems.items()}))
         print(f"[timing b={b} w={w}] {name:16s} {label:34s} x{launches:<2d} "
               f"device: kernel {kms * 1e3:9.2f} us  "
               + ("" if alt is None else f"block-per-row {ams * 1e3:.2f} us  ")
@@ -769,7 +961,9 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
               f"library {'-' if lms is None else f'{lms * 1e3:.2f}'} us  "
               f"bound {bnd * 1e3:.3f} us | kernel call with launch "
               f"{khost * 1e3:.2f} us"
-              + ("" if cms is None else f" | fp32 matmul {cms * 1e3:.2f} us"),
+              + ("" if cms is None else f" | fp32 matmul {cms * 1e3:.2f} us")
+              + "".join(f" | {key} {ms * 1e3:.2f} us"
+                        for key, ms in ems.items()),
               flush=True)
 
     # logmel: R = b * w * 8 rows
@@ -861,31 +1055,60 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
             4 * (nr * d * (3 if addends else 2) + d * (3 if addends else 2)),
             8 * nr * d + (2 * nr * d if addends else 0),
             f"R={nr} D={d}{' +bias+res' if addends else ''}")
-    if not ({"hypothesis_unit", "int8_matmul"} & set(only)):
-        return rows
+    # hypothesis unit: the w = 4 launches of a step on the rows the
+    # full-width decoder fed it in its third step (captured), beside the
+    # rows of its first step (`first_step_ms`, the step the profile below
+    # breaks down) and synthetic (4, 8320) rows (`synthetic_ms`, one
+    # launch); `before*_ms`: the parent's kernel on the same rows
+    if "hypothesis_unit" in only:
+        hb, hn, hk = 4, 8320, 128
+        h, pb, pnb = hu_inputs(dev, gen, hb, hn)
+        syn = {"synthetic": lambda: khu.hypothesis_unit(h, pb, pnb, k=hk,
+                                                        beam=25.0)}
+        if before is not None:
+            syn["before_synthetic"] = lambda: before.hypothesis_unit(
+                h, pb, pnb, k=hk, beam=25.0)
+        for i, (ch, cpb, cpnb, ck, cbeam) in enumerate(hu_rows):
+            nb_, nn_ = ch.shape
+            extra = dict(syn) if i == 0 else {}
+            fh, fpb, fpnb, fk, fbeam = hu_first[i]
+            extra["first_step"] = (lambda a=(fh, fpb, fpnb), k=fk, be=fbeam:
+                                   khu.hypothesis_unit(*a, k=k, beam=be))
+            if before is not None:
+                extra["before"] = (lambda a=(ch, cpb, cpnb), k=ck, be=cbeam:
+                                   before.hypothesis_unit(*a, k=k, beam=be))
+                extra["before_first_step"] = (
+                    lambda a=(fh, fpb, fpnb), k=fk, be=fbeam:
+                    before.hypothesis_unit(*a, k=k, beam=be))
+            add("hypothesis_unit", 1,
+                lambda a=(ch, cpb, cpnb), k=ck, be=cbeam:
+                    khu.hypothesis_unit(*a, k=k, beam=be),
+                lambda a=(ch, cpb, cpnb), k=ck, be=cbeam:
+                    ref.hypothesis_unit(*a, k=k, beam=be),
+                None, nb_ * nn_ * 12 + nb_ * ck * 13, 20 * nb_ * nn_,
+                f"decoder rows, call {i} ({nb_}, {nn_}) K={ck}",
+                extra=extra)
 
-    # hypothesis unit: w = 4 launches at (4, 8320), K = 128
-    hb, hn, hk = 4, 8320, 128
-    h, pb, pnb = hu_inputs(dev, gen, hb, hn)
-    add("hypothesis_unit", 4,
-        lambda: khu.hypothesis_unit(h, pb, pnb, k=hk, beam=25.0),
-        lambda: ref.hypothesis_unit(h, pb, pnb, k=hk, beam=25.0),
-        None, hb * hn * 12 + hb * hk * 13, 20 * hb * hn,
-        "(4, 8320) K=128, 20% dead")
-
-    # int8_matmul: the 29 FC/head products of an int8 step.  Library:
-    # torch._int_mm (cuBLASLt int8, which wants M > 16: rows padded to 24
-    # before timing) and the same rescale; context: the fp32 product.
+    # int8_matmul: the 29 FC/head products of an int8 step, fp32
+    # activations in (the quantization counts as part of the product).
+    # Library: `quantize_rows`, then torch._int_mm (cuBLASLt int8, which
+    # wants M > 16: rows padded to 24) and the same rescale; context: the
+    # fp32 product.  Beside: the product of pre-quantized rows, the plain
+    # `quantize_rows` alone, and (--before) the plain `quantize_rows`
+    # followed by the parent's kernel.
     fcs = {}
-    for key in fc_shapes(TDS_CONFIG, 4, 4):
+    for key in fc_shapes(TDS_CONFIG, b, w):
         fcs[key] = fcs.get(key, 0) + 1
     for (m, k, n), cnt in sorted(fcs.items()):
+        if "int8_matmul" not in only:
+            break
         xf, wf, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
-        xpad = torch.zeros((max(m, 24), k), dtype=torch.int8, device=dev)
-        xpad[:m] = xq
+        xpad = torch.zeros((max(m, 24), k), dtype=torch.float32, device=dev)
+        xpad[:m] = xf
 
-        def int_mm(xpad=xpad, wq=wq, xs=xs, ws=ws, m=m):
-            return torch._int_mm(xpad, wq)[:m].float() * xs[:, None] \
+        def int_mm(xpad=xpad, wq=wq, ws=ws, m=m):
+            q, sc = ops.quantize_rows(xpad)
+            return torch._int_mm(q, wq)[:m].float() * sc[:m, None] \
                 * ws[None, :]
         try:
             if not torch.equal(int_mm(), ref.int8_matmul(xq, wq, xs, ws)):
@@ -895,12 +1118,23 @@ def timing_phase(dev, b=4, w=4, only=KERNELS) -> dict:
             print(f"[timing] torch._int_mm refused M={m} K={k} N={n}: {e}",
                   flush=True)
             int_mm = None
+        extra = {
+            "prequantized": lambda xq=xq, wq=wq, xs=xs, ws=ws:
+                kim.int8_matmul(xq, wq, xs, ws),
+            "plain_quantize": lambda xf=xf: ops.quantize_rows(xf)}
+        if before is not None:
+            extra["before"] = (lambda xf=xf, wq=wq, ws=ws:
+                               before.int8_matmul(*ops.quantize_rows(xf), wq,
+                                                  ws))
+            extra["before_prequantized"] = (
+                lambda xq=xq, wq=wq, xs=xs, ws=ws:
+                before.int8_matmul(xq, xs, wq, ws))
         add("int8_matmul", cnt,
-            lambda xq=xq, wq=wq, xs=xs, ws=ws: kim.int8_matmul(xq, wq, xs, ws),
-            lambda xq=xq, wq=wq, xs=xs, ws=ws: ref.int8_matmul(xq, wq, xs, ws),
-            int_mm, m * k + k * n + 4 * (m + n + m * n), 2 * m * k * n,
+            lambda xf=xf, wq=wq, ws=ws: kim.int8_matmul_fused(xf, wq, ws),
+            lambda xf=xf, wq=wq, ws=ws: ref.int8_matmul_prepared(xf, wq, ws),
+            int_mm, 4 * m * k + k * n + 4 * (n + m * n), 2 * m * k * n,
             f"M={m} K={k} N={n}", peak=PEAK_INT8,
-            context=lambda xf=xf, wf=wf: xf @ wf)
+            context=lambda xf=xf, wf=wf: xf @ wf, extra=extra)
     return rows
 
 
@@ -1454,6 +1688,12 @@ def beam_prune_timing(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--before", type=pathlib.Path, default=None,
+                    help="a checkout of the parent commit: also time its "
+                         "int8_matmul and hypothesis_unit kernels")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA device")
@@ -1504,10 +1744,22 @@ def main() -> None:
     torch.cuda.synchronize()
     counts8, steps8, lp_err8 = full_phase(dev, system, utts, use_int8=True)
     torch.cuda.synchronize()
+    # the rows of an utterance's first step (beams filling up: many live,
+    # long segments) and of its third (the beams' steady width)
+    hu_first = capture_decoder_rows(dev, system, utts, advance=0)
+    hu_rows = capture_decoder_rows(dev, system, utts)
+    errs["hypothesis_unit"] = max(errs["hypothesis_unit"],
+                                  check_hypothesis_rows(hu_first),
+                                  check_hypothesis_rows(hu_rows))
+    census = {"first step": row_census(hu_first),
+              "third step": row_census(hu_rows)}
 
     # 6. timing
-    rows = timing_phase(dev)
-    rows11 = timing_phase(dev, 1, 1, only=("tds_conv", "layernorm"))
+    before = None if args.before is None else Before(args.before)
+    rows = timing_phase(dev, hu_rows=hu_rows, hu_first=hu_first,
+                        before=before)
+    rows11 = timing_phase(dev, 1, 1, only=("tds_conv", "layernorm",
+                                           "int8_matmul"), before=before)
     # the floor of one launch in these events: one small elementwise op
     z = torch.zeros((16, 1840), device=dev)
     floor_ms = device_ms(lambda: z.add_(1.0))
@@ -1605,6 +1857,24 @@ def main() -> None:
                                       "res); F.layer_norm for final_ln")
         if r["context_ms"] is not None:
             kernels[-1]["fp32_matmul_ms"] = r["context_ms"]
+        for key, val in r.items():
+            if key.endswith("_ms") and key not in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "host_ms",
+                    "context_ms", "alt_ms"):
+                kernels[-1][key] = val
+        if name == "hypothesis_unit":
+            kernels[-1]["work"] = (
+                f"the {r['step_launches']} launches of one b=4, w=4 step on "
+                f"the rows the full-width fp32 decoder fed it (device time)")
+            kernels[-1]["rows"] = {step: {"L": c["L"], "H": c["H"]}
+                                   for step, c in census.items()}
+        if name == "int8_matmul":
+            kernels[-1]["work"] += "; quantization included"
+            kernels[-1]["library"] = ("quantize_rows + torch._int_mm + "
+                                      "rescale")
+            r11 = rows11["int8_matmul"]
+            kernels[-1]["b=1 w=1"] = {k: v for k, v in r11.items()
+                                      if k == "ms" or k.endswith("_ms")}
     for name in LM_KERNELS:
         r = lm_rows[name]
         kernels.append({
@@ -1651,6 +1921,7 @@ def main() -> None:
         "int8_logp_max_abs_err": lp_err8, "shim_launch_counts": shim_counts,
         "step_ms": steps_ms, "profile": prof, "profile_int8": prof8,
         "conv_layernorm": conv_ln, "launch_floor_ms": floor_ms,
+        "int8_b1w1": rows11["int8_matmul"], "hypothesis_rows": census,
         "lm": lm_results, "beam_prune": bp_results}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the prune "

@@ -42,8 +42,8 @@ SIGNATURES = {
     "layernorm_launch": (P, P, P, P, P, P, I, I, F, P),
     "rmsnorm_launch": (P, P, P, I, I, F, I, P),
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
-    "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, I, F, P),
-    "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, P),
+    "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, F, P),
+    "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "beam_prune_launch": (P, P, P, I, I, F, P),
 }
 

@@ -156,15 +156,11 @@ def hypothesis_unit(hashes, pb, pnb, k, beam, policy=None):
 def quantize_rows(x):
     """Symmetric per-row int8: x (M, K) -> (q i8, scale f32 (M,)).
 
-    Plain torch on every device, as the reference computes it outside
-    any kernel.  `torch.round` rounds half to even like `jnp.round`, and
-    the division is by the clamped scale (not a product with its
-    reciprocal), so q and the scales equal the reference's bit for bit."""
-    xf = x.float()
-    s = xf.abs().amax(dim=1) / 127.0
-    q = torch.clamp(torch.round(xf / torch.clamp(s[:, None], min=1e-12)),
-                    -127, 127).to(torch.int8)
-    return q, s
+    Plain torch on every device (`ref.quantize_rows`), as the reference
+    computes it outside any kernel: q and the scales equal the
+    reference's bit for bit.  The int8 product's fused kernel
+    (`int8_matmul_prepared` on the card) computes the same bits."""
+    return _ref.quantize_rows(x)
 
 
 def prepare_int8_weights(w):
@@ -181,15 +177,15 @@ def int8_matmul_prepared(x, wq, ws, *, policy=None, axis=None):
     """x: (M, K) float; wq/ws from `prepare_int8_weights` -> (M, N) f32.
 
     The hot-path half of the int8 pipeline: per-row activation
-    quantization, the int8 matmul and the fp32 rescale.  `axis` (a
-    model-parallel mesh axis in the reference) is not ported."""
+    quantization, the int8 matmul and the fp32 rescale, one launch on the
+    card (`int8_matmul.int8_matmul_fused`).  `axis` (a model-parallel
+    mesh axis in the reference) is not ported."""
     if axis is not None:
         raise NotImplementedError("int8_matmul_prepared: the sharded "
                                   "(axis=) contraction is not ported")
-    xq, xs = quantize_rows(x)
-    if resolve(policy, xq) == "ref":
-        return _ref.int8_matmul(xq, wq, xs, ws)
-    return _im.int8_matmul(xq, wq, xs, ws)
+    if resolve(policy, x) == "ref":
+        return _ref.int8_matmul_prepared(x, wq, ws)
+    return _im.int8_matmul_fused(x.float().contiguous(), wq, ws)
 
 
 def int8_matmul(x, w, *, policy=None):

@@ -30,6 +30,30 @@ def int8_matmul(xq, wq, xs, ws):
     return acc.float() * xs[:, None] * ws[None, :]
 
 
+def quantize_rows(x):
+    """Symmetric per-row int8: x (M, K) -> (q i8, scale f32 (M,)).
+
+    `torch.round` rounds half to even like `jnp.round`, and both
+    divisions are true divisions (not products with a reciprocal), so q
+    and the scales equal the reference's bit for bit on every device.
+    The divisor 127 is a tensor: on the card torch divides by a Python
+    scalar as a product with its reciprocal, which rounds some rows'
+    scales one ulp away from the division."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=1)
+    s = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(xf / torch.clamp(s[:, None], min=1e-12)),
+                    -127, 127).to(torch.int8)
+    return q, s
+
+
+def int8_matmul_prepared(x, wq, ws):
+    """x: (M, K) float; wq (K, N) i8, ws (N,) f32 -> (M, N) f32: the
+    per-row activation quantization, then `int8_matmul`."""
+    xq, xs = quantize_rows(x)
+    return int8_matmul(xq, wq, xs, ws)
+
+
 def layernorm(x, scale, bias, eps=1e-5):
     """x: (T, D) any float dtype; fp32 statistics (population variance)."""
     xf = x.float()

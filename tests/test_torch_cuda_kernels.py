@@ -277,33 +277,178 @@ def test_hypothesis_unit_kernel_matches_plain(cuda, seed, b, n, k, beam,
         torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("m,k,n", [
+def _decoder_like(dev, case):
+    """(hashes, pb, pnb, k, beam) of 4 rows of N = 8320 shaped like the
+    decoder's worst cases for the kernel (numpy, fixed seed)."""
+    r = np.random.RandomState(len(case))
+    b, n, k, beam = 4, 8320, 128, 25.0
+    h = r.randint(0, 2**31 - 1, (b, n)).astype(np.int32)
+    pb = (r.randn(b, n) * 3 - 20).astype(np.float32)
+    pnb = (r.randn(b, n) * 3 - 20).astype(np.float32)
+    dead = r.rand(b, n) < 0.5
+    if case == "dead95_long_segments":         # segments of ~50 candidates
+        dead = r.rand(b, n) < 0.95
+        h = r.randint(0, 8, (b, n)).astype(np.int32) * 7919
+    elif case == "one_segment":                # every live candidate merges
+        h[:] = 12345
+    elif case == "all_tied":                   # every head has the same tot
+        pb[:], pnb[:] = -3.0, -4.0
+    elif case == "fewer_heads_than_k":         # 40 live, 25 distinct hashes
+        dead = np.ones((b, n), bool)
+        for i in range(b):
+            dead[i, r.choice(n, 40, replace=False)] = False
+        h = r.randint(0, 25, (b, n)).astype(np.int32)
+    elif case == "beam_keeps_one":             # one head far above the rest
+        pb[:, 777] = 40.0
+        dead[:, 777] = False
+        beam = 0.5
+    elif case == "nan_inf":                    # NaN / +-inf channels
+        for v, frac in ((np.nan, 0.01), (np.inf, 0.002), (-np.inf, 0.05)):
+            for arr in (pb, pnb):
+                arr[r.rand(b, n) < frac] = v
+        pb[:, :4] = -np.inf                      # both channels -inf: dead
+        pnb[:, :4] = -np.inf
+    pb = np.where(dead, NEG_INF, pb).astype(np.float32)
+    pnb = np.where(dead, NEG_INF, pnb).astype(np.float32)
+    return (torch.from_numpy(h).to(dev), torch.from_numpy(pb).to(dev),
+            torch.from_numpy(pnb).to(dev), k, beam)
+
+
+@pytest.mark.parametrize("case", ["dead95_long_segments", "one_segment",
+                                  "all_tied", "fewer_heads_than_k",
+                                  "beam_keeps_one", "nan_inf"])
+def test_hypothesis_unit_kernel_matches_plain_on_decoder_like_rows(cuda,
+                                                                  case):
+    h, pb, pnb, k, beam = _decoder_like(cuda, case)
+    got = thu.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+    torch.cuda.synchronize()
+    want = ref.hypothesis_unit(h, pb, pnb, k=k, beam=beam)
+    assert torch.equal(got["idx"], want["idx"])
+    assert torch.equal(got["valid"], want["valid"])
+    for key in ("pb", "pnb"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=0)
+    if case == "beam_keeps_one":
+        assert int(got["valid"].sum()) == 4
+    if case == "fewer_heads_than_k":
+        assert 0 < int(got["valid"].sum(1).max()) < k
+
+
+INT8_CARD_SHAPES = [
     (64, 1200, 1200), (32, 1520, 1520), (16, 1840, 1840), (16, 1840, 9000),
     (8, 128, 128), (100, 200, 96), (1, 1200, 600), (5, 37, 29),
-    (33, 2100, 70), (17, 4100, 3)])
+    (33, 2100, 70), (17, 4100, 3),
+    # the b=1, w=1 step's rows: the GEMV end
+    (4, 1200, 1200), (2, 1520, 1520), (1, 1840, 1840), (1, 1840, 9000)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_CARD_SHAPES)
 def test_int8_matmul_kernel_matches_plain(cuda, m, k, n):
-    """Main-path shapes, the CPU sweep, and ragged M, K and N (K beyond
-    one 2048-byte staging pass, K not a multiple of 16)."""
+    """Main-path shapes at b=4, w=4 and b=1, w=1, the CPU sweep, and
+    ragged M, K and N (K not a multiple of 16 or 64, K over 4096): the
+    pre-quantized product and the fused quantize + product, each bitwise
+    the plain path's."""
     x, w = _t(cuda, m, m, k), _t(cuda, n, k, n)
     wq, ws = ops.prepare_int8_weights(w)
     xq, xs = ops.quantize_rows(x)
     got = tim.int8_matmul(xq, wq, xs, ws)
     torch.cuda.synchronize()
-    assert torch.equal(got, ref.int8_matmul(xq, wq, xs, ws))
+    want = ref.int8_matmul(xq, wq, xs, ws)
+    assert torch.equal(got, want)
     # a row-major (K, N) weight is copied into the kernel's layout
     assert torch.equal(tim.int8_matmul(xq, wq.contiguous(), xs, ws), got)
+    assert torch.equal(tim.int8_matmul_fused(x, wq, ws), want)
+    assert torch.equal(ops.int8_matmul_prepared(x, wq, ws), want)
+
+
+def test_quantize_rows_on_the_card_equals_the_cpu_bitwise(cuda):
+    """The plain per-row scale is a true division on the card as on the
+    CPU (and in the reference): torch's `tensor / 127.0` on a CUDA tensor
+    multiplies by the reciprocal and rounds some rows differently."""
+    x = _t(cuda, 3, 4096, 64, scale=3.0)
+    q, s = ops.quantize_rows(x)
+    qc, sc = ops.quantize_rows(x.cpu())
+    assert torch.equal(s.cpu(), sc) and torch.equal(q.cpu(), qc)
 
 
 def test_int8_matmul_kernel_exact_at_full_scale(cuda):
-    """|acc| = 127^2 * 1840 > 2^24 stays exact."""
+    """|acc| = 127^2 * 1840 > 2^24 stays exact, in one block and with K
+    split over a cluster of 8 (int32 partial sums exchanged)."""
     xq = torch.full((16, 1840), 127, dtype=torch.int8, device=cuda)
     wq = torch.full((1840, 40), -127, dtype=torch.int8, device=cuda)
     xs = torch.ones(16, device=cuda)
     ws = torch.ones(40, device=cuda)
-    got = tim.int8_matmul(xq, wq, xs, ws)
+    want = ref.int8_matmul(xq, wq, xs, ws)
+    for p in (tim.Plan(4, 1, 29), tim.Plan(4, 8, 4),
+              tim.plan(16, 1840, 40)):
+        got = tim.int8_matmul(xq, wq, xs, ws, plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
+        assert float(got[0, 0]) == float(np.float32(-127 * 127 * 1840))
+    x = torch.full((16, 1840), 3.0, device=cuda)
+    assert torch.equal(tim.int8_matmul_fused(x, wq, ws,
+                                             plan=tim.Plan(4, 8, 4)),
+                       ref.int8_matmul_prepared(x, wq, ws))
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 1840, 1840), (64, 1200, 1200),
+                                   (5, 37, 29), (33, 2100, 70)])
+def test_int8_matmul_every_plan_shape_is_bitwise(cuda, m, k, n):
+    """Column tiles and cluster sizes other than the planner's choice
+    give the same bits (integer sums are exact)."""
+    x, w = _t(cuda, m + 1, m, k), _t(cuda, n + 1, k, n)
+    wq, ws = ops.prepare_int8_weights(w)
+    want = ref.int8_matmul_prepared(x, wq, ws)
+    xq, xs = ops.quantize_rows(x)
+    nch = -(-k // tim.CHUNK)
+    for nt in (2, 4):
+        for split in (1, 2, 3, 5, 8):
+            cps = -(-nch // split)
+            if split > 1 and -(-nch // cps) != split:
+                continue
+            p = tim.Plan(nt, split, cps)
+            if tim.smem_bytes(p) > tim.MAX_SMEM:
+                continue
+            assert torch.equal(tim.int8_matmul_fused(x, wq, ws, plan=p),
+                               want), p
+            assert torch.equal(tim.int8_matmul(xq, wq, xs, ws, plan=p),
+                               want), p
     torch.cuda.synchronize()
-    assert torch.equal(got, ref.int8_matmul(xq, wq, xs, ws))
-    assert float(got[0, 0]) == float(np.float32(-127 * 127 * 1840))
+
+
+def _half_way_rows(dev, m, k):
+    """Rows whose values sit exactly half-way between two int8 steps
+    (x = (n + 0.5) * s, s = max|x| / 127), all-zero rows (s = 0, the
+    divisor clamped to 1e-12) and a row of random values."""
+    r = np.random.RandomState(m * k)
+    x = np.zeros((m, k), np.float32)
+    for i in range(m):
+        if i % 3 == 1:
+            continue                                  # all zero
+        s = np.float32(2.0 ** r.randint(-3, 4))
+        n = r.randint(-127, 127, k).astype(np.float32)
+        x[i] = (n + np.float32(0.5)) * s
+        x[i, r.randint(k)] = np.float32(127.0) * s    # max |x| = 127 s
+        if i % 3 == 2:
+            x[i] = r.randn(k).astype(np.float32)
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("m,k", [(16, 1840), (64, 1200), (7, 37), (3, 4100)])
+def test_int8_fused_quantization_matches_plain_bitwise(cuda, m, k):
+    """The fused product's in-launch quantization against
+    `ops.quantize_rows` at half-way values (rounded half to even, where
+    the kernel's product with the reciprocal must fall back to the
+    division) and zero rows, with K whole in one block and split."""
+    x = _half_way_rows(cuda, m, k)
+    wq, ws = ops.prepare_int8_weights(_t(cuda, k, k, 96))
+    q, s = ops.quantize_rows(x)
+    want = ref.int8_matmul(q, wq, s, ws)
+    whole = tim.Plan(2, 1, -(-k // tim.CHUNK))      # K in one block
+    for p in [tim.plan(m, k, 96)] + [whole] * (tim.smem_bytes(whole)
+                                               <= tim.MAX_SMEM):
+        got = tim.int8_matmul_fused(x, wq, ws, plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), p
 
 
 def test_wrappers_count_launches_and_refuse_bad_input(cuda):
@@ -323,7 +468,15 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         tim.int8_matmul(xq.float(), wq, xs, ws)               # not int8
     with pytest.raises(ValueError):
         tim.int8_matmul(xq, wq[:32], xs, ws)                  # K mismatch
+    with pytest.raises(ValueError):                           # K uncovered
+        tim.int8_matmul(xq, wq, xs, ws, plan=tim.Plan(2, 1, 0))
     assert ops.launch_counts()["int8_matmul"] == 1
+    ops.int8_matmul_prepared(x, wq, ws)         # fused: one launch
+    with pytest.raises(ValueError):
+        tim.int8_matmul_fused(xq, wq, ws)                     # not f32
+    with pytest.raises(ValueError):
+        tim.int8_matmul_fused(x.t(), wq[:4], ws)              # not contiguous
+    assert ops.launch_counts()["int8_matmul"] == 2
     s = _t(cuda, 4, 1000, scale=10.0)
     tbp.beam_prune(s, 5.0)
     for bad in (s.reshape(10, 100), s.to(torch.bfloat16), s[::2],

@@ -455,6 +455,9 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
     xq, wq, xs, ws = (_t(a) for a in _int8_operands(10, 5, 40, 24))
     assert torch.equal(tim.int8_matmul(xq, wq, xs, ws),
                        tref.int8_matmul(xq, wq, xs, ws))
+    xf = _t(_np(12, 5, 40))
+    assert torch.equal(tim.int8_matmul_fused(xf, wq, ws),
+                       tops.int8_matmul_prepared(xf, wq, ws))
     sc = _t(_np(11, 64, scale=10.0))
     assert torch.equal(tbp.beam_prune(sc, 5.0), tops.beam_prune(sc, 5.0))
     assert tops.launch_counts() == {"logmel": 0, "tds_conv": 0,
