@@ -5,13 +5,17 @@ batched LM serving and the standalone beam-threshold prune.
     python3 chip_smoke.py [--before DIR]
 
 `--before DIR` (a checkout of the parent commit) also times DIR's
-int8_matmul and hypothesis_unit kernels beside this checkout's.
+logmel and beam_prune kernels beside this checkout's.
 
 Phases, in order; any failure exits non-zero (no phase is caught):
   1. build   — nvcc builds the eight Hopper kernels from the seven sources
                in src/repro_torch/kernels/csrc/ (one process per source).
   2. kernels — each kernel vs its plain PyTorch version on the card at
-               the main path's shapes: int8_matmul bitwise at the FC/head
+               the main path's shapes: the fused MFCC (`logmel.mfcc`, the
+               whole of `features.mfcc` in one launch) at the (b, w,
+               1520) sample blocks of a b=4, w=4 and a b=1, w=1 step and
+               a 1-D signal of 23 frames, the logmel tail on power rows;
+               int8_matmul bitwise at the FC/head
                shapes of a b=4, w=4 and a b=1, w=1 step and two ragged
                ones, fused with the row quantization (the main path's)
                and on pre-quantized rows; tds_conv at every conv of a
@@ -30,9 +34,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                with the default decoder (K=128, C=32) and seeded random
                weights serves 8 synthetic utterances over 4 slots, once
                with the fp32 and once with the int8 program; every
-               kernel's launch count must match the steps taken (18
-               tds_conv, 17 of them with the LayerNorm fused, and 15
-               layernorm launches per step; 29 int8_matmul launches per
+               kernel's launch count must match the steps taken (one
+               logmel, the whole MFCC, with torch.fft.rfft called no
+               time; 18 tds_conv, 17 of them with the LayerNorm fused,
+               and 15 layernorm launches per step; 29 int8_matmul launches per
                int8 step, each quantizing its own rows: the plain
                `quantize_rows` must run no time), the kernel path's
                log-probs must match the plain path's (int8: also bitwise
@@ -46,8 +51,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
   6. timing  — each kernel, its plain version and the library call
                (where one exists) at the full-width step shapes, the
                bound, step times per (b, w) for both programs, a profiler
-               breakdown of one step of each.  tds_conv and layernorm also
-               at the b=1, w=1 shapes, the fused conv also in its
+               breakdown of one step of each.  The fused MFCC beside its
+               plain pipeline and an rfft + matmul yardstick.  logmel,
+               tds_conv and layernorm also at the b=1, w=1 shapes, the
+               fused conv also in its
                block-per-row design, both beside a composite yardstick
                (F.conv2d through cuDNN without TF32, ReLU, residual,
                F.layer_norm; F.layer_norm((y + b) + res)).  The
@@ -80,8 +87,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
   Prune phases (no serving path calls beam_prune, as in the reference):
  11. prune check — beam_prune vs its plain version, bitwise, at N = 1 to
                8448 with beam 1/5/25, at a ragged N = 4,194,307 (the
-               reduction across blocks), and on rows holding a NaN, only
-               -inf, +inf, and a score exactly on the fp32 threshold.
+               grid path: a max across blocks), just below and above the
+               scores the grid path stages in shared memory, and on rows
+               holding a NaN, only -inf, +inf, and a score exactly on the
+               fp32 threshold; one launch a call at every N.
  12. prune path — `ops.beam_prune` at the reference benchmark's shape
                (N = 8448, beam 25), launch counts checked; then the
                kernel, its plain version and the bound at N = 8448 and
@@ -303,10 +312,23 @@ def power_rows(dev, gen, r):
     return (torch.randn((r, 257), generator=gen).square() * 10.0).to(dev)
 
 
-def feature_tables(dev):
-    fb = torch.from_numpy(features.mel_filterbank(FEATURE_CONFIG)).to(dev)
-    dct = torch.from_numpy(features.dct_matrix(80, 80)).to(dev)
-    return fb, dct
+def samples(dev, gen, shape):
+    """Audio-like samples: noise at 0.3 under a slow sine (power in the
+    low bands that pre-emphasis attenuates)."""
+    t = torch.arange(shape[-1], dtype=torch.float32)
+    return (0.3 * torch.randn(shape, generator=gen)
+            + 0.5 * torch.sin(0.01 * t)).to(dev)
+
+
+def library_mfcc(sig, cfg, t):
+    """The rfft + matmul yardstick of the fused MFCC, never on the port's
+    path: pre-emphasis, frames as an unfold view, torch.fft.rfft (cuFFT),
+    |.|^2, then the mel and DCT matmuls."""
+    x = torch.cat([sig[..., :1], sig[..., 1:] - cfg.preemphasis
+                   * sig[..., :-1]], dim=-1)
+    fr = x.unfold(-1, cfg.frame_len, cfg.frame_shift) * t.win
+    p = torch.fft.rfft(fr, n=cfg.n_fft).abs().square()
+    return torch.log(torch.clamp(p @ t.fb, min=1e-10)) @ t.dct
 
 
 # ---------------------------------------------------------------------------
@@ -328,11 +350,17 @@ def check_kernels(dev) -> dict:
         print(f"[kernels] {name:16s} {label:34s} max|err| {d:.3e} ok",
               flush=True)
 
-    fb, dct = feature_tables(dev)
+    tables = features._tables(FEATURE_CONFIG, dev)
     for r in (8, 128):
         p = power_rows(dev, gen, r)
-        close("logmel", klm.logmel(p, fb, dct), ref.logmel(p, fb, dct),
-              f"R={r}")
+        close("logmel", klm.logmel(p, tables.fb, tables.dct),
+              ref.logmel(p, tables.fb, tables.dct), f"power rows R={r}")
+    # the fused MFCC on the sample blocks of a b=4, w=4 and a b=1, w=1
+    # step (8 frames a window), and a 1-D signal of 23 frames
+    for shape in ((4, 4, 1520), (1, 1, 1520), (4000,)):
+        sig = samples(dev, gen, shape)
+        close("logmel", klm.mfcc(sig, FEATURE_CONFIG, tables),
+              ref.mfcc(sig, FEATURE_CONFIG, tables), f"MFCC {shape}")
     torch.cuda.synchronize()
 
     # every conv of a b=4, w=4 and a b=1, w=1 step; the fused ones in both
@@ -629,6 +657,23 @@ def counting_quantizations():
         ref.quantize_rows = plain
 
 
+@contextlib.contextmanager
+def counting_ffts():
+    """Count the calls of torch.fft.rfft (the plain MFCC,
+    `ref.power_spectrum`, looks it up on torch.fft at every call); yields
+    a one-element list holding the count."""
+    plain, count = torch.fft.rfft, [0]
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return plain(*args, **kwargs)
+    torch.fft.rfft = counted
+    try:
+        yield count
+    finally:
+        torch.fft.rfft = plain
+
+
 def capture_decoder_rows(dev, system, utts, advance=2):
     """The candidate rows the full-width fp32 engine feeds the hypothesis
     unit in one b=4, w=4 step, after `advance` committed steps (0: the
@@ -657,11 +702,11 @@ def capture_decoder_rows(dev, system, utts, advance=2):
 
 
 class Before:
-    """The parent checkout's `int8_matmul` and `hypothesis_unit` kernels
-    (`--before DIR`), built from DIR's sources with the same nvcc flags
-    and called through their C entry points as the parent's wrappers
-    called them: the "before" of the timing, on the same card in the same
-    run.  Never on the port's path."""
+    """The parent checkout's `logmel` and `beam_prune` kernels (`--before
+    DIR`), built from DIR's sources with the same nvcc flags and called
+    through their C entry points as the parent's wrappers called them:
+    the "before" of the timing, on the same card in the same run.  Never
+    on the port's path."""
 
     def __init__(self, root: pathlib.Path):
         import ctypes
@@ -669,7 +714,7 @@ class Before:
         out = OUT / "before"
         out.mkdir(parents=True, exist_ok=True)
         objs = []
-        for name in ("int8_matmul", "hypothesis_unit"):
+        for name in ("logmel", "beam_prune"):
             obj = out / f"{name}.o"
             subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c",
                             str(csrc / f"{name}.cu"), "-o", str(obj)],
@@ -680,42 +725,40 @@ class Before:
                        check=True, capture_output=True, timeout=600)
         self.lib = ctypes.CDLL(str(so))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib.int8_matmul_launch.argtypes = [P, P, P, P, P, I, I, I, I, P]
-        self.lib.hypothesis_unit_launch.argtypes = [P, P, P, P, P, P, P, P, I,
-                                                    I, I, I, F, P]
-        print(f"[before] built {root}'s int8_matmul and hypothesis_unit",
-              flush=True)
+        self.lib.logmel_launch.argtypes = [P, P, P, P, I, I, I, I, P]
+        self.lib.beam_prune_launch.argtypes = [P, P, P, I, I, F, P]
+        print(f"[before] built {root}'s logmel and beam_prune", flush=True)
 
-    def int8_matmul(self, xq, xs, wq, ws):
-        M, K = xq.shape
-        wqt = wq.t().contiguous()
-        N = wqt.shape[0]
-        out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
-        vec = K % 16 == 0 and xq.data_ptr() % 16 == 0 \
-            and wqt.data_ptr() % 16 == 0
-        err = self.lib.int8_matmul_launch(
-            xq.data_ptr(), wqt.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), M, N, K, int(vec), _build.stream(xq.device))
+    def logmel(self, p, fb, dct):
+        R, F = p.shape
+        M, C = dct.shape
+        out = torch.empty((R, C), dtype=torch.float32, device=p.device)
+        err = self.lib.logmel_launch(p.data_ptr(), fb.data_ptr(),
+                                     dct.data_ptr(), out.data_ptr(), R, F, M,
+                                     C, _build.stream(p.device))
         if err:
-            fail(f"the parent's int8_matmul failed: cudaError {err}")
+            fail(f"the parent's logmel failed: cudaError {err}")
         return out
 
-    def hypothesis_unit(self, h, pb, pnb, *, k, beam):
-        B, N = h.shape
-        dev = h.device
-        n_pad = 1 << max(0, (N - 1).bit_length())
-        outs = (torch.empty((B, k), dtype=torch.int32, device=dev),
-                torch.empty((B, k), dtype=torch.float32, device=dev),
-                torch.empty((B, k), dtype=torch.float32, device=dev),
-                torch.empty((B, k), dtype=torch.bool, device=dev),
-                torch.empty((B, n_pad, 2), dtype=torch.float32, device=dev))
-        err = self.lib.hypothesis_unit_launch(
-            h.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
-            *(t.data_ptr() for t in outs), B, N, n_pad, k, float(beam),
-            _build.stream(dev))
+    def mfcc(self, sig, cfg, t):
+        """The parent's MFCC: the plain front end, then its logmel."""
+        power = ref.power_spectrum(sig, cfg, t.win)
+        out = self.logmel(power.reshape(-1, power.shape[-1]), t.fb, t.dct)
+        return out.reshape(power.shape[:-1] + (out.shape[-1],))
+
+    def beam_prune(self, s, beam):
+        n = s.shape[0]
+        out = torch.empty_like(s)
+        partial, n_partials = out, 1          # one block up to 65536
+        if n > 1 << 16:                       # two launches above it
+            partial, n_partials = torch.empty(
+                (1024,), dtype=torch.float32, device=s.device), 1024
+        err = self.lib.beam_prune_launch(
+            s.data_ptr(), out.data_ptr(), partial.data_ptr(), n, n_partials,
+            float(beam), _build.stream(s.device))
         if err:
-            fail(f"the parent's hypothesis_unit failed: cudaError {err}")
-        return outs
+            fail(f"the parent's beam_prune failed: cudaError {err}")
+        return out
 
 
 def full_engine(dev, system, policy, n_slots=4, use_int8=False):
@@ -742,12 +785,12 @@ def full_phase(dev, system, utts, use_int8=False):
     # ---- the main path: counts set to 0 just before, read just after --
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with counting_quantizations() as quantized:
+    with counting_quantizations() as quantized, counting_ffts() as ffts:
         results = eng.serve(utts)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    quantizations = quantized[0]
+    quantizations, n_fft_calls = quantized[0], ffts[0]
     steps = list(eng.step_shapes)
     n_steps = len(steps)
     expect = {name: 0 for name in counts}       # the LM kernels: none
@@ -763,7 +806,13 @@ def full_phase(dev, system, utts, use_int8=False):
         fail(f"launch counts {counts} != expected {expect}")
     # the int8 products quantize their rows in their own launch: the
     # plain `quantize_rows` (~8 launches a call) ran no time
-    print(f"[{tag}] plain quantize_rows calls: {quantizations}", flush=True)
+    # the MFCC runs in its one logmel launch: the plain front end's
+    # torch.fft.rfft ran no time
+    print(f"[{tag}] plain quantize_rows calls: {quantizations}; "
+          f"torch.fft.rfft calls: {n_fft_calls}", flush=True)
+    if n_fft_calls:
+        fail(f"{tag}: torch.fft.rfft ran {n_fft_calls} times on the main "
+             f"path (the MFCC must run in its fused launch)")
     if quantizations:
         fail(f"{tag}: {quantizations} plain quantize_rows calls on the "
              f"main path (each product must quantize its rows itself)")
@@ -854,7 +903,7 @@ def host_ms(fn, n=30, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def device_ms(fn, n=20, warmup=3) -> float:
+def device_ms(fn, n=20, warmup=3, prep=None) -> float:
     """Median over n calls of the device time of one call, without the
     host's launch overhead.  Before each call a spin kernel
     (`torch.cuda._sleep`) holds the stream while the host enqueues the
@@ -862,7 +911,8 @@ def device_ms(fn, n=20, warmup=3) -> float:
     kernels back to back and the events bracket only them.  The spin is
     lengthened until it outlasts the enqueue (checked, not assumed); one
     call at a time, so a call of many kernels never fills the launch
-    queue and blocks the host."""
+    queue and blocks the host.  `prep`: work enqueued after the spin and
+    before the first event (untimed), such as an L2 flush."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -876,6 +926,8 @@ def device_ms(fn, n=20, warmup=3) -> float:
         s0.record()
         torch.cuda._sleep(cycles)
         e0.record()
+        if prep is not None:
+            prep()
         s.record()
         fn()
         e.record()
@@ -966,16 +1018,38 @@ def timing_phase(dev, b=4, w=4, only=KERNELS, hu_rows=(), hu_first=(),
                         for key, ms in ems.items()),
               flush=True)
 
-    # logmel: R = b * w * 8 rows
+    # logmel: the fused MFCC of one step's (b, w, 1520) samples, R =
+    # b * w * 8 frames.  Plain: `ref.mfcc` (the torch front end, cuFFT,
+    # `ref.logmel`); library: `library_mfcc`, the rfft + matmul pipeline.
+    # Bytes: the samples, the tables the kernel reads (the window, the
+    # twiddles, the band table, the packed band weights, not the dense
+    # filterbank, and the DCT) and the output, once each.
+    # Operations, per frame: pre-emphasis and window (3 a sample), the
+    # radix-2 FFT's H/2 butterflies a stage (10 each), the split and power
+    # of H + 1 bins (17 each), each mel sum over its band (2 a weight), the
+    # log (1 a mel) and the DCT (2 M C).  Beside: the kernel on R power
+    # rows alone (`power_rows_ms`) and, with --before, the parent's
+    # pipeline (`before_ms`: the plain front end, then its logmel kernel).
     if "logmel" in only:
-        fb, dct = feature_tables(dev)
-        R, Fb, M, C = 8 * b * w, 257, 80, 80
+        cfg, t = FEATURE_CONFIG, features._tables(FEATURE_CONFIG, dev)
+        sig = samples(dev, gen, (b, w, 1520))
+        R, H, M, C = 8 * b * w, cfg.n_fft // 2, cfg.n_mels, cfg.n_mfcc
+        band = int((t.bands[:, 1] - t.bands[:, 0]).sum().item())
+        nbytes = 4 * (sig.numel() + R * C + sum(
+            x.numel() for x in (t.win, t.band_weights, t.dct, t.twiddles,
+                                t.bands)))
+        flops = R * (3 * cfg.frame_len + 10 * (H // 2) * (H.bit_length() - 1)
+                     + 17 * (H + 1) + 2 * band + M + 2 * M * C)
+        lib_err = (library_mfcc(sig, cfg, t)
+                   - ref.mfcc(sig, cfg, t)).abs().max().item()
         p = power_rows(dev, gen, R)
-        add("logmel", 1, lambda: klm.logmel(p, fb, dct),
-            lambda: ref.logmel(p, fb, dct),
-            lambda: torch.log(torch.clamp(p @ fb, min=1e-10)) @ dct,
-            4 * (R * Fb + Fb * M + M * C + R * C),
-            2 * R * Fb * M + 2 * R * M + 2 * R * M * C, f"R={R}")
+        extra = {"power_rows": lambda: klm.logmel(p, t.fb, t.dct)}
+        if before is not None:
+            extra["before"] = lambda: before.mfcc(sig, cfg, t)
+        add("logmel", 1, lambda: klm.mfcc(sig, cfg, t),
+            lambda: ref.mfcc(sig, cfg, t), lambda: library_mfcc(sig, cfg, t),
+            nbytes, flops, f"MFCC ({b}, {w}, 1520), R={R} "
+            f"(library |diff| {lib_err:.1e})", extra=extra)
 
     # tds_conv: the 18 convs of the step, 17 with their LayerNorm.  Bytes:
     # x, the weight, the bias, the residual, the LayerNorm's scale and
@@ -1059,27 +1133,18 @@ def timing_phase(dev, b=4, w=4, only=KERNELS, hu_rows=(), hu_first=(),
     # full-width decoder fed it in its third step (captured), beside the
     # rows of its first step (`first_step_ms`, the step the profile below
     # breaks down) and synthetic (4, 8320) rows (`synthetic_ms`, one
-    # launch); `before*_ms`: the parent's kernel on the same rows
+    # launch)
     if "hypothesis_unit" in only:
         hb, hn, hk = 4, 8320, 128
         h, pb, pnb = hu_inputs(dev, gen, hb, hn)
         syn = {"synthetic": lambda: khu.hypothesis_unit(h, pb, pnb, k=hk,
                                                         beam=25.0)}
-        if before is not None:
-            syn["before_synthetic"] = lambda: before.hypothesis_unit(
-                h, pb, pnb, k=hk, beam=25.0)
         for i, (ch, cpb, cpnb, ck, cbeam) in enumerate(hu_rows):
             nb_, nn_ = ch.shape
             extra = dict(syn) if i == 0 else {}
             fh, fpb, fpnb, fk, fbeam = hu_first[i]
             extra["first_step"] = (lambda a=(fh, fpb, fpnb), k=fk, be=fbeam:
                                    khu.hypothesis_unit(*a, k=k, beam=be))
-            if before is not None:
-                extra["before"] = (lambda a=(ch, cpb, cpnb), k=ck, be=cbeam:
-                                   before.hypothesis_unit(*a, k=k, beam=be))
-                extra["before_first_step"] = (
-                    lambda a=(fh, fpb, fpnb), k=fk, be=fbeam:
-                    before.hypothesis_unit(*a, k=k, beam=be))
             add("hypothesis_unit", 1,
                 lambda a=(ch, cpb, cpnb), k=ck, be=cbeam:
                     khu.hypothesis_unit(*a, k=k, beam=be),
@@ -1093,9 +1158,8 @@ def timing_phase(dev, b=4, w=4, only=KERNELS, hu_rows=(), hu_first=(),
     # activations in (the quantization counts as part of the product).
     # Library: `quantize_rows`, then torch._int_mm (cuBLASLt int8, which
     # wants M > 16: rows padded to 24) and the same rescale; context: the
-    # fp32 product.  Beside: the product of pre-quantized rows, the plain
-    # `quantize_rows` alone, and (--before) the plain `quantize_rows`
-    # followed by the parent's kernel.
+    # fp32 product.  Beside: the product of pre-quantized rows and the
+    # plain `quantize_rows` alone.
     fcs = {}
     for key in fc_shapes(TDS_CONFIG, b, w):
         fcs[key] = fcs.get(key, 0) + 1
@@ -1122,13 +1186,6 @@ def timing_phase(dev, b=4, w=4, only=KERNELS, hu_rows=(), hu_first=(),
             "prequantized": lambda xq=xq, wq=wq, xs=xs, ws=ws:
                 kim.int8_matmul(xq, wq, xs, ws),
             "plain_quantize": lambda xf=xf: ops.quantize_rows(xf)}
-        if before is not None:
-            extra["before"] = (lambda xf=xf, wq=wq, ws=ws:
-                               before.int8_matmul(*ops.quantize_rows(xf), wq,
-                                                  ws))
-            extra["before_prequantized"] = (
-                lambda xq=xq, wq=wq, xs=xs, ws=ws:
-                before.int8_matmul(xq, xs, wq, ws))
         add("int8_matmul", cnt,
             lambda xf=xf, wq=wq, ws=ws: kim.int8_matmul_fused(xf, wq, ws),
             lambda xf=xf, wq=wq, ws=ws: ref.int8_matmul_prepared(xf, wq, ws),
@@ -1593,20 +1650,26 @@ def prune_scores(dev, n, seed, case="random", beam=BP_BEAM):
 
 def check_beam_prune(dev) -> float:
     """beam_prune vs its plain version, bitwise (compared as int32 bit
-    patterns).  Returns the max |kernel - plain| over the entries finite
-    in both, measured over every case (any bit that differs fails the
-    run)."""
+    patterns), one launch a call.  Returns the max |kernel - plain| over
+    the entries finite in both, measured over every case (any bit that
+    differs fails the run)."""
+    cap = kbp.capacity(dev)
     cases = [(n, "random", b) for n in (1, 100, 1000, 1025, 8320, BP_N)
              for b in (1.0, 5.0, 25.0)]
-    cases += [(BP_BIG, "random", BP_BEAM)]
+    cases += [(n, "random", BP_BEAM) for n in (kbp.SMALL, kbp.SMALL + 1,
+                                               BP_BIG, cap - 1, cap + 1)]
     cases += [(n, c, b) for n in (BP_N, BP_BIG)
               for c, b in (("nan", 5.0), ("neg_inf", 5.0),
                            ("pos_inf", BP_BEAM), ("tie", 0.1))]
     err = 0.0
     for i, (n, case, beam) in enumerate(cases):
         s, tie = prune_scores(dev, n, SEED + 10 + i, case, beam)
+        ops.reset_launch_counts()
         got = kbp.beam_prune(s, beam)
         torch.cuda.synchronize()
+        if ops.launch_counts()["beam_prune"] != 1:
+            fail(f"beam_prune N={n}: {ops.launch_counts()['beam_prune']} "
+                 f"launches for one call (must be one at every N)")
         want = ref.beam_prune(s, beam)
         label = f"N={n} {case} beam={beam}"
         both = torch.isfinite(got) & torch.isfinite(want)
@@ -1621,8 +1684,8 @@ def check_beam_prune(dev) -> float:
                 fail(f"beam_prune {label}: entry {j} is {got[j].item()}, "
                      f"the threshold semantics give {v}")
         kept = int((got != ref.MASK).sum().item())
-        print(f"[prune check] {label:34s} bitwise equal ok ({kept} of {n} "
-              f"kept)", flush=True)
+        print(f"[prune check] {label:34s} bitwise equal ok, one launch "
+              f"({kept} of {n} kept)", flush=True)
     return err
 
 
@@ -1659,11 +1722,19 @@ def beam_prune_phase(dev) -> dict:
     return counts
 
 
-def beam_prune_timing(dev) -> dict:
+def beam_prune_timing(dev, before=None) -> dict:
     """Device time of one call of the kernel and of its plain version at
     N = 8448 and N = BP_BIG, the kernel with its launch, and the bound:
     8 N bytes (each score read once, each output written once) at the
-    HBM rate.  No single PyTorch call computes this function."""
+    HBM rate.  No single PyTorch call computes this function.  Repeated
+    calls find the scores in the 50 MB L2; `cold_ms` flushes it first
+    (a read of 256 MB, untimed), the case the HBM bound describes.
+    Beside, the same 8 N bytes as torch's copy of the scores (`copy_ms`,
+    `copy_cold_ms`): what one launch that moves them takes here.  With
+    `before`: the parent's kernel on the same scores (`before_ms`,
+    `before_cold_ms`)."""
+    flush = torch.empty((64 << 20,), dtype=torch.float32, device=dev)
+    flush.fill_(0.0)
     out = {}
     for n in (BP_N, BP_BIG):
         s, _ = prune_scores(dev, n, SEED + 200)
@@ -1674,15 +1745,29 @@ def beam_prune_timing(dev) -> dict:
                  lambda s=s: kbp.beam_prune(s, BP_BEAM)),
              "library_ms": None,
              "bound_ms": bound_ms(nbytes, flops),
-             "two_pass_bound_ms": 12 * n / PEAK_BYTES * 1e3,
              "bound_by": "bytes", "bytes": nbytes}
+        r["cold_ms"] = device_ms(lambda s=s: kbp.beam_prune(s, BP_BEAM),
+                                 prep=flush.amax)
+        r["copy_ms"] = device_ms(s.clone)
+        r["copy_cold_ms"] = device_ms(s.clone, prep=flush.amax)
+        if before is not None:
+            r["before_ms"] = device_ms(
+                lambda s=s: before.beam_prune(s, BP_BEAM))
+            r["before_cold_ms"] = device_ms(
+                lambda s=s: before.beam_prune(s, BP_BEAM), prep=flush.amax)
         out[n] = r
         print(f"[prune timing] beam_prune N={n}: kernel {r['ms'] * 1e3:.2f} "
               f"us, plain {r['plain_ms'] * 1e3:.2f} us, kernel call with "
               f"launch {r['launch_inclusive_ms'] * 1e3:.2f} us, library -, "
-              f"bound {r['bound_ms'] * 1e3:.3f} us (bytes, 8N; 12N two-pass "
-              f"{r['two_pass_bound_ms'] * 1e3:.3f} us); "
-              f"{nbytes / r['ms'] / 1e6:.1f} GB/s", flush=True)
+              f"bound {r['bound_ms'] * 1e3:.3f} us (bytes, 8N); "
+              f"{nbytes / r['ms'] / 1e6:.1f} GB/s; L2 flushed first: kernel "
+              f"{r['cold_ms'] * 1e3:.2f} us; a copy of the scores "
+              f"{r['copy_ms'] * 1e3:.2f} us, L2 flushed "
+              f"{r['copy_cold_ms'] * 1e3:.2f} us"
+              + ("" if before is None else
+                 f"; parent's kernel {r['before_ms'] * 1e3:.2f} us, L2 "
+                 f"flushed {r['before_cold_ms'] * 1e3:.2f} us"),
+              flush=True)
     return out
 
 
@@ -1758,7 +1843,7 @@ def main() -> None:
     before = None if args.before is None else Before(args.before)
     rows = timing_phase(dev, hu_rows=hu_rows, hu_first=hu_first,
                         before=before)
-    rows11 = timing_phase(dev, 1, 1, only=("tds_conv", "layernorm",
+    rows11 = timing_phase(dev, 1, 1, only=("logmel", "tds_conv", "layernorm",
                                            "int8_matmul"), before=before)
     # the floor of one launch in these events: one small elementwise op
     z = torch.zeros((16, 1840), device=dev)
@@ -1830,7 +1915,7 @@ def main() -> None:
     # 11. beam_prune checks; 12. the prune path and its timing
     bp_err = check_beam_prune(dev)
     bp_counts = beam_prune_phase(dev)
-    bp_timing = beam_prune_timing(dev)
+    bp_timing = beam_prune_timing(dev, before)
 
     kernels = []
     for name in KERNELS:
@@ -1868,6 +1953,16 @@ def main() -> None:
                 f"the rows the full-width fp32 decoder fed it (device time)")
             kernels[-1]["rows"] = {step: {"L": c["L"], "H": c["H"]}
                                    for step, c in census.items()}
+        if name == "logmel":
+            kernels[-1]["work"] = (
+                "one launch: the whole MFCC of one full-width b=4, w=4 "
+                "step's (4, 4, 1520) samples, 128 frames (device time)")
+            kernels[-1]["library"] = ("rfft + matmul pipeline: pre-emphasis, "
+                                      "unfold, torch.fft.rfft, |.|^2, mel "
+                                      "and DCT matmuls")
+            kernels[-1]["b=1 w=1"] = {k: v for k, v in
+                                      rows11["logmel"].items()
+                                      if k == "ms" or k.endswith("_ms")}
         if name == "int8_matmul":
             kernels[-1]["work"] += "; quantization included"
             kernels[-1]["library"] = ("quantize_rows + torch._int_mm + "
@@ -1897,7 +1992,11 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "work": f"one launch at N={BP_N}, beam {BP_BEAM} (device time); "
                     f"no serving path calls it, as in the reference",
-            "launch_inclusive_ms": r["launch_inclusive_ms"]})
+            "launch_inclusive_ms": r["launch_inclusive_ms"],
+            f"N={BP_BIG}": {k: v for k, v in bp_timing[BP_BIG].items()
+                            if k == "ms" or k.endswith("_ms")}})
+        if "before_ms" in r:
+            kernels[-1]["before_ms"] = r["before_ms"]
     lm_results = {
         "arch": cfg.name, "parameters": n_params,
         "launch_counts": serve["counts"],

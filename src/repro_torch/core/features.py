@@ -1,10 +1,11 @@
 """MFCC feature extraction, PyTorch port of `repro/core/features.py`.
 
 Pipeline: pre-emphasis -> 25ms/10ms framing -> Hamming window -> |FFT|^2
--> mel filterbank (80 banks) -> log -> DCT-II -> 80-dim MFCC.  The
-post-FFT stages (mel matmul + log + DCT matmul) run as one fused kernel
-(`kernels/logmel`) on the logmel route; everything before them is plain
-torch, as the reference computes it outside any kernel.
+-> mel filterbank (80 banks) -> log -> DCT-II -> 80-dim MFCC.  On the
+logmel route (`ops.mfcc`) the card runs the whole pipeline as one fused
+kernel (`kernels/logmel.mfcc`); the plain version (`ref.mfcc`) is torch
+with cuFFT or pocketfft for the FFT and the MFCC tail as the reference's
+logmel kernel computes it.
 
 Streaming: `frames_producible` is the setup-thread arithmetic — how many
 whole frames fit in the buffered signal; `consumed_samples` how many
@@ -14,11 +15,13 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.tds_asr import FeatureConfig
+from repro_torch.kernels import ref
 
 DEFAULT_FEATURE_CONFIG = FeatureConfig()
 
@@ -69,14 +72,59 @@ def consumed_samples(n_frames: int, cfg: FeatureConfig) -> int:
     return n_frames * cfg.frame_shift
 
 
+@functools.lru_cache()
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft//2, 2) f32: exp(-2*pi*i*k/n_fft) for k < n_fft/2 as
+    (cos, -sin), computed in fp64 and rounded once.  The fused MFCC
+    kernel's n_fft/2-point complex FFT takes every other entry; the split
+    of its result into the n_fft-point real spectrum takes them all."""
+    k = np.arange(n_fft // 2) * (2.0 * np.pi / n_fft)
+    return np.stack([np.cos(k), -np.sin(k)], axis=-1).astype(np.float32)
+
+
+def mel_bands(fb: np.ndarray) -> np.ndarray:
+    """(n_mels, 2) int32 [lo, hi): the bins between each filter's first
+    and last nonzero weight (lo = hi = 0 for a filter with none).  The
+    fused kernel sums each mel bin over its band only."""
+    bands = np.zeros((fb.shape[1], 2), np.int32)
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1] + 1
+    return bands
+
+
+def band_weights(fb: np.ndarray, bands: np.ndarray) -> np.ndarray:
+    """(n_mels, W) f32, W the widest band: row m holds fb[lo:hi, m] of
+    its band `bands[m]`, then zeros.  The fused kernel keeps this, not
+    the mostly-zero filterbank, in shared memory."""
+    widths = bands[:, 1] - bands[:, 0]
+    out = np.zeros((fb.shape[1], max(1, int(widths.max()))), np.float32)
+    for m, (lo, hi) in enumerate(bands):
+        out[m, :hi - lo] = fb[lo:hi, m]
+    return out
+
+
+class FeatureTables(NamedTuple):
+    """The MFCC's constant tables on one device."""
+    win: torch.Tensor           # (frame_len,) Hamming window
+    fb: torch.Tensor            # (n_fft//2+1, n_mels) mel filterbank
+    dct: torch.Tensor           # (n_mels, n_mfcc) DCT-II
+    twiddles: torch.Tensor      # (n_fft//2, 2) `fft_twiddles`
+    bands: torch.Tensor         # (n_mels, 2) int32 `mel_bands`
+    band_weights: torch.Tensor  # (n_mels, W) `band_weights`
+
+
 @functools.lru_cache(maxsize=16)
-def _tables(cfg: FeatureConfig, device: torch.device):
-    """Hamming window, filterbank and DCT as tensors on `device`, made
-    once per (config, device) instead of uploaded on every step."""
-    win = torch.from_numpy(np.hamming(cfg.frame_len).astype(np.float32))
-    fb = torch.from_numpy(mel_filterbank(cfg))
-    dct = torch.from_numpy(dct_matrix(cfg.n_mels, cfg.n_mfcc))
-    return win.to(device), fb.to(device), dct.to(device)
+def _tables(cfg: FeatureConfig, device: torch.device) -> FeatureTables:
+    """The MFCC's tables as tensors on `device`, made once per (config,
+    device) instead of uploaded on every step."""
+    fb = mel_filterbank(cfg)
+    bands = mel_bands(fb)
+    arrays = (np.hamming(cfg.frame_len).astype(np.float32), fb,
+              dct_matrix(cfg.n_mels, cfg.n_mfcc), fft_twiddles(cfg.n_fft),
+              bands, band_weights(fb, bands))
+    return FeatureTables(*(torch.from_numpy(a).to(device) for a in arrays))
 
 
 def mfcc(signal: torch.Tensor, cfg: FeatureConfig = DEFAULT_FEATURE_CONFIG,
@@ -84,29 +132,16 @@ def mfcc(signal: torch.Tensor, cfg: FeatureConfig = DEFAULT_FEATURE_CONFIG,
     """signal: (..., n_samples) f32 -> (..., n_frames, n_mfcc) f32.
 
     Leading axes are batch (the serving engine extracts every slot's
-    window in one call; slots fold into the logmel rows).  `use_logmel`
-    routes the mel+log+DCT tail through `ops.logmel`, dispatched by the
-    `kernels` KernelPolicy (None = auto)."""
-    n = frames_producible(signal.shape[-1], cfg)
-    if n <= 0:
+    window in one call).  `use_logmel` routes the pipeline through
+    `ops.mfcc`, dispatched by the `kernels` KernelPolicy (None = auto):
+    one fused launch on the card.  Without it the plain version runs."""
+    if frames_producible(signal.shape[-1], cfg) <= 0:
         raise ValueError("not enough samples for one frame")
-    dev = signal.device
-    sig = torch.cat(
-        [signal[..., :1], signal[..., 1:] - cfg.preemphasis * signal[..., :-1]],
-        dim=-1)
-    idx = (torch.arange(n, device=dev)[:, None] * cfg.frame_shift
-           + torch.arange(cfg.frame_len, device=dev)[None, :])
-    win, fb, dct = _tables(cfg, dev)
-    frames = sig[..., idx] * win                      # (..., n, frame_len)
-    spec = torch.fft.rfft(frames, n=cfg.n_fft, dim=-1)
-    power = spec.abs().square().to(torch.float32)     # (..., n, n_bins)
+    tables = _tables(cfg, signal.device)
     if use_logmel:
         from repro_torch.kernels import ops
-        rows = power.reshape(-1, power.shape[-1])
-        out = ops.logmel(rows, fb, dct, policy=kernels)
-        return out.reshape(power.shape[:-1] + (out.shape[-1],))
-    mel = power @ fb
-    return torch.log(torch.clamp_min(mel, 1e-10)) @ dct
+        return ops.mfcc(signal, cfg, tables, policy=kernels)
+    return ref.mfcc(signal, cfg, tables)
 
 
 def deltas(feats: torch.Tensor, window: int = 2) -> torch.Tensor:

@@ -34,9 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-# C signature of every entry point: (argtypes), all return cudaError_t
+# C signature of every entry point: (argtypes); each returns an int, the
+# launch's cudaError_t (beam_prune_capacity: a count, or minus an error)
 SIGNATURES = {
     "logmel_launch": (P, P, P, P, I, I, I, I, P),
+    "mfcc_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "tds_conv_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                         F, P),
     "layernorm_launch": (P, P, P, P, P, P, I, I, F, P),
@@ -44,7 +46,8 @@ SIGNATURES = {
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, F, P),
     "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
-    "beam_prune_launch": (P, P, P, I, I, F, P),
+    "beam_prune_launch": (P, P, P, I, F, P),
+    "beam_prune_capacity": (),
 }
 
 _lock = threading.Lock()

@@ -6,11 +6,15 @@ beam_prune.py), the hypothesis unit's standalone threshold stage.
 CUDA source: `csrc/beam_prune.cu`.
 
 What bounds it on the H100: bytes (8 N).  At the reference benchmark's
-N = 8448 that is ~20 ns of memory time, so launch latency sets the time;
-the design keeps that to one launch up to N = 65536 (one block does both
-passes) and uses two launches above it (per-block maxima into a small
-scratch, then a mask pass whose blocks each reduce those maxima).  The
-max never goes back to the host: a readback would synchronise.
+N = 8448 that is ~20 ns of memory time, so launch latency sets the time.
+The design is one launch at every N that reads each score once: up to
+N = 32768 one block holds the vector in registers; above it a
+cooperative grid of at most one block per SM stages its slices in
+shared memory, and the blocks agree on the max through an atomic and one
+grid barrier.  The barrier's four scratch words are zeroed once per
+(device, stream), and every call leaves them ready for the next, so no
+fill runs before a call.  The max never goes back to the host: a
+readback would synchronise.
 
 On a CPU tensor the wrapper runs the plain version (`ref.beam_prune`).
 """
@@ -21,11 +25,19 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0        # kernel launches made by this wrapper
-# largest N that one block handles in one launch (BP_SMALL in the source)
-_SMALL = 1 << 16
-# capacity of the per-block maxima scratch: at most this many blocks
-# (each of at least 4096 scores) in the two-pass path
-_PARTIALS = 1024
+# largest N that one block holds in registers (BP_SMALL in the source)
+SMALL = 1 << 15
+_scratch = {}       # (device, stream) -> the grid barrier's scratch words
+
+
+def capacity(device) -> int:
+    """Scores the grid path keeps in shared memory on `device`: above it
+    each block re-reads the tail of its slice from L2."""
+    with torch.cuda.device(device):
+        cap = _build.lib().beam_prune_capacity()
+    if cap < 0:
+        _build.check(-cap, "beam_prune_capacity")
+    return cap
 
 
 def beam_prune(scores: torch.Tensor, beam: float) -> torch.Tensor:
@@ -40,14 +52,17 @@ def beam_prune(scores: torch.Tensor, beam: float) -> torch.Tensor:
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"beam_prune: expected 1 <= N < 2**31 scores, got {n}")
     out = torch.empty_like(scores)
-    if n <= _SMALL:         # one launch; the kernel takes no scratch
-        partial, n_partials, n_launch = out, 1, 1
-    else:
-        partial = torch.empty((_PARTIALS,), dtype=torch.float32, device=dev)
-        n_partials, n_launch = _PARTIALS, 2
+    stream = _build.stream(dev)
+    scratch = None
+    if n > SMALL:
+        scratch = _scratch.get((dev, stream))
+        if scratch is None:
+            scratch = _scratch[(dev, stream)] = torch.zeros(
+                (4,), dtype=torch.int32, device=dev)
     err = _build.lib().beam_prune_launch(
-        scores.data_ptr(), out.data_ptr(), partial.data_ptr(), n, n_partials,
-        float(beam), _build.stream(dev))
+        scores.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), n, float(beam),
+        stream)
     _build.check(err, "beam_prune")
-    launches += n_launch
+    launches += 1
     return out

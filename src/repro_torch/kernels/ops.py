@@ -86,6 +86,15 @@ def logmel(power, fb, dct, policy=None):
     return _lm.logmel(power.contiguous(), fb, dct)
 
 
+def mfcc(signal, cfg, tables, policy=None):
+    """signal: (..., S) f32 -> (..., n_frames, n_mfcc) f32, the whole MFCC
+    (`cfg`: a FeatureConfig; `tables`: `features._tables`); one launch
+    on the card."""
+    if resolve(policy, signal) == "ref":
+        return _ref.mfcc(signal, cfg, tables)
+    return _lm.mfcc(signal.contiguous(), cfg, tables)
+
+
 def beam_prune(scores, beam, policy=None):
     """scores: (N,) f32 -> scores with entries < max - beam set to -1e30
     (the hypothesis unit's standalone threshold stage)."""

@@ -114,6 +114,33 @@ def logmel(power, fb, dct):
     return torch.log(torch.clamp_min(mel, 1e-10)) @ dct
 
 
+def power_spectrum(signal, cfg, win):
+    """signal: (..., S) f32 -> (..., n_frames, n_fft//2+1) f32, the MFCC's
+    front end: pre-emphasis (restarting at each row's first sample),
+    framing, the Hamming window `win`, |rfft|^2.  `cfg`: a FeatureConfig;
+    at least one whole frame in S."""
+    n = 1 + (signal.shape[-1] - cfg.frame_len) // cfg.frame_shift
+    dev = signal.device
+    sig = torch.cat(
+        [signal[..., :1], signal[..., 1:] - cfg.preemphasis * signal[..., :-1]],
+        dim=-1)
+    idx = (torch.arange(n, device=dev)[:, None] * cfg.frame_shift
+           + torch.arange(cfg.frame_len, device=dev)[None, :])
+    frames = sig[..., idx] * win                      # (..., n, frame_len)
+    spec = torch.fft.rfft(frames, n=cfg.n_fft, dim=-1)
+    return spec.abs().square().to(torch.float32)
+
+
+def mfcc(signal, cfg, tables):
+    """signal: (..., S) f32 -> (..., n_frames, n_mfcc) f32, the whole
+    MFCC: `power_spectrum`, then `logmel` on the power rows.  `tables`:
+    `features._tables` (window, fb, dct)."""
+    power = power_spectrum(signal, cfg, tables.win)
+    rows = power.reshape(-1, power.shape[-1])
+    out = logmel(rows, tables.fb, tables.dct)
+    return out.reshape(power.shape[:-1] + (out.shape[-1],))
+
+
 def beam_prune(scores, beam, mask_value=MASK):
     """scores: (N,) f32 -> scores with entries < max - beam set to
     `mask_value`.  The threshold is `best - beam` in fp32 (a Python

@@ -6,7 +6,8 @@ tests/test_torch_kernels.py.  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: logmel rtol 1e-4, atol 1e-3; layernorm and tds_conv
+Tolerances: logmel and the fused MFCC rtol 1e-4, atol 1e-3 (the MFCC:
+the kernel's own FFT against cuFFT, then a log domain); layernorm and tds_conv
 atol 1e-5 (rtol 1e-5); the fused conv + LayerNorm and bias + residual +
 LayerNorm also atol 1e-5 (rtol 1e-5): the LayerNorm divides the conv
 sum's rounding (~1e-7 relative, sums in another order than cuBLAS) by the
@@ -25,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import tds_asr as tcfg  # noqa: E402
+from repro_torch.core import features as tfeat  # noqa: E402
 from repro_torch.kernels import (beam_prune as tbp,  # noqa: E402
                                  flash_attention as tfa,
                                  hypothesis_unit as thu,
@@ -58,6 +60,59 @@ def test_logmel_kernel_matches_plain(cuda, t, c):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.logmel(p, fb, dct),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(b, w, 1520) for b in (1, 2, 4)
+                                   for w in (1, 2, 4)]
+                         + [(1520,), (4000,), (3, 401), (2, 2, 1999)])
+def test_fused_mfcc_kernel_matches_plain(cuda, shape):
+    """(b, w) engine batches of 8 frames; a 1-D signal; ragged frame
+    counts (1, 10, 23 frames)."""
+    cfg = tcfg.FEATURE_CONFIG
+    sig = _t(cuda, len(shape), *shape, scale=0.3)
+    ops.reset_launch_counts()
+    got = tfeat.mfcc(sig, cfg, use_logmel=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["logmel"] == 1
+    want = tfeat.mfcc(sig, cfg)
+    assert got.shape == want.shape == shape[:-1] + (
+        tfeat.frames_producible(shape[-1], cfg), cfg.n_mfcc)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("cfg", [tcfg.FeatureConfig(n_mels=16, n_mfcc=16),
+                                 tcfg.FeatureConfig(n_fft=1024, n_mels=40,
+                                                    n_mfcc=13)])
+def test_fused_mfcc_kernel_other_configs(cuda, cfg):
+    sig = _t(cuda, 7, 3, 2001, scale=0.3)
+    torch.testing.assert_close(tfeat.mfcc(sig, cfg, use_logmel=True),
+                               tfeat.mfcc(sig, cfg), rtol=1e-4, atol=1e-3)
+
+
+def test_fused_mfcc_one_launch_without_torch_fft(cuda, monkeypatch):
+    cfg = tcfg.FEATURE_CONFIG
+    sig = _t(cuda, 3, 4, 4, 1520, scale=0.3)
+    want = tfeat.mfcc(sig, cfg)
+
+    def no_fft(*a, **k):
+        raise AssertionError("torch.fft.rfft called on the kernel path")
+    monkeypatch.setattr(torch.fft, "rfft", no_fft)
+    ops.reset_launch_counts()
+    got = tfeat.mfcc(sig, cfg, use_logmel=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {**{k: 0 for k in ops.KERNEL_MODULES},
+                                   "logmel": 1}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    tables = tfeat._tables(cfg, cuda)
+    with pytest.raises(ValueError):
+        tlm.mfcc(sig[..., :399].contiguous(), cfg, tables)   # no frame
+    with pytest.raises(ValueError):
+        tlm.mfcc(sig.transpose(0, 1), cfg, tables)           # not contiguous
+    with pytest.raises(ValueError):
+        tlm.mfcc(sig.double(), cfg, tables)                  # not f32
+    with pytest.raises(ValueError):
+        tlm.mfcc(sig, cfg, tables._replace(bands=tables.bands[:4]))
+    assert ops.launch_counts()["logmel"] == 1
 
 
 @pytest.mark.parametrize("t,d", [(32, 64), (256, 80), (100, 257), (37, 80),
@@ -484,8 +539,8 @@ def test_wrappers_count_launches_and_refuse_bad_input(cuda):
         with pytest.raises(ValueError):
             tbp.beam_prune(bad, 5.0)
     assert ops.launch_counts()["beam_prune"] == 1
-    tbp.beam_prune(_t(cuda, 5, 65537), 5.0)     # two passes: two launches
-    assert ops.launch_counts()["beam_prune"] == 3
+    tbp.beam_prune(_t(cuda, 5, 65537), 5.0)     # the grid path: one launch
+    assert ops.launch_counts()["beam_prune"] == 2
 
 
 def _prune_input(dev, n, case, beam):
@@ -524,6 +579,33 @@ def test_beam_prune_kernel_matches_plain_bitwise(cuda, n, case, beam):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(ops.beam_prune(s, beam).view(torch.int32),
                        want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [65537, 4_194_307])
+def test_beam_prune_one_launch_at_every_n(cuda, n):
+    s = _prune_input(cuda, n, "random", 25.0)
+    ops.reset_launch_counts()
+    for _ in range(3):         # the barrier's scratch is left ready
+        got = tbp.beam_prune(s, 25.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["beam_prune"] == 3
+    assert torch.equal(got.view(torch.int32),
+                       ref.beam_prune(s, 25.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [-4, -1, 0, 1, 4097])
+@pytest.mark.parametrize("case", ["random", "nan", "pos_inf"])
+def test_beam_prune_bitwise_around_the_shared_memory_capacity(cuda, offset,
+                                                              case):
+    """N just below, at and above the scores the grid path stages in
+    shared memory (above it each block re-reads its slice's tail)."""
+    n = tbp.capacity(cuda) + offset
+    s = _prune_input(cuda, n, case, 5.0)
+    for x in (s, torch.cat([s[:1], s])[1:]):    # aligned; 16-byte unaligned
+        got = tbp.beam_prune(x, 5.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32),
+                           ref.beam_prune(x, 5.0).view(torch.int32))
 
 
 _TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),

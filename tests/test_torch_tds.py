@@ -39,6 +39,8 @@ from repro.models import tds as jtds  # noqa: E402
 from repro_torch.configs import tds_asr as tcfg  # noqa: E402
 from repro_torch.core import features as tfeat  # noqa: E402
 from repro_torch.core import stepplan as tplan  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.policy import KernelPolicy as TorchPolicy  # noqa: E402
 from repro_torch.models import tds as ttds  # noqa: E402
 
 torch.set_num_threads(1)
@@ -63,14 +65,35 @@ def demo():
 # ---------------------------------------------------------------------------
 # features
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("use_logmel", [False, True])
+# (use_logmel, JAX policy, port route): the plain pipeline; the logmel
+# route against JAX's plain tail and its Pallas kernel in interpret mode;
+# `ops.mfcc` under the "ref" and "auto" policies on a CPU tensor (both
+# the plain version); and under "kernel", which raises on the CPU.
+_MFCC_CASES = [(False, "ref", "features"), (True, "ref", "features"),
+               (True, "interpret", "features"),
+               (True, "interpret", "ops.mfcc ref"),
+               (True, "interpret", "ops.mfcc auto"),
+               (True, "interpret", "ops.mfcc kernel")]
+
+
+@pytest.mark.parametrize("use_logmel,jax_policy,route", _MFCC_CASES)
 @pytest.mark.parametrize("shape", [(1280,), (2, 3, 1520), (4, 4000)])
-def test_mfcc_matches_jax(shape, use_logmel):
+def test_mfcc_matches_jax(shape, use_logmel, jax_policy, route):
     sig = _signal(len(shape), *shape)
+    x = torch.from_numpy(sig)
+    cfg = tcfg.FEATURE_CONFIG
+    if route.startswith("ops.mfcc"):
+        policy = TorchPolicy(route.split()[1])
+        tables = tfeat._tables(cfg, x.device)
+        if policy.mode == "kernel":
+            with pytest.raises(ValueError, match="CUDA"):
+                tops.mfcc(x, cfg, tables, policy=policy)
+            return
+        got = tops.mfcc(x, cfg, tables, policy=policy)
+    else:
+        got = tfeat.mfcc(x, cfg, use_logmel=use_logmel)
     want = jfeat.mfcc(jnp.asarray(sig), FEATURE_CONFIG, use_pallas=use_logmel,
-                      kernels=JaxPolicy("ref"), hot=True)
-    got = tfeat.mfcc(torch.from_numpy(sig), tcfg.FEATURE_CONFIG,
-                     use_logmel=use_logmel)
+                      kernels=JaxPolicy(jax_policy), hot=True)
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-3)
