@@ -5,9 +5,10 @@
                  --streams N > 1 the N-slot pool decodes N concurrent
                  utterances through one slot-batched step.
   * --mode lm  : batched LM serving (`LmEngine`) of the tiny config of
-                 --arch (the dense family: h2o-danube-1.8b by default;
-                 the reference's default mamba2-1.3b waits for the SSM
-                 slice), --requests prompts over --slots slots.
+                 --arch (mamba2-1.3b by default, as in the reference; any
+                 dense, MoE, SSM or hybrid arch, not the M-RoPE or
+                 frontend-embedding ones), --requests prompts over
+                 --slots slots.
 Runs on the GPU unless --device names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
@@ -156,11 +157,13 @@ def serve_lm(args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="asr", choices=["lm", "asr"])
-    ap.add_argument("--arch", default="h2o-danube-1.8b",
-                    help="LM arch, served at its tiny() size (the dense "
-                         "family: h2o-danube-1.8b, qwen2-72b, chatglm3-6b; "
-                         "the reference's default mamba2-1.3b waits for "
-                         "the SSM slice)")
+    ap.add_argument("--arch", default="mamba2-1.3b",
+                    help="LM arch, served at its tiny() size: dense "
+                         "(h2o-danube-1.8b, qwen2-72b, chatglm3-6b), MoE "
+                         "(qwen2-moe-a2.7b, llama4-maverick-400b-a17b), SSM "
+                         "(mamba2-1.3b) or hybrid (jamba-v0.1-52b); not "
+                         "qwen2-vl-7b (M-RoPE) or musicgen-medium "
+                         "(frontend embeddings)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -1,0 +1,216 @@
+"""Mamba-2 (SSD, state-space duality) block, port of `repro/models/mamba.py`.
+
+The chunked SSD algorithm of arXiv:2405.21060 §6 as plain torch: products
+over (chunk x chunk) decay matrices plus an inter-chunk state carry.
+Decode is the exact linear recurrence h <- h*exp(dt*A) + dt * B x ;
+y = C.h + D*x.  The SSD products and the depthwise conv stay plain torch,
+as the reference computes them outside any kernel; the gated RMSNorm
+goes through the norm kernel (`ops.rmsnorm`, per `policy`).
+
+One device: the reference's `sharder` constraints (d_inner and heads
+over a 'model' mesh axis) are identities there and are dropped.  This
+is serving only, so `ssd_chunked` carries the state through a Python
+loop over chunks without the reference's checkpointing: one (B, H, L, L)
+decay matrix is live at a time, as in its `lax.scan`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import SSMSpec
+from repro_torch.models import layers
+
+
+def init_mamba(generator: torch.Generator, d_model: int, spec: SSMSpec,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    """Random parameters with the reference's tree, shapes and std, drawn
+    from `generator` (see `layers.init_linear`)."""
+    di = spec.d_inner(d_model)
+    nh = spec.n_heads(d_model)
+    gn = spec.ngroups * spec.d_state
+
+    def lin(d_in, d_out):
+        return layers.init_linear(generator, d_in, d_out, dtype=dtype,
+                                  device=device)
+
+    p = {"w_z": lin(d_model, di), "w_x": lin(d_model, di),
+         "w_B": lin(d_model, gn), "w_C": lin(d_model, gn),
+         "w_dt": lin(d_model, nh)}
+    w = torch.randn((spec.conv_kernel, di), generator=generator,
+                    device=generator.device)
+    f32 = dict(dtype=torch.float32, device=device)
+    p.update({
+        "conv_x": {"w": (w * 0.1).to(device=device, dtype=dtype),
+                   "b": torch.zeros((di,), dtype=dtype, device=device)},
+        "A_log": torch.zeros((nh,), **f32),          # A = -exp(A_log) = -1
+        "D": torch.ones((nh,), **f32),
+        "dt_bias": torch.zeros((nh,), **f32),
+        "norm_gate": {"scale": torch.ones((di,), **f32)},
+        "out_proj": lin(di, d_model),
+    })
+    return p
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None,
+                 lengths: torch.Tensor | None = None):
+    """Depthwise causal conv over time. x: (B, S, C), w: (ck, C).
+
+    Returns (y, new_state) with new_state = the last ck-1 inputs.  ck
+    shifted adds, summed in the reference's order in fp32 with the bias
+    and SiLU, rounded once to x's dtype.  With `lengths` (B,),
+    row b's trailing x[b, lengths[b]:] is right-padding: new_state is
+    the last ck-1 inputs before the padding (a row shorter than ck-1
+    keeps the initial state's rows ahead of its inputs)."""
+    ck = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        state = torch.zeros((B, ck - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)            # (B, S+ck-1, C)
+    xf, wf = xp.float(), w.float()
+    y = xf[:, 0:S, :] * wf[0][None, None, :]
+    for i in range(1, ck):
+        y = y + xf[:, i:i + S, :] * wf[i][None, None, :]
+    y = F.silu(y + b.float()[None, None, :]).to(x.dtype)
+    if lengths is not None:
+        # xp row j holds input position j - (ck-1); the state after
+        # position len-1 is xp rows len .. len+ck-2
+        rows = (lengths.to(device=x.device, dtype=torch.int64)[:, None]
+                + torch.arange(ck - 1, device=x.device)[None, :])  # (B, ck-1)
+        new_state = torch.gather(xp, 1, rows[:, :, None].expand(-1, -1, C))
+    else:
+        new_state = xp[:, S:, :]
+    return y, new_state
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., L). Returns (..., L, L) with out[i,j] = sum_{j<k<=i} a_k
+    (i >= j), -inf above the diagonal."""
+    c = torch.cumsum(a, dim=-1)
+    out = c[..., :, None] - c[..., None, :]
+    L = a.shape[-1]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=a.device))
+    return torch.where(mask, out, torch.full_like(out, -torch.inf))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
+    """Chunked SSD scan.
+
+    x: (B, S, H, P)  dt: (B, S, H) (post-softplus)  A: (H,) (negative)
+    Bm, Cm: (B, S, G, N) with G | H.  h0: optional (B, H, P, N) initial
+    state.  Returns y: (B, S, H, P) fp32, h_final: (B, H, P, N) fp32."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"ssd_chunked: S={S} is no multiple of the chunk {L}")
+    h = (torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    A = A.float()
+    # head-major (B, H, S, .) / group-major (B, G, S, N) fp32 copies, so
+    # every product below is one batched matmul over contiguous blocks
+    xs = x.float().permute(0, 2, 1, 3).contiguous()             # (B,H,S,P)
+    dts = dt.float().permute(0, 2, 1).contiguous()               # (B,H,S)
+    bs = Bm.float().permute(0, 2, 1, 3).contiguous()            # (B,G,S,N)
+    cs = Cm.float().permute(0, 2, 1, 3).contiguous()
+    ys = []
+    for c in range(S // L):
+        sl = slice(c * L, (c + 1) * L)
+        xc, dtc = xs[:, :, sl], dts[:, :, sl]          # (B,H,L,P), (B,H,L)
+        bc, cc = bs[:, :, sl], cs[:, :, sl]            # (B,G,L,N)
+        dA = dtc * A[None, :, None]                            # (B,H,L) <= 0
+        dAc = torch.cumsum(dA, dim=-1)
+        Lmat = torch.exp(_segsum(dA))                          # (B,H,L,L)
+        # C·Bᵀ once per group, shared by its `rep` heads
+        CB = torch.matmul(cc, bc.transpose(-1, -2))            # (B,G,L,L)
+        CB = CB.repeat_interleave(rep, dim=1)                  # (B,H,L,L)
+        y = torch.matmul(CB * Lmat * dtc[:, :, None, :], xc)   # (B,H,L,P)
+        # contribution of the carried state, then the new carried state
+        ch = torch.matmul(cc.repeat_interleave(rep, dim=1),
+                          h.transpose(-1, -2))                 # (B,H,L,P)
+        y = y + ch * torch.exp(dAc)[..., None]
+        w = torch.exp(dAc[..., -1:] - dAc) * dtc               # (B,H,L)
+        states = torch.matmul((xc * w[..., None]).transpose(-1, -2),
+                              bc.repeat_interleave(rep, dim=1))  # (B,H,P,N)
+        h = h * torch.exp(dAc[..., -1])[:, :, None, None] + states
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), h
+
+
+def init_cache(batch: int, d_model: int, spec: SSMSpec,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    """conv (B, ck-1, d_inner) in the model dtype; ssm (B, nh, P, N) fp32."""
+    di = spec.d_inner(d_model)
+    nh = spec.n_heads(d_model)
+    return {
+        "conv": torch.zeros((batch, spec.conv_kernel - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, nh, spec.head_dim, spec.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: logaddexp(v, 0) = max(v, 0) + log1p(exp(-|v|))."""
+    return torch.clamp(v, min=0) + torch.log1p(torch.exp(-v.abs()))
+
+
+def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
+                lengths=None, policy=None):
+    """x: (B, S, D). cache: optional {'conv', 'ssm'} for decode/streaming.
+
+    Returns (y, new_cache).  S == 1 with a cache uses the exact step
+    recurrence.  `lengths` (B,) marks x[b, lengths[b]:] as right-padding
+    (bucketed prefill): dt is zeroed there, so the SSD recurrence carries
+    the state through pad positions untouched (decay exp(0) = 1, update
+    0), and the conv state is taken before the padding.  `policy`
+    selects the kernel or the plain path of the gated RMSNorm."""
+    B, S, D = x.shape
+    nh = spec.n_heads(D)
+    P, N, G = spec.head_dim, spec.d_state, spec.ngroups
+    A = -torch.exp(p["A_log"].float())
+    z = layers.linear(p["w_z"], x)                            # (B,S,di)
+    xi = layers.linear(p["w_x"], x)
+    dt = _softplus(layers.linear(p["w_dt"], x).float()
+                   + p["dt_bias"].float())                    # (B,S,nh)
+    if lengths is not None:
+        lengths = lengths.to(device=x.device, dtype=torch.int64)
+        pad = (torch.arange(S, device=x.device)[None, :]
+               >= lengths[:, None])                           # (B,S)
+        dt = torch.where(pad[:, :, None], torch.zeros_like(dt), dt)
+
+    conv_state = cache["conv"] if cache is not None else None
+    xi, new_conv = _causal_conv(xi, p["conv_x"]["w"], p["conv_x"]["b"],
+                                conv_state, lengths=lengths)
+    Bm = layers.linear(p["w_B"], x).reshape(B, S, G, N)
+    Cm = layers.linear(p["w_C"], x).reshape(B, S, G, N)
+    xh = xi.reshape(B, S, nh, P)
+
+    if S == 1 and cache is not None:
+        # exact single-step recurrence
+        h = cache["ssm"].float()                              # (B,nh,P,N)
+        dt1 = dt[:, 0]                                        # (B,nh)
+        dec = torch.exp(dt1 * A[None, :])                     # (B,nh)
+        Bf = Bm[:, 0].repeat_interleave(nh // G, dim=1).float()  # (B,nh,N)
+        Cf = Cm[:, 0].repeat_interleave(nh // G, dim=1).float()
+        xf = xh[:, 0].float()                                 # (B,nh,P)
+        h_new = (h * dec[:, :, None, None]
+                 + torch.einsum("bh,bhp,bhn->bhpn", dt1, xf, Bf))
+        y = torch.einsum("bhpn,bhn->bhp", h_new, Cf)
+        y = y + p["D"].float()[None, :, None] * xf
+        y = y.reshape(B, 1, nh * P).to(x.dtype)
+        new_cache = {"conv": new_conv, "ssm": h_new}
+    else:
+        h0 = cache["ssm"] if cache is not None else None
+        y, hT = ssd_chunked(xh, dt, A, Bm, Cm, spec.chunk_size, h0)
+        y = y + p["D"].float()[None, None, :, None] * xh.float()
+        y = y.reshape(B, S, nh * P).to(x.dtype)
+        new_cache = {"conv": new_conv, "ssm": hT}
+
+    # gated RMSNorm (mamba2's RMSNormGated), then the output projection;
+    # the gate's product in fp32, rounded once
+    y = (y.float() * F.silu(z.float())).to(x.dtype)
+    y = layers.apply_norm(p["norm_gate"], y, "rmsnorm", policy=policy)
+    return layers.linear(p["out_proj"], y), new_cache

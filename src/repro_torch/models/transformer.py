@@ -1,28 +1,32 @@
-"""Dense / GQA decoder-only LM, port of `repro/models/transformer.py`.
+"""Generic decoder-only LM: dense / GQA / MoE / SSM / hybrid, port of
+`repro/models/transformer.py`.
 
-The reference's generic LM covers dense, MoE, SSM and hybrid stacks in
-one code path; this port covers the dense attention family (every layer
-an attention layer with a gated MLP; RoPE, 2D-RoPE or none; sliding
-windows; QKV bias).  MoE, Mamba layers, M-RoPE and frontend embeddings
-raise `NotImplementedError` naming the ROADMAP item that brings them.
+One code path over the reference's layer kinds: attention or Mamba-2
+(SSD) mixers per `layer_pattern`, a gated MLP or an MoE block per
+`moe_every` (or no MLP at all: mamba2's `d_ff = 0`).  M-RoPE and
+frontend embeddings raise `NotImplementedError` naming the ROADMAP item
+that brings them.
 
 Parameters keep the reference's tree and its stacked layout: each leaf
 under `params["layers"]["p{p}"]` carries a leading repeat axis R, layer
-i = r*P + p.  The reference scans over that axis; here a Python loop
-indexes it (`_layer_params`).
+i = r*P + p with the period P = lcm(len(layer_pattern), moe_every), so
+each period position p has one static sub-layer kind.  The reference
+scans over that axis; here a Python loop indexes it (`_layer_params`).
 
 Entry points (functions of (params, ...), as in the reference):
   prefill(params, batch, lengths=None, cache_len=None)
       full-sequence forward: (last-token logits (B, Vp), decode cache).
   decode_step(params, cache, batch)
       one-token step against the cache: (logits, next token, cache).
-      The new KV is written into the cache's own tensors, in place,
-      after the layer loop (the serving pool is updated, not copied);
-      `kpos` and `offset` come back as new tensors.
+      The new KV and the new conv/SSM states are written into the
+      cache's own tensors, in place, after the layer loop (the serving
+      pool is updated, not copied); `kpos` and `offset` come back as
+      new tensors.
 
 Prefill attention goes through the flash-attention kernel and every
-rmsnorm through the norm kernel (`KernelPolicy`, per call); decode
-attention and the matrix products are plain torch, as the reference
+rmsnorm (Mamba's gated norm included) through the norm kernel
+(`KernelPolicy`, per call); decode attention, the SSD scan, the MoE
+dispatch and the matrix products are plain torch, as the reference
 leaves them to XLA.
 """
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
 from repro_torch.core.treeutil import tree_map
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba, moe
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -45,19 +49,11 @@ def pad_vocab(v: int, multiple: int = 512) -> int:
 
 
 class LM:
-    """The dense LM over a `ModelConfig`.  `policy` (a `KernelPolicy`;
-    the serving engine passes `EngineConfig.kernels`) selects the kernel
-    or the plain path of the prefill attention and the norms."""
+    """The LM over a `ModelConfig`.  `policy` (a `KernelPolicy`; the
+    serving engine passes `EngineConfig.kernels`) selects the kernel or
+    the plain path of the prefill attention and the norms."""
 
     def __init__(self, cfg: ModelConfig, policy=None):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP "
-                f"Queue 1, item 10: models/moe.py)")
-        if cfg.ssm is not None or "m" in cfg.layer_pattern:
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba (SSM) layers are not ported yet "
-                f"(ROADMAP Queue 1, item 10: models/mamba.py)")
         if cfg.rope == "mrope":
             raise NotImplementedError(
                 f"{cfg.name}: M-RoPE is not ported yet (ROADMAP Queue 1, "
@@ -68,7 +64,8 @@ class LM:
                 f"not ported yet (ROADMAP Queue 1, item 10)")
         self.cfg = cfg
         self.policy = policy
-        self.P = cfg.period
+        me = cfg.moe.moe_every if cfg.moe else 1
+        self.P = math.lcm(cfg.period, me)
         if cfg.n_layers % self.P:
             raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no "
                              f"multiple of the period {self.P}")
@@ -79,20 +76,36 @@ class LM:
     # ------------------------------------------------------------------
     # params
     # ------------------------------------------------------------------
-    def _init_sublayer(self, gen, device) -> dict:
+    def _kind(self, p: int) -> str:
+        return self.cfg.layer_kind(p % self.cfg.period)
+
+    def _is_moe(self, p: int) -> bool:
+        return self.cfg.is_moe_layer(p)
+
+    def _has_mlp(self, p: int) -> bool:
+        return self._is_moe(p) or self.cfg.d_ff > 0
+
+    def _init_sublayer(self, gen, device, p: int) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
-        out = {"norm1": layers.init_norm(d, cfg.norm, device=device),
-               "mixer": {
-                   "wqkv": layers.init_linear(gen, d, qkv_out, cfg.qkv_bias,
-                                              self.dtype, device),
-                   "wo": layers.init_linear(gen, cfg.n_heads * cfg.head_dim,
-                                            d, dtype=self.dtype,
-                                            device=device)}}
-        if cfg.d_ff > 0:
+        out = {"norm1": layers.init_norm(d, cfg.norm, device=device)}
+        if self._kind(p) == "attn":
+            qkv_out = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+            out["mixer"] = {
+                "wqkv": layers.init_linear(gen, d, qkv_out, cfg.qkv_bias,
+                                           self.dtype, device),
+                "wo": layers.init_linear(gen, cfg.n_heads * cfg.head_dim, d,
+                                         dtype=self.dtype, device=device)}
+        else:
+            out["mixer"] = mamba.init_mamba(gen, d, cfg.ssm, self.dtype,
+                                            device)
+        if self._has_mlp(p):
             out["norm2"] = layers.init_norm(d, cfg.norm, device=device)
-            out["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, self.dtype, device)
+            if self._is_moe(p):
+                out["mlp"] = moe.init_moe(gen, d, cfg.moe, self.dtype, device)
+            else:
+                out["mlp"] = layers.init_mlp(gen, d, cfg.d_ff, self.dtype,
+                                             device)
         return out
 
     def init(self, generator: torch.Generator) -> dict:
@@ -116,7 +129,7 @@ class LM:
                 device=device)
         stacked = {}
         for p in range(self.P):
-            per_layer = [self._init_sublayer(generator, device)
+            per_layer = [self._init_sublayer(generator, device, p)
                          for _ in range(self.R)]
             stacked[f"p{p}"] = _stack(per_layer)
         params["layers"] = stacked
@@ -138,12 +151,21 @@ class LM:
         scalar offset / shared (Sc,) kpos assumes all rows aligned."""
         cfg = self.cfg
         Sc = self.cache_len(seq_len)
-        shp = (self.R, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
-        lay = {f"p{p}": {"k": torch.zeros(shp, dtype=self.dtype,
-                                          device=device),
-                         "v": torch.zeros(shp, dtype=self.dtype,
-                                          device=device)}
-               for p in range(self.P)}
+        lay = {}
+        for p in range(self.P):
+            if self._kind(p) == "attn":
+                shp = (self.R, batch, Sc, cfg.n_kv_heads, cfg.head_dim)
+                lay[f"p{p}"] = {name: torch.zeros(shp, dtype=self.dtype,
+                                                  device=device)
+                                for name in ("k", "v")}
+            else:
+                # the reference broadcasts one layer's zeros over R; the
+                # decode step writes these in place, so each is its own
+                one = mamba.init_cache(batch, cfg.d_model, cfg.ssm,
+                                       self.dtype, device)
+                lay[f"p{p}"] = {name: torch.zeros((self.R,) + a.shape,
+                                                  dtype=a.dtype, device=device)
+                                for name, a in one.items()}
         i32 = dict(dtype=torch.int32, device=device)
         if per_slot:
             return {"layers": lay, "kpos": torch.full((batch, Sc), -1, **i32),
@@ -218,42 +240,53 @@ class LM:
                             out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
         return out, {"k": k, "v": v}
 
-    def _sublayer(self, lp, x, positions, tables, cache_p, kpos_m, decode):
+    def _sublayer(self, p, lp, x, positions, tables, cache_p, kpos_m,
+                  decode, lengths=None):
         cfg = self.cfg
         h = layers.apply_norm(lp["norm1"], x, cfg.norm, policy=self.policy)
-        if decode:
-            out, new_cache = self._attn_decode(lp["mixer"], h, positions,
-                                               tables, cache_p, kpos_m)
+        if self._kind(p) == "attn":
+            if decode:
+                out, new_cache = self._attn_decode(lp["mixer"], h, positions,
+                                                   tables, cache_p, kpos_m)
+            else:
+                # causal: right-padding (bucketed prefill) cannot leak
+                # into real positions, so no mask is needed here
+                out, (k, v) = self._attn_full(lp["mixer"], h, positions,
+                                              tables)
+                new_cache = {"k": k, "v": v}
         else:
-            # causal: right-padding (bucketed prefill) cannot leak into
-            # real positions, so no mask is needed here
-            out, (k, v) = self._attn_full(lp["mixer"], h, positions, tables)
-            new_cache = {"k": k, "v": v}
+            out, new_cache = mamba.apply_mamba(lp["mixer"], h, cfg.ssm,
+                                               cache_p, lengths=lengths,
+                                               policy=self.policy)
         x = x + out
-        if cfg.d_ff > 0:
+        if self._has_mlp(p):
             h = layers.apply_norm(lp["norm2"], x, cfg.norm,
                                   policy=self.policy)
-            x = x + layers.apply_mlp(lp["mlp"], h, cfg.act)
+            if self._is_moe(p):
+                y, _aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act)
+            else:
+                y = layers.apply_mlp(lp["mlp"], h, cfg.act)
+            x = x + y
         return x, new_cache
 
-    def _layers(self, params, x, positions, cache=None, *, decode=False):
+    def _layers(self, params, x, positions, cache=None, *, decode=False,
+                lengths=None):
         """The layer loop (the reference's `_scan_layers`).  Prefill
-        returns (x, per-layer KV stacked to (R, B, S, K, Dh)); decode
+        returns (x, per-layer caches stacked to (R, ...): KV (R, B, S, K,
+        Dh), Mamba conv/SSM states as `apply_mamba` returns them); decode
         reads each layer's cache slice, then writes every layer's new KV
-        into the cache tensors in place after the loop and returns (x,
-        cache with new kpos/offset)."""
+        and new conv/SSM state into the cache tensors in place after the
+        loop and returns (x, cache with new kpos/offset)."""
         tables = self._rope_tables(positions)
         if not decode:
-            kv = {f"p{p}": {"k": [], "v": []} for p in range(self.P)}
+            new = {f"p{p}": [] for p in range(self.P)}
             for r in range(self.R):
                 for p in range(self.P):
                     lp = _layer_params(params["layers"][f"p{p}"], r)
-                    x, nc = self._sublayer(lp, x, positions, tables, None,
-                                           None, False)
-                    kv[f"p{p}"]["k"].append(nc["k"])
-                    kv[f"p{p}"]["v"].append(nc["v"])
-            return x, {"layers": {name: {n: torch.stack(t) for n, t in d.items()}
-                                  for name, d in kv.items()}}
+                    x, nc = self._sublayer(p, lp, x, positions, tables, None,
+                                           None, False, lengths)
+                    new[f"p{p}"].append(nc)
+            return x, {"layers": {name: _stack(t) for name, t in new.items()}}
 
         kpos = cache["kpos"]
         offset = cache["offset"]
@@ -272,27 +305,29 @@ class LM:
         else:
             kpos[slot] = offset
             kpos_m[slot] = -1
-        new = {f"p{p}": {"k": [], "v": []} for p in range(self.P)}
+        new = {f"p{p}": [] for p in range(self.P)}
         for r in range(self.R):
             for p in range(self.P):
                 lay = cache["layers"][f"p{p}"]
-                cp = {"k": lay["k"][r], "v": lay["v"][r]}
+                cp = {name: a[r] for name, a in lay.items()}
                 lp = _layer_params(params["layers"][f"p{p}"], r)
-                x, nc = self._sublayer(lp, x, positions, tables, cp, kpos_m,
-                                       True)
-                new[f"p{p}"]["k"].append(nc["k"])
-                new[f"p{p}"]["v"].append(nc["v"])
+                x, nc = self._sublayer(p, lp, x, positions, tables, cp,
+                                       kpos_m, True)
+                new[f"p{p}"].append(nc)
         for p in range(self.P):
             old = cache["layers"][f"p{p}"]
-            for name in ("k", "v"):
-                upd = torch.stack(new[f"p{p}"][name])     # (R, B, 1, K, Dh)
-                if per_slot:
+            for name, dst in old.items():
+                if self._kind(p) != "attn":  # conv/SSM states: (B, ...)
+                    for r, nc in enumerate(new[f"p{p}"]):
+                        dst[r].copy_(nc[name])
+                    continue
+                upd = torch.stack([nc[name] for nc in new[f"p{p}"]])
+                if per_slot:                 # KV: (R, B, 1, K, Dh)
                     # row b writes its own cache slot[b]
-                    rows = torch.arange(old[name].shape[1],
-                                        device=upd.device)
-                    old[name][:, rows, slot] = upd[:, :, 0].to(old[name].dtype)
+                    rows = torch.arange(dst.shape[1], device=upd.device)
+                    dst[:, rows, slot] = upd[:, :, 0].to(dst.dtype)
                 else:
-                    old[name][:, :, slot] = upd[:, :, 0].to(old[name].dtype)
+                    dst[:, :, slot] = upd[:, :, 0].to(dst.dtype)
         return x, {"layers": cache["layers"], "kpos": kpos,
                    "offset": offset + 1}
 
@@ -304,9 +339,10 @@ class LM:
 
         `lengths` (B,) enables the masked (bucketed) path: each row's
         tokens beyond lengths[b] are right-padding — logits come from
-        position lengths[b]-1 and the cache is assembled with PER-ROW
-        position metadata (kpos (B, Sc), offset (B,)) so rows drop
-        straight into a per-slot serving pool.  `cache_len` overrides
+        position lengths[b]-1, recurrent state stops before the padding
+        (see `mamba.apply_mamba`), and the cache is assembled with
+        PER-ROW position metadata (kpos (B, Sc), offset (B,)) so rows
+        drop straight into a per-slot serving pool.  `cache_len` overrides
         the assembled ring width (the pool's ring may be narrower than
         the padded bucket)."""
         cfg = self.cfg
@@ -315,7 +351,9 @@ class LM:
         B, S = x.shape[:2]
         dev = x.device
         positions = self._positions(B, S, dev)
-        x, cache = self._layers(params, x, positions)
+        if lengths is not None:
+            lengths = lengths.to(device=dev, dtype=torch.int64)
+        x, cache = self._layers(params, x, positions, lengths=lengths)
         if lengths is None:
             x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
                                   policy=self.policy)
@@ -323,8 +361,8 @@ class LM:
             # assemble the decode cache; SWA ring by the decode path
             Sc = self.cache_len(S)
             if Sc != S:
-                cache["layers"] = tree_map(lambda a: a[:, :, -Sc:],
-                                           cache["layers"])
+                cache["layers"] = self._map_kv(lambda a: a[:, :, -Sc:],
+                                               cache["layers"])
                 cache["kpos"] = torch.arange(S - Sc, S, dtype=torch.int32,
                                              device=dev)
             else:
@@ -333,7 +371,6 @@ class LM:
             return logits, cache
 
         # ---- masked path: per-row last token + per-row ring assembly ----
-        lengths = lengths.to(device=dev, dtype=torch.int64)
         last = torch.clamp(lengths - 1, 0, S - 1)                 # (B,)
         brow = torch.arange(B, device=dev)
         xl = x[brow, last][:, None]                               # (B,1,D)
@@ -348,19 +385,25 @@ class LM:
         start = torch.clamp(lengths - Sc, min=0)                  # (B,)
         pos_rows = start[:, None] + torch.arange(Sc, device=dev)[None, :]
         rows = torch.clamp(pos_rows, max=S - 1)                   # (B, Sc)
-        cache["layers"] = tree_map(lambda a: a[:, brow[:, None], rows],
-                                   cache["layers"])
+        cache["layers"] = self._map_kv(lambda a: a[:, brow[:, None], rows],
+                                       cache["layers"])
         cache["kpos"] = torch.where(pos_rows < lengths[:, None], pos_rows,
                                     torch.full_like(pos_rows, -1)
                                     ).to(torch.int32)
         cache["offset"] = lengths.to(torch.int32)
         return logits, cache
 
+    def _map_kv(self, fn, lay: dict) -> dict:
+        """`fn` over the attention layers' k/v leaves; the Mamba layers'
+        conv/SSM states (no sequence axis) are kept as they are."""
+        return {name: (tree_map(fn, t) if self._kind(int(name[1:])) == "attn"
+                       else t) for name, t in lay.items()}
+
     def decode_step(self, params, cache, batch):
         """One-token step. batch: tokens (B, 1).
 
         Returns (logits (B, Vp) f32, next_token (B,) int64, cache): the
-        cache's KV tensors are updated in place (see the module
+        cache's KV and conv/SSM tensors are updated in place (see the module
         docstring)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
@@ -380,10 +423,12 @@ class LM:
 
 
 def _stack(trees: list) -> dict:
-    """A list of identical parameter trees -> one tree of (R, ...) leaves."""
+    """A list of identical trees -> one tree of (R, ...) leaves.  The
+    leaves are popped from the given trees as they are stacked, so a
+    full-width parameter tree is held about once, not twice."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
     return torch.stack(trees)
 
 

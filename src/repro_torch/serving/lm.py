@@ -16,10 +16,13 @@ and cache-write slots.
 
 On the card the prefill's attention runs the flash-attention kernel and
 every norm the RMSNorm kernel (`EngineConfig.kernels` selects kernel or
-plain path); decode attention and the matrix products are plain torch.
-The decode step writes each new KV into the pool's cache tensors in
-place; a prefill group's rows are scattered into them only after the
-prefill succeeded (isolation probes write nothing).
+plain path); decode attention, the SSD scan, the MoE dispatch and the
+matrix products are plain torch.  The decode step writes each new KV
+and each Mamba layer's new conv/SSM state into the pool's cache tensors
+in place; a prefill group's rows are scattered into them only after the
+prefill succeeded (isolation probes write nothing).  An attention-free
+model (mamba2) keeps the per-slot position metadata all the same: its
+ring width is the program's cache length, and no layer reads it.
 
 Session protocol: `push(prompt)` submits the request (prefill happens at
 admission); `poll()` drives the engine — admitted requests generate
@@ -237,14 +240,14 @@ class LmEngine(Engine):
             return
         # scatter the whole group at once: rows 0..G-1 of the prefill
         # cache land in the group's pool slots with one advanced-index
-        # write per cache tensor (rows are ring-aligned already), and
-        # one host read takes every first token
+        # write per cache leaf — KV (rows ring-aligned already) and the
+        # Mamba layers' conv/SSM states alike — and one host read takes
+        # every first token
         G = len(group)
         slots = torch.tensor([slot for _, slot in group], device=self.device)
         for name, lay in self.cache["layers"].items():
-            for kv in ("k", "v"):
-                lay[kv][:, slots] = pc["layers"][name][kv][:, :G].to(
-                    lay[kv].dtype)
+            for leaf, dst in lay.items():
+                dst[:, slots] = pc["layers"][name][leaf][:, :G].to(dst.dtype)
         self.cache["kpos"][slots] = pc["kpos"][:G]
         self.cache["offset"][slots] = pc["offset"][:G]
         vocab = self.program.model_cfg.vocab_size

@@ -616,12 +616,18 @@ _TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 @pytest.mark.parametrize("t,d", [(4, 2560), (512, 2560), (37, 80), (5, 64),
                                  (300, 129), (1, 7),
                                  (1, 2560), (3, 2560), (4096, 2560),
-                                 (1, 2568), (3, 2568), (4096, 2568)])
+                                 (1, 2568), (3, 2568), (4096, 2568),
+                                 (1, 2048), (4, 2048), (2048, 2048),
+                                 (8192, 2048), (1, 4096), (4, 4096),
+                                 (2048, 4096), (6144, 4096)])
 def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
     """The LM's shapes (decode rows, prefill rows at D = 2560), ragged
     ones (the scalar kernel), and the vector kernel at D = 2560 and at
     D = 2568, 16-byte aligned but not a multiple of 256 vectors, from
-    one row to 4096."""
+    one row to 4096.  D = 2048 (mamba2-1.3b's and qwen2-moe-a2.7b's
+    model width) and D = 4096 (mamba2's gated norm over d_inner: two
+    16-byte vectors a thread in bf16, four in fp32), at decode and
+    prefill rows."""
     x = _t(cuda, d, t, d).to(dtype)
     s = 1 + 0.1 * _t(cuda, 1, d)
     got = tln.rmsnorm(x, s)
@@ -658,6 +664,11 @@ def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
     (1, 8, 2, 300, 300, 80, True, 1, 1.0),      # window 1
     (1, 8, 2, 640, 640, 80, True, 128, 1.0),    # window edges on tiles
     (1, 32, 8, 1280, 1280, 80, True, 256, 1.0),
+    # qwen2-moe-a2.7b's prefill: MHA 16/16 at D = 128, causal, no window
+    (1, 16, 16, 512, 512, 128, True, None, 1.0),
+    (1, 16, 16, 2048, 2048, 128, True, None, 1.0),
+    (2, 16, 16, 2048, 2048, 128, True, None, 1.0),
+    (1, 16, 16, 300, 300, 128, True, None, 8.0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
                                               causal, window, qscale, dtype):

@@ -2,13 +2,18 @@
 
 Both engines serve the same prompts (numpy, from a seed) with the same
 parameters (the reference's, carried across with `params_from_numpy`)
-over tiny fp32 configs of the dense archs, at 1 and 2 slots; the cases
-mirror the LM engine tests of tests/test_serving.py (staggered unequal
-prompts, sliding-window ring admission with a prompt longer than the
-window, the session protocol and admission validation, one-row
-admissions, bucketed prefill).  Greedy tokens must be equal: fp32 keeps
-the two frameworks' logits within ~1e-6 of each other, far inside the
-margins between the top tokens here.
+over tiny fp32 configs of the dense archs at 1 and 2 slots, and of the
+SSM (mamba2-1.3b), hybrid (jamba-v0.1-52b) and MoE (qwen2-moe-a2.7b)
+archs at 1, 2 and 4 slots; the cases mirror the LM engine tests of
+tests/test_serving.py (staggered unequal prompts, sliding-window ring
+admission with a prompt longer than the window, the session protocol
+and admission validation, one-row admissions, bucketed prefill).
+Greedy tokens must be equal: fp32 keeps the two frameworks' logits
+within ~1e-4 of each other (jamba's 16 layers; ~1e-6 for the rest), far
+inside the margins between the top tokens here.  MoE capacity depends
+on every token of a prefill batch, bucket padding included, so both
+engines must see the same batch composition: they run the same
+admission schedule.
 """
 import dataclasses
 
@@ -70,6 +75,61 @@ def test_staggered_unequal_prompts_match_jax(arch, n_slots):
     assert all(len(t) == 6 for t in got)
     if n_slots == 2:
         assert teng.n_steps < 3 * 5          # batching batched
+
+
+FAMILIES = ["mamba2-1.3b", "jamba-v0.1-52b", "qwen2-moe-a2.7b"]
+_FAMILY_ENGINES = {}
+
+
+def _family_engines(arch, n_slots):
+    """(jax engine, port engine) over (cache_len 24, max_new 6), built
+    once per (arch, n_slots): the JAX engine's jitted prefills and decode
+    step are reused by the staggered and the bucketed case."""
+    key = (arch, n_slots)
+    if key not in _FAMILY_ENGINES:
+        _FAMILY_ENGINES[key] = _engines(arch, 24, 6, n_slots)
+    return _FAMILY_ENGINES[key]
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 4])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_staggered_unequal_prompts_match_jax_ssm_moe(arch, n_slots):
+    """The staggered case above for the SSM, hybrid and MoE families:
+    the Mamba layers' conv/SSM states are scattered into the pool at
+    admission and advanced in place by every decode step."""
+    jeng, teng = _family_engines(arch, n_slots)
+    prompts = _prompts(0, (5, 9, 7))
+    got = teng.serve(prompts)
+    assert got == jeng.serve(prompts)
+    assert all(len(t) == 6 for t in got)
+    leaves = {n for lay in teng.cache["layers"].values() for n in lay}
+    assert ("ssm" in leaves) == (arch != "qwen2-moe-a2.7b")
+    assert ("k" in leaves) == (arch != "mamba2-1.3b")
+    for lay in teng.cache["layers"].values():
+        if "ssm" in lay:                 # the last request's slot state
+            assert lay["ssm"].dtype == torch.float32
+            assert lay["ssm"].abs().amax() > 0
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 4])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_bucketed_prefill_many_lengths_matches_jax_ssm_moe(arch, n_slots):
+    """The bucketed case below for the SSM, hybrid and MoE families:
+    seven prompt lengths over buckets 8/16/32, each admission group
+    padded to its length bucket and batch sub-bucket (so MoE capacity
+    counts the same pad tokens in both engines)."""
+    jeng, teng = _family_engines(arch, n_slots)
+    assert teng.program.buckets() == jeng.program.buckets() == (8, 16, 32)
+    shapes = []
+    orig = teng._prefill
+    teng._prefill = lambda t, l: shapes.append(tuple(t.shape)) or orig(t, l)
+    try:
+        prompts = _prompts(3, (3, 5, 7, 9, 12, 17, 18))
+        assert teng.serve(prompts) == jeng.serve(prompts)
+    finally:
+        teng._prefill = orig
+    assert set(shapes) <= {(b, s) for b in teng._batch_buckets
+                           for s in (8, 16, 32)}
 
 
 @pytest.mark.parametrize("n_slots", [1, 2])
@@ -183,6 +243,38 @@ def test_make_engine_and_config():
     assert isinstance(asr, AsrEngine)
     with pytest.raises(TypeError):
         make_engine(EngineConfig(object()), None, device="cpu")
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _launcher_defaults(main, monkeypatch) -> dict:
+    """The defaults of a launcher's argument parser: `main([])` is
+    stopped right after it parsed its (empty) arguments."""
+    import argparse
+    orig = argparse.ArgumentParser.parse_args
+
+    def parse(self, args=None, namespace=None):
+        raise _Parsed(vars(orig(self, [], namespace)))
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse)
+    with pytest.raises(_Parsed) as stop:
+        main([])
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", orig)
+    return stop.value.args[0]
+
+
+def test_launcher_default_arch_is_the_references(monkeypatch):
+    """`--mode lm` with no `--arch` serves the same model in both
+    packages: mamba2-1.3b."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+    mine = _launcher_defaults(serve.main, monkeypatch)
+    theirs = _launcher_defaults(jserve.main, monkeypatch)
+    assert mine["arch"] == theirs["arch"] == "mamba2-1.3b"
+    for key in ("mode", "requests", "slots", "prompt_len", "max_new",
+                "utterances", "streams", "kernels"):
+        assert mine[key] == theirs[key], key
 
 
 def test_launcher_lm_mode_on_cpu_and_gpu_default(monkeypatch, capsys):
