@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: the streaming ASR decode path,
-batched LM serving (dense, SSM and MoE families) and the standalone
-beam-threshold prune.
+batched LM serving (dense, SSM and MoE families), the standalone
+beam-threshold prune and the network front-end.
 
     python3 chip_smoke.py [--before DIR]
 
@@ -43,7 +43,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                `quantize_rows` must run no time), the kernel path's
                log-probs must match the plain path's (int8: also bitwise
                equal with int8_matmul's plain version substituted) and
-               its words must equal the plain path's.  Then the
+               its words must equal the plain path's; the warm engine
+               serves the 8 again, timed (phase 16's in-process
+               throughput).  Then the
                candidate rows the fp32 engine feeds the hypothesis unit
                in a b=4, w=4 step (the utterances' first, and their third
                after two committed steps) are captured by a hook around
@@ -123,15 +125,49 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                (N = 8448, beam 25), launch counts checked; then the
                kernel, its plain version and the bound at N = 8448 and
                N = 4,194,307.
+  Network phase:
+ 16. network — the port's front-end (`serving/server.py`) on the card:
+               phase 5's fp32 system behind an `EngineServer` of 4 slots
+               and a queue of 4 (127.0.0.1, port 0).  A warm-up wave,
+               then the measured wave: 8 `AsrClient` streams arriving
+               20 ms apart, pushing 80 ms chunks with a poll after each
+               (launch counts set to 0 just before it, read just after,
+               held against the steps the worker took); then the same 8
+               streams hold every slot and the queue while a burst of 4
+               more, with no stagger, opens with
+               `AsrClient.open(retries=)`: the holders finish only once
+               /metrics counts a 503 for each of the 4, and the burst
+               must ride them out.
+               Every stream's words, tokens and steps equal phase 5's
+               in-process kernel-path result, scores rtol 1e-4.
+               First-result and finalize latency (p50, p99, as
+               benchmarks/load.py defines them), throughput in multiples
+               of real time over the wire beside phase 5's warm
+               in-process `engine.serve`, and the
+               /metrics queue high-water, rejections and restarts are
+               printed.  On the demo system at 4 slots: an ``asr_step``
+               raise matched on one session quarantines its stream while
+               the other three equal a fault-free run; a ``pump`` stall
+               with `worker_watchdog` armed after a warm stream gives
+               /healthz 503, then 200 after the restart, and a fresh
+               stream equals the clean run; `aclose(drain=True)` under
+               load returns every result.  Last, `python -m
+               repro_torch.launch.serve --serve --port 0` as a
+               subprocess answers an /asr stream, an LM request and
+               /metrics, and SIGTERM drains it with exit code 0.  The
+               phase must take at most 60 s.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
+import os
 import pathlib
+import signal
 import subprocess
 import sys
 import time
@@ -163,7 +199,12 @@ from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
 from repro_torch.models import LM, moe, tds  # noqa: E402
 from repro_torch.core.treeutil import tree_map  # noqa: E402
 from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
-                                 EngineConfig, LmEngine, LmProgram)
+                                 EngineConfig, FaultPolicy, FaultSpec,
+                                 LmEngine, LmProgram)
+from repro_torch.serving.server import (AsrClient,  # noqa: E402
+                                        EngineServer,
+                                        fetch_healthz, fetch_metrics,
+                                        lm_generate)
 
 OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
@@ -284,6 +325,20 @@ LM_NORM_TIMED = ([(rows, d) for d in (2560, 2048)
 # a ragged N of ~4 M that spreads the max over 1024 blocks
 BP_N, BP_BEAM, BP_BIG = 8448, 25.0, 4_194_307
 BP_CALLS = 4
+# the network front-end (phase 16): phase 5's fp32 system behind an
+# EngineServer of 4 slots and a queue of 4, its 8 utterances streamed in
+# 80 ms pushes by clients arriving 20 ms apart (benchmarks/load.py's
+# default stagger), then a burst of 4 more with no stagger while those 8
+# fill the slots and the queue; the fault checks on the demo system
+NET_SLOTS, NET_MAX_QUEUE, NET_BURST = 4, 4, 4
+NET_STAGGER_S = 0.02
+NET_RETRIES = 200               # the burst's open retries
+NET_RTOL = 1e-4                 # a stream's score against in process
+NET_WAIT_S = 30.0               # the longest a phase 16 condition waits
+NET_LAUNCHER_WAIT_S = 120.0     # the --serve subprocess's drain and exit
+NET_WATCHDOG_S = 1.0
+NET_POISON_SID = 1
+NET_PHASE_LIMIT_S = 60.0
 
 
 def _leaves(tree):
@@ -896,6 +951,15 @@ def full_phase(dev, system, utts, use_int8=False):
     for r in results:
         if not np.isfinite(r["score"]):
             fail(f"non-finite full-width score {r['score']}")
+    # the same utterances again on the warm engine: in-process throughput,
+    # which phase 16 sets beside the same work over the wire
+    t0 = time.perf_counter()
+    eng.serve(utts)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    audio_s = sum(len(u) for u in utts) / 16000.0
+    print(f"[{tag}] warm engine.serve of the same {len(utts)} utterances: "
+          f"{warm_s:.3f} s, {audio_s / warm_s:.3f}x realtime", flush=True)
 
     # ---- per-step log-probs: kernel path vs plain path, same batch ----
     lp_tol = (dict(rtol=0.0, atol=INT8_LOGP_ATOL) if use_int8
@@ -954,7 +1018,7 @@ def full_phase(dev, system, utts, use_int8=False):
     if n_eq != len(utts):
         fail(f"{tag}: kernel and plain paths' words differ for "
              f"{len(utts) - n_eq} of {len(utts)} utterances")
-    return counts, steps, lp_err
+    return counts, steps, lp_err, results, warm_s
 
 
 # ---------------------------------------------------------------------------
@@ -1982,6 +2046,445 @@ def beam_prune_timing(dev, before=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the network front-end
+# ---------------------------------------------------------------------------
+async def on_server(server, fn):
+    """Run `fn(server)` against a started server, then close it."""
+    await server.start()
+    try:
+        return await fn(server)
+    finally:
+        await server.aclose()
+
+
+async def wait_for(pred, what: str):
+    """Await `pred()` (a coroutine function) until it returns something
+    true; raise after NET_WAIT_S seconds (an exception, not `fail`'s
+    SystemExit, so the caller's server still closes)."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + NET_WAIT_S
+    while loop.time() < deadline:
+        res = await pred()
+        if res:
+            return res
+        await asyncio.sleep(0.02)
+    raise TimeoutError(f"network: {what} not reached within {NET_WAIT_S} s")
+
+
+async def net_stream(host, port, audio, chunk, stagger_s=0.0, retries=0,
+                     seed=0, opened=None, hold=None):
+    """One client as benchmarks/load.py's `_run_stream` measures it: open
+    after `stagger_s` (retrying 503s `retries` times), then
+    `drive_stream`.  `opened` (an asyncio.Event) is set once the session
+    is open; `hold` (an awaitable) is awaited before the finish."""
+    await asyncio.sleep(stagger_s)
+    t0 = time.perf_counter()
+    client = await AsrClient.open(host, port, retries=retries, backoff=0.02,
+                                  backoff_cap=0.5, seed=seed)
+    if opened is not None:
+        opened.set()
+    return await drive_stream(client, audio, chunk, t0, hold)
+
+
+async def drive_stream(client, audio, chunk, t0, hold=None):
+    """Push `chunk` samples at a time with a poll after each, then finish.
+    first_result_s runs from `t0` to the first poll whose hypothesis
+    covers a decoded step, finalize_s is the finish round trip.  An
+    in-stream error ends the stream and is returned as its final."""
+    first = None
+    for off in range(0, len(audio), chunk):
+        for op in (lambda: client.push(audio[off:off + chunk]), client.poll):
+            res = await op()
+            if res.get("error"):
+                await client.aclose()
+                return {"final": res, "audio_s": len(audio) / 16000.0}
+        if first is None and res["steps"] > 0:
+            first = time.perf_counter() - t0
+    if hold is not None:
+        await hold
+    t_fin = time.perf_counter()
+    final = await client.finish()
+    t_end = time.perf_counter()
+    return {"final": final, "audio_s": len(audio) / 16000.0,
+            "first_result_s": t_end - t0 if first is None else first,
+            "finalize_s": t_end - t_fin}
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def as_wire(result: dict) -> dict:
+    """An in-process result as its wire payload (lists, numbers)."""
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in result.items()}
+
+
+def check_wire(tag, got, want):
+    """A stream's final payload against an in-process result: words,
+    tokens and steps equal, scores within NET_RTOL."""
+    g, w = got["final"], as_wire(want)
+    if g.get("error"):
+        fail(f"{tag}: the stream ended in an error: {g}")
+    same = all(g[k] == w[k] for k in ("words", "tokens", "steps"))
+    if not same or not np.isclose(g["score"], w["score"], rtol=NET_RTOL,
+                                  atol=0.0):
+        fail(f"{tag}: over the wire {g}, in process {w}")
+
+
+def pct_ms(vals, q) -> float:
+    return float(np.percentile(np.asarray(vals, float), q)) * 1e3
+
+
+def net_serving(dev, system, utts, want, policy) -> dict:
+    """Phase 5's system served over the wire by an EngineServer of
+    NET_SLOTS slots and a queue of NET_MAX_QUEUE: a warm-up wave of
+    NET_SLOTS streams (excluded), the measured wave of the utterances from
+    staggered clients (launch counts set to 0 just before it and read just
+    after), and a burst.  For the burst the utterances' streams again hold
+    every slot and the whole queue (each holds its finish) while NET_BURST
+    clients open with retries; the holders let go only once /metrics
+    counts a 503 for each of them, so every burst client meets the full
+    queue and must ride it out.  Every stream's words, tokens and steps
+    must equal `want` (the in-process results), scores within NET_RTOL."""
+    tds_cfg, _, lex, lm, params, dec_cfg = system
+    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg)
+    eng = AsrEngine(EngineConfig(prog, n_slots=NET_SLOTS, kernels=policy,
+                                 max_queue=NET_MAX_QUEUE), params, device=dev)
+    chunk = eng.plan.samples_per_step
+    out = {}
+
+    async def go(server):
+        h, p = server.host, server.port
+        await asyncio.gather(*[net_stream(h, p, utts[i], chunk,
+                                          NET_STAGGER_S * i)
+                               for i in range(NET_SLOTS)])   # warm-up
+        n0 = len(eng.step_shapes)
+        sync(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        wave = await asyncio.gather(*[
+            net_stream(h, p, u, chunk, NET_STAGGER_S * i)
+            for i, u in enumerate(utts)])
+        out["wall_s"] = time.perf_counter() - t0
+        sync(dev)
+        out["counts"] = ops.launch_counts()
+        out["steps"] = list(eng.step_shapes)[n0:]
+        out["wave"] = wave
+
+        # the burst: the holders fill the slots and the queue, the burst
+        # opens with retries, the holders finish once it has met 503s
+        opened = [asyncio.Event() for _ in utts]
+        release = asyncio.get_running_loop().create_future()
+        holders = [asyncio.create_task(net_stream(
+            h, p, u, chunk, NET_STAGGER_S * i, opened=opened[i],
+            hold=release)) for i, u in enumerate(utts)]
+        for ev in opened:
+            await ev.wait()
+        before = (await fetch_metrics(h, p))["asr"]["sessions"]["rejected"]
+        burst = [asyncio.create_task(net_stream(
+            h, p, utts[i], chunk, retries=NET_RETRIES, seed=i))
+            for i in range(NET_BURST)]
+
+        async def burst_rejected():
+            m = await fetch_metrics(h, p)
+            n = m["asr"]["sessions"]["rejected"] - before
+            return n if n >= NET_BURST else 0
+        try:
+            out["burst_503"] = await wait_for(
+                burst_rejected, f"a 503 for each of the burst's {NET_BURST} "
+                f"clients")
+        finally:
+            release.set_result(None)
+        out["held"] = await asyncio.gather(*holders)
+        out["burst"] = await asyncio.gather(*burst)
+        out["metrics"] = await fetch_metrics(h, p)
+        return out
+
+    asyncio.run(on_server(EngineServer(asr_engine=eng), go))
+    for i, (r, w) in enumerate(zip(out["wave"], want)):
+        check_wire(f"network wave utt {i}", r, w)
+    for i, (r, w) in enumerate(zip(out["held"], want)):
+        check_wire(f"network burst-wave utt {i}", r, w)
+    for i, r in enumerate(out["burst"]):
+        check_wire(f"network burst stream {i}", r, want[i])
+    m = out["metrics"]["asr"]
+    if m["queue"]["max_depth"] > NET_MAX_QUEUE:
+        fail(f"network: queue depth {m['queue']['max_depth']} above "
+             f"max_queue={NET_MAX_QUEUE}")
+    wave = out["wave"]
+    audio_s = sum(len(u) for u in utts) / 16000.0
+    return {
+        "utterances": len(utts), "audio_s": audio_s,
+        "wire_wall_s": out["wall_s"],
+        "wire_x_realtime": audio_s / out["wall_s"],
+        "first_result_ms": {f"p{q}": pct_ms(
+            [r["first_result_s"] for r in wave], q) for q in (50, 99)},
+        "finalize_ms": {f"p{q}": pct_ms(
+            [r["finalize_s"] for r in wave], q) for q in (50, 99)},
+        "counts": out["counts"], "steps": out["steps"],
+        "burst_503": out["burst_503"],
+        "metrics": {"queue_max_depth": m["queue"]["max_depth"],
+                    "rejected": m["sessions"]["rejected"],
+                    "restarts": m["workers"]["restarts"],
+                    "sessions": m["sessions"]},
+    }
+
+
+def demo_results(dev, system, utts, policy) -> list:
+    """The demo system's fault-free in-process results at 4 slots."""
+    eng, _ = asr_demo_engine(4, policy, device=dev, system=system)
+    res = eng.serve(utts)
+    sync(dev)
+    return res
+
+
+def net_faults(dev, system, utts, clean, policy) -> dict:
+    """The fault-tolerance paths on the demo system at 4 slots, each
+    held against `clean` (fault-free in-process results).
+
+      * an ``asr_step`` raise matched on session NET_POISON_SID: that
+        stream ends with {"error": ..., "faulted": true}, the other three
+        streams' results equal the clean run's;
+      * a ``pump`` stall with worker_watchdog NET_WATCHDOG_S armed after a
+        warm stream: /healthz answers 503 while the supervisor is held,
+        then 200 with restarts >= 1 after the restart, and a fresh stream
+        equals the clean run;
+      * aclose(drain=True) with 4 streams mid-flight returns every result.
+    """
+    out = {}
+
+    # -- a poisoned session is quarantined, the others are untouched --
+    poison = FaultPolicy([FaultSpec(
+        "asr_step", count=None, message="poisoned session",
+        match=lambda ctx: NET_POISON_SID in ctx.get("sids", ()))])
+    eng, _ = asr_demo_engine(4, policy, device=dev, system=system,
+                             faults=poison)
+    chunk = eng.plan.samples_per_step
+
+    async def poisoned(server):
+        h, p = server.host, server.port
+        t0 = time.perf_counter()
+        clients = [await AsrClient.open(h, p) for _ in utts]   # sids 0..3
+        finals = await asyncio.gather(*[drive_stream(c, a, chunk, t0)
+                                        for c, a in zip(clients, utts)])
+        status, _ = await fetch_healthz(h, p)
+        return finals, status, await fetch_metrics(h, p)
+    finals, status, m = asyncio.run(on_server(EngineServer(asr_engine=eng),
+                                              poisoned))
+    bad = finals[NET_POISON_SID]["final"]
+    if not (bad.get("faulted") and "poisoned session" in bad.get("error",
+                                                                  "")):
+        fail(f"network faults: the poisoned stream ended with {bad}")
+    for i, (r, w) in enumerate(zip(finals, clean)):
+        if i != NET_POISON_SID:
+            check_wire(f"network faults: co-batched utt {i}", r, w)
+    if status != 200 or m["asr"]["sessions"]["faulted"] != 1:
+        fail(f"network faults: /healthz {status}, metrics {m['asr']}")
+    out["poison"] = {"log": len(poison.log), "healthz": status}
+
+    # -- a wedged worker is restarted by the heartbeat watchdog --
+    arm = {"on": False}
+    stall = FaultPolicy([FaultSpec("pump", action="stall", count=1,
+                                   match=lambda ctx: arm["on"])],
+                        stall_timeout=60.0)
+    eng, _ = asr_demo_engine(4, policy, device=dev, system=system,
+                             faults=stall, worker_watchdog=NET_WATCHDOG_S)
+
+    async def wedged(server):
+        h, p = server.host, server.port
+        old = server._asr_worker
+        warm = await net_stream(h, p, utts[0], chunk)
+        check_wire("network watchdog: warm stream", warm, clean[0])
+        server._supervisor.cancel()          # hold the supervisor
+        try:
+            await server._supervisor
+        except asyncio.CancelledError:
+            pass
+        t0 = time.perf_counter()
+        arm["on"] = True                     # the next pump stalls
+
+        async def aged():
+            return old.heartbeat_age() > NET_WATCHDOG_S
+        await wait_for(aged, "the stalled worker's heartbeat age")
+        arm["on"] = False
+        wedged_status, wedged_payload = await fetch_healthz(h, p)
+        server._supervisor = asyncio.get_running_loop().create_task(
+            server._supervise())
+
+        async def healthy():
+            st, pl = await fetch_healthz(h, p)
+            return (st, pl) if st == 200 else None
+        status, payload = await wait_for(healthy, "/healthz 200 again")
+        recovered_s = time.perf_counter() - t0
+        stall.release()                      # the zombie meets the fence
+        fresh = await net_stream(h, p, utts[1], chunk)
+        return (wedged_status, wedged_payload, status, payload, fresh,
+                recovered_s)
+    (wst, wpl, st, pl, fresh, rec_s) = asyncio.run(on_server(
+        EngineServer(asr_engine=eng, watch_interval=0.05), wedged))
+    eh = wpl["engines"]["asr"]
+    if wst != 503 or not eh["alive"] or eh["healthy"]:
+        fail(f"network watchdog: a wedged worker gave /healthz {wst} {wpl}")
+    if st != 200 or pl["engines"]["asr"]["restarts"] < 1:
+        fail(f"network watchdog: after the restart /healthz {st} {pl}")
+    check_wire("network watchdog: fresh stream after the restart", fresh,
+               clean[1])
+    out["watchdog"] = {"wedged_healthz": wst, "healthz": st,
+                       "restarts": pl["engines"]["asr"]["restarts"],
+                       "stall_to_healthy_s": rec_s}
+
+    # -- graceful drain under load returns every result --
+    eng, _ = asr_demo_engine(4, policy, device=dev, system=system)
+
+    async def drained(server):
+        h, p = server.host, server.port
+        opened = [asyncio.Event() for _ in utts]
+        tasks = [asyncio.create_task(net_stream(h, p, a, chunk,
+                                                opened=opened[i]))
+                 for i, a in enumerate(utts)]
+        for ev in opened:
+            await ev.wait()
+        await server.aclose(drain=True, timeout=60.0)
+        return await asyncio.gather(*tasks)
+    finals = asyncio.run(on_server(EngineServer(asr_engine=eng), drained))
+    for i, (r, w) in enumerate(zip(finals, clean)):
+        check_wire(f"network drain: utt {i}", r, w)
+    out["drain"] = {"results": len(finals),
+                    "finalized": eng.metrics.finalized}
+    return out
+
+
+def net_launcher() -> dict:
+    """`python -m repro_torch.launch.serve --serve --port 0` as a
+    subprocess on the card: one /asr stream, one LM generation and
+    /metrics through its printed address, then SIGTERM, which must drain
+    it ("drained; server stopped") with exit code 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--serve",
+           "--port", "0", "--streams", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving ASR"):
+                break
+        if not lines or not lines[-1].startswith("serving ASR"):
+            fail(f"the --serve launcher printed no address: {''.join(lines)}")
+        up_s = time.perf_counter() - t0
+        addr = lines[-1].split("http://")[1].split()[0]
+        host, port = addr.rsplit(":", 1)
+        system = asr_demo_system()
+        audio = SyntheticASR(system[1]).utterance(0)["audio"]
+
+        async def go():
+            r = await net_stream(host, int(port), audio, 1280)
+            gen = await lm_generate(host, int(port), [1, 2, 3, 4])
+            return r, gen, await fetch_metrics(host, int(port))
+        r, gen, metrics = asyncio.run(go())
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=NET_LAUNCHER_WAIT_S)
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+        rest, _ = proc.communicate()
+        print(f"[network launcher] its output:\n{''.join(lines)}{rest}",
+              file=sys.stderr, flush=True)
+        raise
+    text = "".join(lines) + rest
+    final = r["final"]
+    if final.get("error") or not np.isfinite(final["score"]) or \
+            final["steps"] < 1:
+        fail(f"the --serve launcher's ASR stream gave {final}")
+    if not gen.get("done") or not gen.get("tokens"):
+        fail(f"the --serve launcher's LM request gave {gen}")
+    if set(metrics) != {"asr", "lm"}:
+        fail(f"the --serve launcher's /metrics gave {metrics}")
+    if "drained; server stopped" not in text or proc.returncode != 0:
+        fail(f"the --serve launcher did not drain cleanly (rc "
+             f"{proc.returncode}):\n{text}")
+    return {"up_s": up_s, "wall_s": time.perf_counter() - t0,
+            "asr_steps": final["steps"], "lm_tokens": len(gen["tokens"]),
+            "rc": proc.returncode}
+
+
+def network_phase(dev, smi, full_results, inproc_s) -> dict:
+    """Phase 16: the network front-end on the card (see the module
+    docstring).  `inproc_s` is phase 5's warm in-process `engine.serve`
+    of the same utterances."""
+    t_phase = time.perf_counter()
+    system = full_width_system(dev)
+    utts = full_width_utterances(system[1])
+    serving = net_serving(dev, system, utts, full_results,
+                          KernelPolicy("kernel"))
+    serving.update(inprocess_wall_s=inproc_s,
+                   inprocess_x_realtime=serving["audio_s"] / inproc_s)
+    counts, steps = serving["counts"], serving["steps"]
+    n = len(steps)
+    expect = {name: 0 for name in counts}
+    expect.update({"logmel": n, "tds_conv": 18 * n, "layernorm": 15 * n,
+                   "hypothesis_unit": sum(w for _, _, w in steps)})
+    print(f"[network] {len(utts)} full-width streams over the wire: the "
+          f"worker took {n} steps, (n_active, b, w) = {steps}", flush=True)
+    print(f"[network] launch counts {counts}, expected {expect}", flush=True)
+    if counts != expect or not n:
+        fail(f"network: launch counts {counts} != expected {expect}")
+    print(f"[network] {smi}: first-result latency p50 "
+          f"{serving['first_result_ms']['p50']:.3f} ms, p99 "
+          f"{serving['first_result_ms']['p99']:.3f} ms; finalize latency "
+          f"p50 {serving['finalize_ms']['p50']:.3f} ms, p99 "
+          f"{serving['finalize_ms']['p99']:.3f} ms", flush=True)
+    print(f"[network] {smi}: throughput over the wire "
+          f"{serving['wire_x_realtime']:.3f}x realtime "
+          f"({serving['audio_s']:.2f} s of audio in "
+          f"{serving['wire_wall_s']:.3f} s); phase 5's warm in-process "
+          f"engine.serve "
+          f"{serving['inprocess_x_realtime']:.3f}x realtime "
+          f"({serving['inprocess_wall_s']:.3f} s)", flush=True)
+    print(f"[network] burst of {NET_BURST} with retries: "
+          f"{serving['burst_503']} 503s before the holders let go, every "
+          f"burst stream rode them out; /metrics: queue high-water "
+          f"{serving['metrics']['queue_max_depth']}, rejections "
+          f"{serving['metrics']['rejected']}, restarts "
+          f"{serving['metrics']['restarts']}; every stream equals phase 5's "
+          f"in-process result", flush=True)
+    del system
+    torch.cuda.empty_cache()
+
+    demo = asr_demo_system()
+    demo_utts = [SyntheticASR(demo[1]).utterance(u)["audio"]
+                 for u in range(4)]
+    clean = demo_results(dev, demo, demo_utts, KernelPolicy("kernel"))
+    faults = net_faults(dev, demo, demo_utts, clean, KernelPolicy("kernel"))
+    print(f"[network faults] asr_step raise on sid {NET_POISON_SID}: that "
+          f"stream faulted, the other 3 equal the clean run; pump stall: "
+          f"/healthz {faults['watchdog']['wedged_healthz']} while wedged, "
+          f"{faults['watchdog']['healthz']} after "
+          f"{faults['watchdog']['restarts']} restart(s), "
+          f"{faults['watchdog']['stall_to_healthy_s']:.3f} s from the stall; "
+          f"drain under load returned {faults['drain']['results']} results",
+          flush=True)
+    launcher = net_launcher()
+    print(f"[network launcher] --serve --port 0 up in {launcher['up_s']:.2f} "
+          f"s; /asr {launcher['asr_steps']} steps, /lm "
+          f"{launcher['lm_tokens']} tokens; SIGTERM drained it, rc "
+          f"{launcher['rc']} ({launcher['wall_s']:.2f} s)", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[network] phase 16 took {phase_s:.2f} s (limit "
+          f"{NET_PHASE_LIMIT_S:.0f} s)", flush=True)
+    if phase_s > NET_PHASE_LIMIT_S:
+        fail(f"network phase took {phase_s:.1f} s, more than "
+             f"{NET_PHASE_LIMIT_S} s")
+    serving.update(faults=faults, launcher=launcher, phase_s=phase_s,
+                   card=smi)
+    return serving
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2035,9 +2538,11 @@ def main() -> None:
           f"{system[2].n_nodes} trie nodes, K={system[5].beam_size}, "
           f"C={system[5].max_children}, built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    counts, steps, lp_err = full_phase(dev, system, utts)
+    counts, steps, lp_err, full_results, warm_s = full_phase(dev, system,
+                                                            utts)
     torch.cuda.synchronize()
-    counts8, steps8, lp_err8 = full_phase(dev, system, utts, use_int8=True)
+    counts8, steps8, lp_err8, _, _ = full_phase(dev, system, utts,
+                                                use_int8=True)
     torch.cuda.synchronize()
     # the rows of an utterance's first step (beams filling up: many live,
     # long segments) and of its third (the beams' steady width)
@@ -2173,14 +2678,23 @@ def main() -> None:
     bp_counts = beam_prune_phase(dev)
     bp_timing = beam_prune_timing(dev, before)
 
+    # 16. the network front-end: phase 5's system over the wire, faults,
+    # the --serve launcher
+    network = network_phase(dev, smi, full_results, warm_s)
+
     kernels = []
     for name in KERNELS:
         r = rows[name]
+        asr_path = "asr int8" if name == "int8_matmul" else "asr fp32"
+        by_path = {asr_path: (counts8 if name == "int8_matmul"
+                              else counts)[name],
+                   "network": network["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": (counts8 if name == "int8_matmul" else counts)[name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_s"] >= r["ops_s"] else "operations",
@@ -2279,13 +2793,15 @@ def main() -> None:
         "step_ms": steps_ms, "profile": prof, "profile_int8": prof8,
         "conv_layernorm": conv_ln, "launch_floor_ms": floor_ms,
         "int8_b1w1": rows11["int8_matmul"], "hypothesis_rows": census,
-        "lm": lm_results, "lm2": lm2_results, "beam_prune": bp_results},
+        "lm": lm_results, "lm2": lm2_results, "beam_prune": bp_results,
+        "network": network},
         indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
                              for arch, sv in lm2.items())
-          + f"; on the prune path: {bp_counts}", flush=True)
+          + f"; on the prune path: {bp_counts}; on the network path: "
+          f"{network['counts']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

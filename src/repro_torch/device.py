@@ -8,14 +8,20 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller
     names another device (the tests pass ``"cpu"``).  Without a card and
     without an explicit device this raises; it never falls back to the
-    CPU on its own."""
+    CPU on its own.  A card is named with its index (the calling
+    thread's current device when none is given): PyTorch's current
+    device is per thread, and an engine built on one thread is driven
+    from another (`serving.server.EngineWorker` binds its thread to it)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available: the port runs on the GPU by "
                 "default; pass device='cpu' to run it on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def fp32_numerics() -> None:

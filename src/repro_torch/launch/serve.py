@@ -9,6 +9,10 @@
                  dense, MoE, SSM or hybrid arch, not the M-RoPE or
                  frontend-embedding ones), --requests prompts over
                  --slots slots.
+  * --serve    : the network front-end (`serving.server.EngineServer`):
+                 the asr engine over --streams slots and the tiny LM of
+                 --arch over --slots slots, served over HTTP/1.1 until
+                 SIGTERM/SIGINT, which drains in-flight sessions.
 Runs on the GPU unless --device names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
@@ -16,6 +20,8 @@ Runs on the GPU unless --device names another.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --streams 4 --int8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --requests 3 \
       --slots 2 --prompt-len 8 --max-new 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --serve --streams 4 \
+      --port 0 --max-queue 4 --watchdog 30
 """
 from __future__ import annotations
 
@@ -53,11 +59,14 @@ def asr_demo_system():
 
 def asr_demo_engine(n_slots: int, kernels: KernelPolicy = None,
                     device=None, max_queue=None, session_deadline=None,
-                    system=None, use_int8: bool = False) -> tuple:
+                    system=None, use_int8: bool = False,
+                    worker_watchdog=None, faults=None) -> tuple:
     """(engine, words): an AsrEngine over the demo system's program at
     beam 25.  `system` replaces the demo system's tuple (e.g. with
     parameters carried across from the reference); `use_int8` serves the
-    int8 program (FC/head products through the int8 kernel)."""
+    int8 program (FC/head products through the int8 kernel);
+    `max_queue`, `session_deadline`, `worker_watchdog` and `faults` are
+    `EngineConfig`'s admission and fault-tolerance knobs."""
     tds_cfg, words, lex, lm, params, dec_cfg = (
         system if system is not None else asr_demo_system())
     program = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg,
@@ -65,7 +74,9 @@ def asr_demo_engine(n_slots: int, kernels: KernelPolicy = None,
     engine = AsrEngine(EngineConfig(program, n_slots=n_slots,
                                     kernels=kernels or KernelPolicy(),
                                     max_queue=max_queue,
-                                    session_deadline=session_deadline),
+                                    session_deadline=session_deadline,
+                                    worker_watchdog=worker_watchdog,
+                                    faults=faults),
                        params, device=device)
     return engine, words
 
@@ -154,6 +165,82 @@ def serve_lm(args):
     return dict(enumerate(outputs))
 
 
+def serve_network(args):
+    """`--serve`: bind the asyncio network front-end over the demo ASR
+    engine and the tiny LM engine of `args.arch`, and serve until
+    interrupted.  Each engine's step loop runs on its own EngineWorker
+    thread (see repro_torch.serving.server).  On a card the kernel
+    library is built before the server starts, so that a first step's
+    build never counts against the heartbeat watchdog.
+
+    SIGTERM/SIGINT trigger a graceful drain: the listener stops
+    accepting, in-flight sessions run to their final result (bounded by
+    --drain-timeout), then the workers stop."""
+    import asyncio
+    import signal
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import LM
+    from repro_torch.serving.server import EngineServer
+
+    asr_engine, _ = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
+                                    device=args.device,
+                                    max_queue=args.max_queue,
+                                    session_deadline=args.session_deadline,
+                                    use_int8=args.int8,
+                                    worker_watchdog=args.watchdog)
+    lm_cfg = get_config(args.arch).tiny()
+    lm_program = LmProgram(lm_cfg, cache_len=args.prompt_len + args.max_new,
+                           max_new=args.max_new)
+    lm_engine = LmEngine(
+        EngineConfig(lm_program, n_slots=args.slots,
+                     kernels=KernelPolicy(args.kernels),
+                     max_queue=args.max_queue,
+                     session_deadline=args.session_deadline,
+                     worker_watchdog=args.watchdog),
+        LM(lm_cfg).init(torch.Generator().manual_seed(0)),
+        device=args.device)
+    if asr_engine.device.type == "cuda":
+        _build.lib()
+
+    async def run():
+        server = EngineServer(asr_engine=asr_engine, lm_engine=lm_engine,
+                              host=args.host, port=args.port,
+                              asr_idle_timeout=args.idle_timeout)
+        await server.start()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except (NotImplementedError, RuntimeError):
+                pass             # platform without loop signal handlers
+        print(f"serving ASR ({args.streams} slots) + LM ({args.slots} "
+              f"slots) on http://{server.host}:{server.port} "
+              f"(max_queue={args.max_queue}, watchdog={args.watchdog}, "
+              f"session_deadline={args.session_deadline}); POST /asr, "
+              f"POST /lm, GET /metrics, GET /healthz", flush=True)
+        try:
+            serve = asyncio.ensure_future(server.serve_forever())
+            stopper = asyncio.ensure_future(stop.wait())
+            await asyncio.wait({serve, stopper},
+                               return_when=asyncio.FIRST_COMPLETED)
+            serve.cancel()
+            stopper.cancel()
+            if stop.is_set():
+                print("signal received: draining in-flight sessions ...",
+                      flush=True)
+        finally:
+            await server.aclose(drain=True, timeout=args.drain_timeout)
+            print("drained; server stopped", flush=True)
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="asr", choices=["lm", "asr"])
@@ -184,7 +271,36 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions on the CPU)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the asyncio network front-end (HTTP "
+                         "chunked streaming over the demo ASR + LM "
+                         "engines) instead of the in-process demos")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8300,
+                    help="--serve listen port (0 picks a free port)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission backpressure bound: with every slot "
+                         "busy and this many sessions queued, new "
+                         "sessions get HTTP 503 (default: unbounded)")
+    ap.add_argument("--watchdog", type=float, default=None,
+                    help="--serve: seconds an engine worker's heartbeat "
+                         "may age before the supervisor declares it "
+                         "wedged and restarts it (default: only dead "
+                         "threads restart)")
+    ap.add_argument("--session-deadline", type=float, default=None,
+                    help="--serve: seconds a session may live from "
+                         "open() before the pump reaps it "
+                         "(DeadlineExceeded; default: no deadline)")
+    ap.add_argument("--idle-timeout", type=float, default=None,
+                    help="--serve: seconds /asr waits for the next "
+                         "command chunk before freeing a silent "
+                         "client's slot (default: wait forever)")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="--serve: bound on the SIGTERM graceful drain "
+                         "(seconds; in-flight sessions finishing)")
     args = ap.parse_args(argv)
+    if args.serve:
+        return serve_network(args)
     if args.mode == "lm":
         return serve_lm(args)
     if args.streams > 1:

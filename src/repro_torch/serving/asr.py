@@ -290,6 +290,13 @@ class AsrEngine(Engine):
         discards the result (the isolation probe)."""
         batch, idx = self._assemble_batch(slots, w)
         b = idx.shape[0]
+        # injection site: before anything goes to the device, so a raised
+        # or stalled check leaves no work in flight and nothing committed
+        if self._faults is not None:
+            self._faults.check(
+                "asr_step", slots=tuple(slots),
+                sids=tuple(self._owner[s].sid for s in slots
+                           if self._owner[s] is not None))
         samples = torch.from_numpy(batch).to(self.device)
         slots_t = torch.from_numpy(idx).to(self.device)
         new_ss, new_beam = self._run_step(self._stream_state, self._beam,

@@ -5,8 +5,7 @@ hypothesis expansion + decoding step geometry, compiled into a static
 `StepPlan`) or an `LmProgram` (LM arch + cache/generation budget) —
 wrapped in an `EngineConfig` that adds the slot-pool size and the kernel
 policy.  A configured engine never mutates its program.  Everything is
-served on one device: there is no mesh, and fault injection (`faults`)
-comes with a later slice.
+served on one device: there is no mesh.
 """
 from __future__ import annotations
 
@@ -185,15 +184,29 @@ class EngineConfig:
     `kernels` selects how the kernel-backed decode ops execute (see
     `repro_torch.kernels.policy.KernelPolicy`).  `max_queue` is the
     admission backpressure bound (`AdmissionRejected` when every slot is
-    busy and the queue is full; None = unbounded).  `session_deadline`
-    reaps sessions older than that many seconds.  `faults` must stay None
-    until fault injection is ported."""
+    busy and the queue is full; None = unbounded).
+
+    Fault-tolerance knobs (README "Fault tolerance"):
+
+    `session_deadline` — wall-clock seconds a session may live from
+    `open()` before the pump reaps it (`DeadlineExceeded`).  None = no
+    deadline.
+
+    `worker_watchdog` — seconds an `EngineWorker`'s heartbeat may age
+    before the server's supervisor declares the worker wedged, fails its
+    in-flight futures, rebuilds the pool and restarts the thread.  None
+    disables the wedge detection (a dead thread is still restarted).
+
+    `faults` — an armed `repro_torch.serving.faults.FaultPolicy`
+    consulted at the engines' injection sites; None skips every check."""
     program: Program
     n_slots: int = 1
     kernels: KernelPolicy = field(default_factory=KernelPolicy)
     max_queue: Optional[int] = None
     session_deadline: Optional[float] = None
-    faults: Optional[object] = None
+    worker_watchdog: Optional[float] = None
+    faults: Optional[object] = None    # FaultPolicy; object() keeps the
+                                       # config module import-light
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -205,10 +218,10 @@ class EngineConfig:
             raise ValueError(
                 f"session_deadline must be None or > 0, got "
                 f"{self.session_deadline}")
-        if self.faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet: EngineConfig.faults "
-                "must be None")
+        if self.worker_watchdog is not None and self.worker_watchdog <= 0:
+            raise ValueError(
+                f"worker_watchdog must be None or > 0, got "
+                f"{self.worker_watchdog}")
 
 
 def make_engine(config: EngineConfig, params, device=None):

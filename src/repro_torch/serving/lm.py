@@ -226,6 +226,9 @@ class LmEngine(Engine):
     def _prefill_group(self, bucket: int, group, commit: bool = True) -> None:
         # pad to the smallest covering batch sub-bucket: a 1-request
         # admission runs a 1-row prefill instead of n_slots rows
+        if self._faults is not None:
+            self._faults.check("lm_prefill",
+                               sids=tuple(s.sid for s, _ in group))
         B = next(b for b in self._batch_buckets if b >= len(group))
         toks = np.zeros((B, bucket), np.int32)
         lens = np.ones((B,), np.int32)

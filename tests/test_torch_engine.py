@@ -29,7 +29,8 @@ from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import tds as ttds  # noqa: E402
 from repro_torch.serving import (AdmissionRejected, AsrEngine,  # noqa: E402
-                                 AsrProgram, EngineConfig, SessionFaulted)
+                                 AsrProgram, EngineConfig, FaultPolicy,
+                                 FaultSpec, SessionFaulted)
 
 torch.set_num_threads(1)
 
@@ -226,8 +227,13 @@ def test_engine_config_validation_and_backpressure(system):
     prog = AsrProgram(system[0], system[2], system[3])
     with pytest.raises(ValueError):
         EngineConfig(prog, n_slots=0)
-    with pytest.raises(NotImplementedError, match="fault"):
-        EngineConfig(prog, faults=object())
+    cfg = EngineConfig(prog, faults=FaultPolicy([FaultSpec("asr_step")]),
+                       worker_watchdog=0.4)
+    assert cfg.worker_watchdog == 0.4 and cfg.faults.specs[0].site == \
+        "asr_step"
+    for bad in (0, -1.0):
+        with pytest.raises(ValueError, match="worker_watchdog"):
+            EngineConfig(prog, worker_watchdog=bad)
     eng = _port_engine(system, 1, max_queue=0)
     sess = eng.open()
     with pytest.raises(AdmissionRejected):
