@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: the streaming ASR decode path,
 batched LM serving (dense, SSM and MoE families), the standalone
-beam-threshold prune and the network front-end.
+beam-threshold prune, the network front-end, and training (CTC training
+of the full-width TDS model, the LM trainer at full width).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -156,6 +157,34 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                subprocess answers an /asr stream, an LM request and
                /metrics, and SIGTERM drains it with exit code 0.  The
                phase must take at most 60 s.
+  Training phases (no kernel has a backward: training runs
+  KernelPolicy("ref"), and every CUDA wrapper refuses a tensor that
+  requires grad):
+ 17. asr train — the paper's TDS_CONFIG at full width (93.0 M fp32
+               parameters, TF32 off), seeded weights, a batch of 8
+               SyntheticASR utterances over phase 5's lexicon words.
+               (a) CTC loss and gradients on the card against the CPU on
+               the same weights and batch (ASR_LOSS_RTOL; the gradients
+               against the CPU's fp64 ones, ASR_GRAD_RTOL);
+               (b) 20 AdamW steps on the card: losses finite, the last
+               below the first, ms a step, seconds of audio a second, a
+               profiler breakdown of one step; (c) the trained weights
+               decode 4 held-out utterances through `AsrEngine` at 4
+               slots, fp32 and int8 programs, kernel against plain
+               policy: words equal, scores close, every ASR kernel's
+               launches (counts set to 0 just before each kernel-policy
+               serve, read just after) equal to the steps'; the WER;
+               (d) each CUDA wrapper given a weight that requires grad
+               raises and launches nothing.
+ 18. lm train — `repro_torch.launch.train.main` for h2o-danube-1.8b at
+               full width (bf16 parameters, fp32 AdamW moments), batch 2
+               x 2048 tokens: 4 steps; 2 steps with a checkpoint at step
+               2; a 2-step --resume from it, whose losses must equal the
+               4-step run's last two.  Step time, tokens/s and the model
+               FLOPs' share of the bf16 peak, a profiler breakdown of one
+               step; then the model cut to its first 2 layers (every
+               width kept) in fp32 at S = 256: `loss_fn` and gradients on
+               the card against the CPU (LM_LOSS_RTOL, LM_GRAD_RTOL).
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -166,7 +195,9 @@ import asyncio
 import contextlib
 import json
 import os
+import gc
 import pathlib
+import shutil
 import signal
 import subprocess
 import sys
@@ -185,8 +216,10 @@ sys.path.insert(0, str(ROOT / "src"))     # the port, from this checkout
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.tds_asr import (DECODER_CONFIG,  # noqa: E402
                                          FEATURE_CONFIG, TDS_CONFIG)
-from repro_torch.core import features, lexicon as lx  # noqa: E402
-from repro_torch.data.pipeline import SyntheticASR  # noqa: E402
+from repro_torch.core import ctc, features, lexicon as lx  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig, SyntheticASR,  # noqa: E402
+                                       SyntheticLM)
+from repro_torch.device import fp32_numerics  # noqa: E402
 from repro_torch.core.scheduler import ASRPU  # noqa: E402
 from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  beam_prune as kbp, flash_attention as kfa,
@@ -194,10 +227,14 @@ from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
 from repro_torch.models import LM, moe, tds  # noqa: E402
-from repro_torch.core.treeutil import tree_map  # noqa: E402
+from repro_torch.core.treeutil import (leaves_with_paths,  # noqa: E402
+                                       tree_map, value_and_grad)
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
                                  EngineConfig, FaultPolicy, FaultSpec,
                                  LmEngine, LmProgram)
@@ -339,6 +376,32 @@ NET_LAUNCHER_WAIT_S = 120.0     # the --serve subprocess's drain and exit
 NET_WATCHDOG_S = 1.0
 NET_POISON_SID = 1
 NET_PHASE_LIMIT_S = 60.0
+# training (phases 17, 18) runs the kernels' plain versions
+PLAIN = KernelPolicy("ref")
+# phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
+# phase 5's lexicon words (AdamW, no weight decay, as the reference's
+# ASR training test), then 4 held-out utterances decoded
+ASR_TRAIN_BATCH, ASR_HELD_OUT, ASR_TRAIN_STEPS = 8, 4, 20
+ASR_TRAIN_LR = 1e-3
+# card against CPU on the same fp32 weights and batch (TF32 off): the
+# loss within rtol 1e-4 of the CPU's fp32 one.  Each gradient leaf's
+# max|err| within 1e-4 of its max|g|, held against the CPU's fp64
+# gradients: in a first chip run the CPU's own fp32 gradients were 2.0e-2
+# from them at worst (median 3.3e-3; the losses bitwise equal), the
+# card's 4.9e-6, so a card-vs-CPU fp32 limit would have to be loose
+# enough to pass a wrong gradient
+ASR_LOSS_RTOL, ASR_GRAD_RTOL = 1e-4, 1e-4
+# phase 18: h2o-danube-1.8b at full width through the launcher, (B, S) =
+# (2, 2048); its numerics at 2 of its 24 layers in fp32 at S = 256, the
+# loss within rtol 1e-5 and each gradient leaf within 1e-4 of its max|g|
+# (fp32 without TF32, summation order only, over 2 layers and a 32256-
+# wide head); a resumed run's losses within LM_RESUME_ATOL of the
+# uninterrupted run's (the same state and data: equal up to the card's
+# non-deterministic gradient sums)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TIMED_STEPS = 2, 2048, 3
+LM_TRAIN_PARITY_LAYERS, LM_TRAIN_PARITY_SEQ = 2, 256
+LM_LOSS_RTOL, LM_GRAD_RTOL = 1e-5, 1e-4
+LM_RESUME_ATOL = 1e-3
 
 
 def _leaves(tree):
@@ -2485,6 +2548,421 @@ def network_phase(dev, smi, full_results, inproc_s) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: ASR training (CTC) at full width
+# ---------------------------------------------------------------------------
+def tree_to(tree, dev):
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def grad_gaps(got, want) -> dict:
+    """{leaf path: max |got - want| / max |want|} of two gradient trees
+    (got on the card, want on the CPU)."""
+    w = dict(leaves_with_paths(want))
+    return {"/".join(map(str, path)): float(
+        (g.cpu().float() - w[path].float()).abs().max()
+        / max(float(w[path].abs().max()), 1e-30))
+        for path, g in leaves_with_paths(got)}
+
+
+def check_grads(tag, loss_dev, loss_cpu, g_dev, g_cpu, loss_rtol,
+                grad_rtol, g_ref=None) -> dict:
+    """The card's fp32 loss against the CPU's within `loss_rtol`, and each
+    gradient leaf's max|err| / max|g| within `grad_rtol`: against the
+    CPU's fp32 gradients `g_cpu`, or, where given, against the CPU's fp64
+    ones `g_ref` (the CPU fp32's own distance from them is printed)."""
+    gaps = grad_gaps(g_dev, g_cpu)
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(float(loss_dev) - float(loss_cpu)) / abs(float(loss_cpu))
+    print(f"[{tag}] card vs CPU fp32: loss {float(loss_dev):.6f} vs "
+          f"{float(loss_cpu):.6f} (relative {loss_gap:.3e}, limit "
+          f"{loss_rtol}); gradients over {len(gaps)} leaves: worst max|err| "
+          f"/ max|g| {gaps[worst]:.3e} at {worst}, median "
+          f"{float(np.median(list(gaps.values()))):.3e}", flush=True)
+    out = {"loss_card": float(loss_dev), "loss_cpu": float(loss_cpu),
+           "loss_rel_err": loss_gap, "grad_rel_err_worst": gaps[worst],
+           "grad_rel_err_worst_leaf": worst,
+           "grad_rel_err_median": float(np.median(list(gaps.values())))}
+    held = gaps
+    if g_ref is not None:
+        held, e_cpu = grad_gaps(g_dev, g_ref), grad_gaps(g_cpu, g_ref)
+        w = max(held, key=held.get)
+        print(f"[{tag}] against the CPU's fp64 gradients: card fp32 worst "
+              f"{held[w]:.3e} at {w}, median "
+              f"{float(np.median(list(held.values()))):.3e}; CPU fp32 worst "
+              f"{max(e_cpu.values()):.3e}, median "
+              f"{float(np.median(list(e_cpu.values()))):.3e}", flush=True)
+        out.update(card_vs_fp64_worst=held[w], card_vs_fp64_worst_leaf=w,
+                   card_vs_fp64_median=float(np.median(list(held.values()))),
+                   cpu_vs_fp64_worst=max(e_cpu.values()),
+                   cpu_vs_fp64_median=float(np.median(list(e_cpu.values()))))
+    if loss_gap > loss_rtol or max(held.values()) > grad_rtol:
+        fail(f"{tag}: the card's loss or gradients are off (limits: loss "
+             f"rtol {loss_rtol}, gradients {grad_rtol}): {out}")
+    if not all(torch.isfinite(g).all() for _, g in leaves_with_paths(g_dev)):
+        fail(f"{tag}: non-finite gradients on the card")
+    return out
+
+
+def asr_train_batch(words, dev, first: int, n: int):
+    """`n` SyntheticASR utterances (2 words each) from index `first`: the
+    audio padded to the longest (silence -> blanks, no transcript cut),
+    its MFCC on the card (plain path, frames trimmed to a multiple of the
+    model's subsampling) and the -1-padded token labels.  Fails where a
+    transcript cannot align to the frames (CTC would give ~1e30)."""
+    data = SyntheticASR(words)
+    utts = [data.utterance(first + i, n_words=2) for i in range(n)]
+    n_samp = max(len(u["audio"]) for u in utts)
+    audio = np.zeros((n, n_samp), np.float32)
+    n_lab = max(len(u["tokens"]) for u in utts)
+    labels = np.full((n, n_lab), -1, np.int64)
+    for i, u in enumerate(utts):
+        audio[i, :len(u["audio"])] = u["audio"]
+        labels[i, :len(u["tokens"])] = u["tokens"]
+    feats = features.mfcc(torch.from_numpy(audio).to(dev), FEATURE_CONFIG,
+                          kernels=PLAIN)
+    sub = TDS_CONFIG.total_subsample
+    feats = feats[:, :(feats.shape[1] // sub) * sub].contiguous()
+    frames = feats.shape[1] // sub
+    for u in utts:
+        t = u["tokens"]
+        need = len(t) + int((t[1:] == t[:-1]).sum())
+        if need > frames:
+            fail(f"asr train: {len(t)} tokens need {need} of {frames} frames")
+    return utts, audio, feats, torch.from_numpy(labels).to(dev)
+
+
+def asr_loss(params, feats, labels):
+    st = tds.init_batched_stream_state(TDS_CONFIG, feats.shape[0],
+                                       feats.device)
+    lps, _ = tds.forward_batched(params, TDS_CONFIG, feats, st,
+                                 kernels=PLAIN)
+    return ctc.ctc_loss_batch(lps, labels)
+
+
+def trained_decode(dev, system, params, utts, use_int8) -> dict:
+    """The held-out utterances through `AsrEngine` (4 slots) with the
+    trained weights, kernel policy (counts set to 0 just before, read
+    just after, held against the steps) then plain policy: words equal,
+    scores close."""
+    tds_cfg, words, lex, lm, _, dec_cfg = system
+    tag = f"asr train decode {'int8' if use_int8 else 'fp32'}"
+    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg, use_int8=use_int8)
+    res, counts, steps = {}, None, None
+    for mode in ("kernel", "ref"):
+        eng = AsrEngine(EngineConfig(prog, n_slots=4,
+                                     kernels=KernelPolicy(mode)), params,
+                        device=dev)
+        ops.reset_launch_counts()
+        res[mode] = eng.serve(utts)
+        torch.cuda.synchronize()
+        if mode == "kernel":
+            counts, steps = ops.launch_counts(), list(eng.step_shapes)
+    n = len(steps)
+    expect = {name: 0 for name in counts}
+    expect.update({"logmel": n, "tds_conv": 18 * n, "layernorm": 15 * n,
+                   "hypothesis_unit": sum(w for _, _, w in steps),
+                   "int8_matmul": 29 * n if use_int8 else 0})
+    print(f"[{tag}] {len(utts)} held-out utterances, {n} steps; launch "
+          f"counts {counts}, expected {expect}", flush=True)
+    if counts != expect or not n:
+        fail(f"{tag}: launch counts {counts} != expected {expect}")
+    rtol = INT8_SCORE_RTOL if use_int8 else 1e-4
+    for i, (a, b) in enumerate(zip(res["kernel"], res["ref"])):
+        same = (np.array_equal(a["words"], b["words"])
+                and np.array_equal(a["tokens"], b["tokens"]))
+        print(f"[{tag}] utt {i}: words {a['words'].tolist()} (ref "
+              f"{b['words'].tolist()}) score kernel {a['score']:.6f} ref "
+              f"{b['score']:.6f}", flush=True)
+        if not same or not np.isfinite(a["score"]) or not np.isclose(
+                a["score"], b["score"], rtol=rtol, atol=1e-4):
+            fail(f"{tag} utt {i}: kernel {a['words'].tolist()} "
+                 f"{a['score']} vs plain {b['words'].tolist()} {b['score']}"
+                 f" (rtol {rtol})")
+    return {"counts": counts, "steps": steps,
+            "words": [r["words"].tolist() for r in res["kernel"]]}
+
+
+def guard_phase(dev) -> list:
+    """Every CUDA wrapper, given a weight that requires grad with grad
+    mode on, raises (pointing at KernelPolicy('ref')) and launches
+    nothing."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    tables = features._tables(FEATURE_CONFIG, dev)
+    x4, w3, b3 = r(2, 6, 80, 3), r(3, 3, 4), r(4)
+    ln, y = r(320), r(4, 320)
+    wq = torch.randint(-127, 128, (320, 64), dtype=torch.int8, device=dev)
+    xq = torch.randint(-127, 128, (4, 320), dtype=torch.int8, device=dev)
+    hashes = torch.randint(0, 2 ** 31 - 1, (2, 256), dtype=torch.int32,
+                           device=dev)
+    q = r(1, 4, 64, 64)
+    cases = {
+        "tds_conv": lambda w: ktc.tds_conv(x4, w(w3), b3),
+        "tds_conv_ln": lambda w: ktc.tds_conv_ln(x4, w3, b3, w(ln), ln),
+        "layernorm": lambda w: kln.layernorm(y, w(ln), ln),
+        "bias_residual_layernorm": lambda w: kln.bias_residual_layernorm(
+            y, ln, ln, add_bias=w(ln), res=y),
+        "rmsnorm": lambda w: kln.rmsnorm(y, w(ln)),
+        "logmel": lambda w: klm.logmel(r(8, 257).abs(), w(tables.fb),
+                                       tables.dct),
+        "mfcc": lambda w: klm.mfcc(w(r(2, 1520)), FEATURE_CONFIG, tables),
+        "int8_matmul": lambda w: kim.int8_matmul(xq, wq, r(4).abs(),
+                                                 w(r(64).abs())),
+        "int8_matmul_fused": lambda w: kim.int8_matmul_fused(
+            r(4, 320), wq, w(r(64).abs())),
+        "hypothesis_unit": lambda w: khu.hypothesis_unit(
+            hashes, w(r(2, 256)), r(2, 256), k=8, beam=10.0),
+        "flash_attention": lambda w: kfa.flash_attention(q, w(q), q),
+        "beam_prune": lambda w: kbp.beam_prune(w(r(1000)), 5.0),
+    }
+    refused = []
+    for name, call in cases.items():
+        before = ops.launch_counts()
+        try:
+            call(lambda t: t.clone().requires_grad_())
+        except RuntimeError as e:
+            if "KernelPolicy('ref') to train" not in str(e):
+                fail(f"guard: {name} raised an unexpected error: {e}")
+            refused.append(name)
+        else:
+            fail(f"guard: {name} launched on a weight that requires grad")
+        if ops.launch_counts() != before:
+            fail(f"guard: {name} launched before refusing")
+        with torch.no_grad():                  # the same call, grad mode off
+            call(lambda t: t.clone().requires_grad_())
+    torch.cuda.synchronize()
+    print(f"[guard] {len(refused)} CUDA wrappers refused a weight that "
+          f"requires grad and launched nothing: {refused}; each launched "
+          f"with grad mode off", flush=True)
+    return refused
+
+
+def asr_train_phase(dev) -> dict:
+    t_phase = time.perf_counter()
+    fp32_numerics()
+    system = full_width_system(dev)
+    words = system[1]
+    utts, audio, feats, labels = asr_train_batch(words, dev, 0,
+                                                 ASR_TRAIN_BATCH)
+    held = [SyntheticASR(words).utterance(ASR_TRAIN_BATCH + i, n_words=2)
+            for i in range(ASR_HELD_OUT)]
+    params_cpu = tds.init_tds(torch.Generator().manual_seed(SEED),
+                              TDS_CONFIG)
+    params = tree_to(params_cpu, dev)
+    n_params = sum(t.numel() for _, t in leaves_with_paths(params))
+    audio_s = audio.size / FEATURE_CONFIG.sample_rate
+    print(f"[asr train] TDS_CONFIG, {n_params} parameters (fp32, TF32 off); "
+          f"a batch of {len(utts)} utterances, {audio_s:.2f} s of audio "
+          f"(padded), feats {tuple(feats.shape)}, labels "
+          f"{tuple(labels.shape)}", flush=True)
+
+    # (a) the same weights and batch: card against CPU
+    t0 = time.perf_counter()
+    loss_d, g_d = value_and_grad(lambda p: asr_loss(p, feats, labels), params)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, g_c = value_and_grad(
+        lambda p: asr_loss(p, feats.cpu(), labels.cpu()), params_cpu)
+    t_cpu = time.perf_counter() - t0
+    _, g_64 = value_and_grad(
+        lambda p: asr_loss(p, feats.cpu().double(), labels.cpu()),
+        tree_map(torch.Tensor.double, params_cpu))
+    print(f"[asr train] loss and gradients: card {t_card * 1e3:.1f} ms "
+          f"(first use), CPU {t_cpu * 1e3:.1f} ms", flush=True)
+    parity = check_grads("asr train", loss_d, loss_c, g_d, g_c,
+                         ASR_LOSS_RTOL, ASR_GRAD_RTOL, g_ref=g_64)
+    del g_c, g_64, params_cpu
+
+    # (b) AdamW steps on the card
+    ocfg = adamw.AdamWConfig(lr=ASR_TRAIN_LR, weight_decay=0.0)
+    opt = adamw.init(params, ocfg)
+
+    def step(p, o):
+        loss, g = value_and_grad(lambda q: asr_loss(q, feats, labels), p)
+        p, o = adamw.update(g, o, p, ocfg)
+        return p, o, loss
+
+    losses, times = [], []
+    for _ in range(ASR_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    step_ms = float(np.median(times[1:])) * 1e3
+    print(f"[asr train] {ASR_TRAIN_STEPS} AdamW steps (lr {ASR_TRAIN_LR}): "
+          f"ctc loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{step_ms:.3f} ms a step (median of {len(times) - 1}, "
+          f"synchronized), {audio_s / step_ms * 1e3:.2f} s of audio a "
+          f"second", flush=True)
+    print(f"[asr train] losses {[round(v, 4) for v in losses]}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"asr train: losses {losses} not finite or not falling")
+    prof = device_breakdown(lambda: step(params, opt), "asr train",
+                            "one training step (forward, CTC, backward, "
+                            "AdamW)", step_ms)
+
+    # (c) decode held-out utterances with the trained weights
+    audio_held = [u["audio"] for u in held]
+    fp32 = trained_decode(dev, system, params, audio_held, use_int8=False)
+    int8 = trained_decode(dev, system, params, audio_held, use_int8=True)
+    refs = [u["words"].tolist() for u in held]
+    wer_fp32 = ctc.wer(refs, fp32["words"])
+    print(f"[asr train] held-out WER after {ASR_TRAIN_STEPS} steps: fp32 "
+          f"{wer_fp32:.3f}, int8 {ctc.wer(refs, int8['words']):.3f}",
+          flush=True)
+
+    # (d) the gradient guard
+    refused = guard_phase(dev)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[asr train] phase 17 took {phase_s:.2f} s", flush=True)
+    return {"parameters": n_params, "batch": len(utts), "audio_s": audio_s,
+            "parity": parity, "losses": losses, "step_ms": step_ms,
+            "step_ms_all": [t * 1e3 for t in times],
+            "audio_s_per_s": audio_s / step_ms * 1e3, "profile": prof,
+            "decode_fp32": fp32, "decode_int8": int8, "wer_fp32": wer_fp32,
+            "guard_refused": refused, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: LM training at full width
+# ---------------------------------------------------------------------------
+def lm_train_parity(dev) -> dict:
+    """LM_ARCH cut to its first LM_TRAIN_PARITY_LAYERS layers (every width
+    kept) in fp32: `loss_fn` and its gradients on the card against the
+    CPU, on the same seeded weights and one SyntheticLM batch."""
+    cfg = replace(get_config(LM_ARCH), n_layers=LM_TRAIN_PARITY_LAYERS,
+                  dtype="float32")
+    lm = LM(cfg, PLAIN)
+    p_cpu = lm.init(torch.Generator().manual_seed(SEED))
+    b = SyntheticLM(DataConfig(cfg.vocab_size, LM_TRAIN_PARITY_SEQ,
+                               LM_TRAIN_BATCH)).batch(0)
+    batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    t0 = time.perf_counter()
+    (loss_c, _), g_c = value_and_grad(lambda p: lm.loss_fn(p, batch), p_cpu,
+                                      has_aux=True)
+    t_cpu = time.perf_counter() - t0
+    p_dev = tree_to(p_cpu, dev)
+    del p_cpu
+    (loss_d, _), g_d = value_and_grad(
+        lambda p: lm.loss_fn(p, tree_to(batch, dev)), p_dev, has_aux=True)
+    torch.cuda.synchronize()
+    print(f"[lm train] parity: {cfg.name} at {cfg.n_layers} of "
+          f"{get_config(LM_ARCH).n_layers} layers, "
+          f"fp32, (B, S) = ({LM_TRAIN_BATCH}, {LM_TRAIN_PARITY_SEQ}); CPU "
+          f"{t_cpu:.2f} s", flush=True)
+    return check_grads("lm train", loss_d, loss_c, g_d, g_c, LM_LOSS_RTOL,
+                       LM_GRAD_RTOL)
+
+
+def lm_train_timing(dev, cfg) -> dict:
+    """Synchronized step times of `make_train_step` at (LM_TRAIN_BATCH,
+    LM_TRAIN_SEQ) on the full-width model, tokens/s, the model FLOPs'
+    share of the bf16 dense peak, and a profiler breakdown of one step."""
+    lm = LM(cfg, PLAIN)
+    ocfg = adamw.AdamWConfig()
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED))
+    state = {"params": params, "opt": adamw.init(params, ocfg),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    step = make_train_step(lm, ocfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH)).batch(
+        0).items()}
+    times = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(LM_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times[1:])) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    shapes = lm.param_shapes()
+    n = sum(t.numel() for _, t in leaves_with_paths(shapes))
+    n_matmul = n - shapes["embed"]["w"].numel()   # lookups do no product
+    # model FLOPs of a step: 6 per matmul parameter and token (forward and
+    # backward), plus causal attention's two products (2 * S^2 / 2 * Dh
+    # FLOPs a head and row forward, 3x with the backward); the remat
+    # recompute and the plain attention's masked half are not counted
+    s_eff = min(LM_TRAIN_SEQ, cfg.attn_window or LM_TRAIN_SEQ)
+    attn = (6 * cfg.n_layers * LM_TRAIN_BATCH * cfg.n_heads * cfg.head_dim
+            * LM_TRAIN_SEQ * s_eff)
+    flops = 6 * n_matmul * tokens + attn
+    share = flops / (step_ms / 1e3) / PEAK_BF16
+    print(f"[lm train] {cfg.name} full width ({n} parameters, bf16, fp32 "
+          f"AdamW moments): {step_ms:.2f} ms a step (median of "
+          f"{LM_TIMED_STEPS}, synchronized; first {times[0] * 1e3:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s; model FLOPs {flops:.4e} a "
+          f"step (6·N·tokens {6 * n_matmul * tokens:.4e} + attention "
+          f"{attn:.4e}) = {share * 100:.2f}% of the bf16 dense peak "
+          f"({PEAK_BF16 / 1e12:.0f} TFLOP/s); peak memory {peak_gb:.2f} GB",
+          flush=True)
+    prof = device_breakdown(lambda: step(state, batch), "lm train",
+                            "one training step (remat forward, backward, "
+                            "AdamW)", step_ms)
+    del state
+    return {"step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": tokens / step_ms * 1e3, "model_flops": flops,
+            "attention_flops": attn, "matmul_parameters": n_matmul,
+            "bf16_peak_share": share, "peak_memory_gb": peak_gb,
+            "profile": prof}
+
+
+def lm_train_phase(dev) -> dict:
+    """`python -m repro_torch.launch.train --arch LM_ARCH` at full width
+    through its `main(argv)`: 4 steps; 2 steps with a checkpoint at step
+    2; a 2-step `--resume` from it, whose losses must equal the 4-step
+    run's last two (it starts from step 2's state: parameters, moments,
+    count).  Then the step timing and the numerics at 2 layers."""
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    ckpt = OUT / "lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    common = ["--arch", LM_ARCH, "--batch", str(LM_TRAIN_BATCH), "--seq",
+              str(LM_TRAIN_SEQ), "--log-every", "1", "--device", str(dev)]
+    runs = {}
+    for name, args in (
+            ("4 steps", ["--steps", "4"]),
+            ("2 steps, checkpoint at 2", ["--steps", "2", "--ckpt",
+                                          str(ckpt), "--ckpt-every", "2"]),
+            ("2-step resume", ["--steps", "2", "--ckpt", str(ckpt),
+                               "--resume"])):
+        t0 = time.perf_counter()
+        runs[name] = train.main(common + args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[lm train] launcher, {name}: losses {runs[name]} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    full, first, resumed = runs.values()
+    if not all(np.isfinite(v).all() for v in runs.values()):
+        fail(f"lm train: non-finite losses {runs}")
+    gaps = (max(abs(a - b) for a, b in zip(first, full[:2])),
+            max(abs(a - b) for a, b in zip(resumed, full[2:])))
+    print(f"[lm train] the checkpointing run against the 4-step run's first "
+          f"two losses: max|diff| {gaps[0]:.3e}; the resumed run against its "
+          f"last two: {gaps[1]:.3e} (limit {LM_RESUME_ATOL})", flush=True)
+    if max(gaps) > LM_RESUME_ATOL:
+        fail(f"lm train: the resumed run does not continue from step 2: "
+             f"{runs}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    timing = lm_train_timing(dev, cfg)
+    torch.cuda.empty_cache()
+    parity = lm_train_parity(dev)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"[lm train] phase 18 took {phase_s:.2f} s", flush=True)
+    return {"arch": LM_ARCH, "runs": runs, "resume_gaps": gaps,
+            **timing, "parity": parity, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2670,7 +3148,7 @@ def main() -> None:
             for name, dtype in (("fp32", torch.float32),
                                 ("bf16", torch.bfloat16))}
         lm2[arch]["parity"] = par
-    del lm2_params
+    del lm2_params, params2      # the loop's last model: 28.7 GB in bf16
     torch.cuda.empty_cache()
 
     # 14. beam_prune checks; 15. the prune path and its timing
@@ -2682,13 +3160,27 @@ def main() -> None:
     # the --serve launcher
     network = network_phase(dev, smi, full_results, warm_s)
 
+    # 17. ASR training at full width; 18. LM training at full width.  The
+    # LM serving models went after phase 13, phase 5's system after phase
+    # 6: the card holds nothing of them here
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated before the training phases", flush=True)
+    asr_train = asr_train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train = lm_train_phase(dev)
+
     kernels = []
     for name in KERNELS:
         r = rows[name]
         asr_path = "asr int8" if name == "int8_matmul" else "asr fp32"
         by_path = {asr_path: (counts8 if name == "int8_matmul"
                               else counts)[name],
-                   "network": network["counts"][name]}
+                   "network": network["counts"][name],
+                   "trained asr fp32": asr_train["decode_fp32"]["counts"][name],
+                   "trained asr int8": asr_train["decode_int8"]["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -2794,14 +3286,17 @@ def main() -> None:
         "conv_layernorm": conv_ln, "launch_floor_ms": floor_ms,
         "int8_b1w1": rows11["int8_matmul"], "hypothesis_rows": census,
         "lm": lm_results, "lm2": lm2_results, "beam_prune": bp_results,
-        "network": network},
+        "network": network, "asr_train": asr_train, "lm_train": lm_train},
         indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
                              for arch, sv in lm2.items())
           + f"; on the prune path: {bp_counts}; on the network path: "
-          f"{network['counts']}", flush=True)
+          f"{network['counts']}; decoding with the trained weights: fp32 "
+          f"{asr_train['decode_fp32']['counts']}, int8 "
+          f"{asr_train['decode_int8']['counts']}; training itself launched "
+          f"none (KernelPolicy('ref'))", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

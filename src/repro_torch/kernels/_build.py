@@ -158,6 +158,26 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Refuse a launch whose output autograd would have to differentiate.
+
+    Every CUDA wrapper calls this with all of its tensor arguments before
+    it launches.  A kernel writes a fresh `torch.empty` through a raw
+    pointer, so its output has no `grad_fn`, and a gradient through it
+    would go missing without a word.  No kernel has a backward (nor has
+    the reference one): training runs the plain versions.  This raises
+    rather than falling back to them, which would hide the kernel."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: a CUDA kernel has no backward and was given a "
+                f"tensor that requires grad; use KernelPolicy('ref') to "
+                f"train")
+
+
 def stream(device) -> int:
     """Handle of PyTorch's current CUDA stream on `device`."""
     import torch

@@ -46,6 +46,7 @@ def beam_prune(scores: torch.Tensor, beam: float) -> torch.Tensor:
     global launches
     if not scores.is_cuda:
         return ref.beam_prune(scores, beam)
+    _build.refuse_grad("beam_prune", scores)
     dev = scores.device
     _build.require(scores, "scores", torch.float32, 1, dev)
     n = scores.shape[0]

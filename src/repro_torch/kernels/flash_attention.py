@@ -52,6 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     if not q.is_cuda:
         return ref.flash_attention(q, k, v, causal=causal, window=window)
+    _build.refuse_grad("flash_attention", q, k, v)
     dev, dt = q.device, q.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: expected float32 or bfloat16, "

@@ -40,6 +40,7 @@ def hypothesis_unit(hashes: torch.Tensor, pb: torch.Tensor,
     global launches
     if not hashes.is_cuda:
         return ref.hypothesis_unit(hashes, pb, pnb, k=k, beam=beam)
+    _build.refuse_grad("hypothesis_unit", hashes, pb, pnb)
     dev = hashes.device
     _build.require(hashes, "hashes", torch.int32, 2, dev)
     _build.require(pb, "pb", torch.float32, 2, dev)

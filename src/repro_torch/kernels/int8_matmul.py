@@ -160,6 +160,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
     (M, N) f32.  `plan` overrides the launch shape (`plan()`)."""
     if not xq.is_cuda:
         return ref.int8_matmul(xq, wq, xs, ws)
+    _build.refuse_grad("int8_matmul", xq, wq, xs, ws)
     dev = xq.device
     _build.require(xq, "xq", torch.int8, 2, dev)
     wqt = _weight(wq, dev, xq.shape[1])
@@ -179,6 +180,7 @@ def int8_matmul_fused(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     launch (`ops.int8_matmul_prepared` on the card)."""
     if not x.is_cuda:
         return ref.int8_matmul_prepared(x, wq, ws)
+    _build.refuse_grad("int8_matmul_fused", x, wq, ws)
     dev = x.device
     _build.require(x, "x", torch.float32, 2, dev)
     wqt = _weight(wq, dev, x.shape[1])

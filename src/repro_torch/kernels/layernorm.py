@@ -52,6 +52,7 @@ def bias_residual_layernorm(y: torch.Tensor, scale: torch.Tensor,
     if not y.is_cuda:
         return ref.bias_residual_layernorm(y, scale, bias, add_bias=add_bias,
                                            res=res, eps=eps)
+    _build.refuse_grad("layernorm", y, scale, bias, add_bias, res)
     dev = y.device
     _build.require(y, "y", torch.float32, 2, dev)
     _build.require(scale, "scale", torch.float32, 1, dev)
@@ -86,6 +87,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     global rmsnorm_launches
     if not x.is_cuda:
         return ref.rmsnorm(x, scale, eps=eps)
+    _build.refuse_grad("rmsnorm", x, scale)
     dev = x.device
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"rmsnorm: expected float32 or bfloat16 rows, got "

@@ -70,6 +70,7 @@ def logmel(power: torch.Tensor, fb: torch.Tensor,
     global launches
     if not power.is_cuda:
         return ref.logmel(power, fb, dct)
+    _build.refuse_grad("logmel", power, fb, dct)
     dev = power.device
     for t, name in ((power, "power"), (fb, "fb"), (dct, "dct")):
         _build.require(t, name, torch.float32, 2, dev)
@@ -95,6 +96,7 @@ def mfcc(signal: torch.Tensor, cfg, tables) -> torch.Tensor:
     global launches
     if not signal.is_cuda:
         return ref.mfcc(signal, cfg, tables)
+    _build.refuse_grad("mfcc", signal, *tables)
     dev = signal.device
     if signal.dim() < 1 or not signal.is_contiguous():
         raise ValueError("mfcc: expected a contiguous signal of at least one "

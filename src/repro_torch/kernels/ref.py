@@ -55,8 +55,10 @@ def int8_matmul_prepared(x, wq, ws):
 
 
 def layernorm(x, scale, bias, eps=1e-5):
-    """x: (T, D) any float dtype; fp32 statistics (population variance)."""
-    xf = x.float()
+    """x: (T, D) any float dtype; fp32 statistics (population variance),
+    fp64 for fp64 rows (so that autograd's float64 gradcheck sees the
+    function at full precision)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mu = xf.mean(-1, keepdim=True)
     var = (xf - mu).square().mean(-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
@@ -260,16 +262,17 @@ def tds_conv_fused(x, w, b, *, stride=1, relu=False, res=None):
     x: (B, k-1+T, W, Cin); w: (k, Cin, Cout); b: (Cout,); optional
     res: (B, T//stride, W, Cout) residual added AFTER the ReLU (the TDS
     block order).  Returns (B, T//stride, W, Cout): a k-tap loop of
-    (B*t_out*W, Cin) x (Cin, Cout) matmuls."""
+    (B*t_out*W, Cin) x (Cin, Cout) matmuls, in fp32 (fp64 for fp64
+    inputs)."""
     B, Tp, W, Cin = x.shape
     k, _, Cout = w.shape
     t_out = (Tp - (k - 1)) // stride
-    acc = torch.zeros((B * t_out * W, Cout), dtype=torch.float32,
-                      device=x.device)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    acc = torch.zeros((B * t_out * W, Cout), dtype=dt, device=x.device)
     for j in range(k):
         # tap j of output t reads x[:, stride*t + j]
         xj = x[:, j:j + stride * (t_out - 1) + 1:stride]
-        acc = acc + xj.reshape(B * t_out * W, Cin).float() @ w[j].float()
+        acc = acc + xj.reshape(B * t_out * W, Cin).to(dt) @ w[j].to(dt)
     y = acc.reshape(B, t_out, W, Cout) + b
     if relu:
         y = torch.clamp_min(y, 0.0)

@@ -65,6 +65,7 @@ def tds_conv_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _launch(x, w, b, res, ln_scale, ln_bias, stride, relu, eps, split):
     global launches
+    _build.refuse_grad("tds_conv", x, w, b, res, ln_scale, ln_bias)
     dev = x.device
     _build.require(x, "x", torch.float32, 4, dev)
     _build.require(w, "w", torch.float32, 3, dev)

@@ -59,14 +59,22 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6,
 # ---------------------------------------------------------------------------
 # linear
 # ---------------------------------------------------------------------------
+def randn(generator, shape) -> torch.Tensor:
+    """fp32 standard normal draws from `generator`, on its own device.
+    With no generator, a meta tensor of that shape: the shapes and
+    dtypes of an init, with no storage and no draw (`LM.param_shapes`)."""
+    if generator is None:
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
 def init_linear(generator: torch.Generator, d_in: int, d_out: int,
                 bias: bool = False, dtype=torch.bfloat16,
                 device="cpu") -> dict:
     """Normal weights scaled by 1/sqrt(d_in), drawn in fp32 from
     `generator` on its own device, then cast and placed on `device`."""
     std = 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=generator,
-                    device=generator.device)
+    w = randn(generator, (d_in, d_out))
     p = {"w": (w * std).to(device=device, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)

@@ -37,8 +37,7 @@ def init_mamba(generator: torch.Generator, d_model: int, spec: SSMSpec,
     p = {"w_z": lin(d_model, di), "w_x": lin(d_model, di),
          "w_B": lin(d_model, gn), "w_C": lin(d_model, gn),
          "w_dt": lin(d_model, nh)}
-    w = torch.randn((spec.conv_kernel, di), generator=generator,
-                    device=generator.device)
+    w = layers.randn(generator, (spec.conv_kernel, di))
     f32 = dict(dtype=torch.float32, device=device)
     p.update({
         "conv_x": {"w": (w * 0.1).to(device=device, dtype=dtype),

@@ -41,7 +41,7 @@ def init_moe(generator: torch.Generator, d: int, spec: MoESpec,
     std = 1.0 / math.sqrt(d)
 
     def normal(shape, scale, dt):
-        w = torch.randn(shape, generator=generator, device=generator.device)
+        w = layers.randn(generator, shape)
         return (w * scale).to(device=device, dtype=dt)
 
     p = {"router": {"w": normal((d, E), std, torch.float32)},

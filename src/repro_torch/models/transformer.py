@@ -14,6 +14,9 @@ each period position p has one static sub-layer kind.  The reference
 scans over that axis; here a Python loop indexes it (`_layer_params`).
 
 Entry points (functions of (params, ...), as in the reference):
+  loss_fn(params, batch, *, remat=True, loss_chunks=0)
+      training loss: chunked cross-entropy with the z-loss and the MoE
+      load-balancing term; autograd differentiates it.
   prefill(params, batch, lengths=None, cache_len=None)
       full-sequence forward: (last-token logits (B, Vp), decode cache).
   decode_step(params, cache, batch)
@@ -27,13 +30,16 @@ Prefill attention goes through the flash-attention kernel and every
 rmsnorm (Mamba's gated norm included) through the norm kernel
 (`KernelPolicy`, per call); decode attention, the SSD scan, the MoE
 dispatch and the matrix products are plain torch, as the reference
-leaves them to XLA.
+leaves them to XLA.  The kernels have no backward: `loss_fn` runs with
+`KernelPolicy("ref")`, and a kernel given a tensor that requires grad
+raises.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
@@ -41,6 +47,8 @@ from repro_torch.core.treeutil import tree_map
 from repro_torch.models import layers, mamba, moe
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+MOE_AUX_COEF = 0.01
+Z_LOSS_COEF = 1e-4
 
 
 def pad_vocab(v: int, multiple: int = 512) -> int:
@@ -113,14 +121,15 @@ class LM:
         drawn from `generator` on its own device (a CUDA generator draws
         them on the card).  Torch cannot reproduce JAX's random streams:
         parity tests carry the reference's parameters across with
-        `params_from_numpy` instead."""
+        `params_from_numpy` instead.  `generator=None` gives meta
+        tensors (`param_shapes`)."""
         cfg = self.cfg
-        device = generator.device
+        device = (generator.device if generator is not None
+                  else torch.device("meta"))
         params = {"final_norm": layers.init_norm(cfg.d_model, cfg.norm,
                                                  device=device)}
         std = 1.0 / math.sqrt(cfg.d_model)
-        w = torch.randn((self.Vp, cfg.d_model), generator=generator,
-                        device=generator.device)
+        w = layers.randn(generator, (self.Vp, cfg.d_model))
         params["embed"] = {"w": (w * std).to(device=device, dtype=self.dtype)}
         del w
         if not cfg.tie_embeddings:
@@ -134,6 +143,12 @@ class LM:
             stacked[f"p{p}"] = _stack(per_layer)
         params["layers"] = stacked
         return params
+
+    def param_shapes(self) -> dict:
+        """The parameter tree as meta tensors: every leaf's shape and
+        dtype, with no storage (the reference's `jax.eval_shape` of
+        `init`)."""
+        return self.init(None)
 
     # ------------------------------------------------------------------
     # caches
@@ -242,7 +257,10 @@ class LM:
 
     def _sublayer(self, p, lp, x, positions, tables, cache_p, kpos_m,
                   decode, lengths=None):
+        """One sub-layer: (x, its new cache, its MoE aux value, None
+        without an MoE block)."""
         cfg = self.cfg
+        aux = None
         h = layers.apply_norm(lp["norm1"], x, cfg.norm, policy=self.policy)
         if self._kind(p) == "attn":
             if decode:
@@ -263,11 +281,11 @@ class LM:
             h = layers.apply_norm(lp["norm2"], x, cfg.norm,
                                   policy=self.policy)
             if self._is_moe(p):
-                y, _aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act)
+                y, aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act)
             else:
                 y = layers.apply_mlp(lp["mlp"], h, cfg.act)
             x = x + y
-        return x, new_cache
+        return x, new_cache, aux
 
     def _layers(self, params, x, positions, cache=None, *, decode=False,
                 lengths=None):
@@ -283,8 +301,8 @@ class LM:
             for r in range(self.R):
                 for p in range(self.P):
                     lp = _layer_params(params["layers"][f"p{p}"], r)
-                    x, nc = self._sublayer(p, lp, x, positions, tables, None,
-                                           None, False, lengths)
+                    x, nc, _ = self._sublayer(p, lp, x, positions, tables,
+                                              None, None, False, lengths)
                     new[f"p{p}"].append(nc)
             return x, {"layers": {name: _stack(t) for name, t in new.items()}}
 
@@ -311,8 +329,8 @@ class LM:
                 lay = cache["layers"][f"p{p}"]
                 cp = {name: a[r] for name, a in lay.items()}
                 lp = _layer_params(params["layers"][f"p{p}"], r)
-                x, nc = self._sublayer(p, lp, x, positions, tables, cp,
-                                       kpos_m, True)
+                x, nc, _ = self._sublayer(p, lp, x, positions, tables, cp,
+                                          kpos_m, True)
                 new[f"p{p}"].append(nc)
         for p in range(self.P):
             old = cache["layers"][f"p{p}"]
@@ -331,9 +349,88 @@ class LM:
         return x, {"layers": cache["layers"], "kpos": kpos,
                    "offset": offset + 1}
 
+    def _train_layers(self, params, x, positions, remat: bool):
+        """The training forward of the layer loop: (x, the MoE aux sum).
+        No cache is kept; with `remat` each layer is recomputed in the
+        backward (`torch.utils.checkpoint`), so only its input stays
+        alive.
+
+        The aux sum is the reference's: its scan body adds the aux value
+        of the period's last sub-layer once per repeat (the loop over
+        the period rebinds `aux`), so a period with several MoE layers
+        (jamba: 4 of 8) counts only its last one's.  With one MoE layer
+        a period, at its end, as in qwen2-moe, every layer counts."""
+        tables = self._rope_tables(positions)
+        aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        # each stacked leaf split once into its R layers: indexing it per
+        # layer would make every layer's backward write a zero-filled
+        # gradient of the whole (R, ...) leaf, R of them summed
+        per_layer = {name: tree_map(lambda a: a.unbind(0), t)
+                     for name, t in params["layers"].items()}
+        for r in range(self.R):
+            for p in range(self.P):
+                lp = tree_map(lambda ls: ls[r], per_layer[f"p{p}"])
+
+                def layer(h, p=p, lp=lp):
+                    h, _, aux = self._sublayer(p, lp, h, positions, tables,
+                                               None, None, False)
+                    return h, aux
+                x, aux = (checkpoint(layer, x, use_reentrant=False)
+                          if remat else layer(x))
+            if aux is not None:
+                aux_sum = aux_sum + aux
+        return x, aux_sum
+
+    def _chunk_loss(self, params, x, labels):
+        """Sums over one sequence chunk: (nll, squared log-partition,
+        labelled tokens), labels of -1 masked."""
+        logits = self._logits(params, x).float()
+        valid = labels >= 0
+        lbl = torch.where(valid, labels, torch.zeros_like(labels))
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+        zero = torch.zeros_like(lse)
+        return (torch.where(valid, lse - gold, zero).sum(),
+                torch.where(valid, lse.square(), zero).sum(), valid.sum())
+
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
+    def loss_fn(self, params, batch, *, remat=True, loss_chunks=0):
+        """batch: tokens (B, S) and labels (B, S) int (-1 = pad).
+
+        Returns (loss + z-loss + MOE_AUX_COEF * aux, {"loss", "aux",
+        "ntok"}).  Cross-entropy runs over the padded vocab in sequence
+        chunks (16 when S % 16 == 0 and S >= 2048, else 1; `loss_chunks`
+        overrides), each recomputed in the backward, so the fp32
+        (B, S, Vp) logits never exist at once."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        B, S = x.shape[:2]
+        positions = self._positions(B, S, x.device)
+        x, aux = self._train_layers(params, x, positions, remat)
+        x = layers.apply_norm(params["final_norm"], x, cfg.norm,
+                              policy=self.policy)
+        labels = batch["labels"].to(device=x.device, dtype=torch.int64)
+        if loss_chunks == 0:
+            loss_chunks = 16 if S % 16 == 0 and S >= 2048 else 1
+        if S % loss_chunks:
+            raise ValueError(f"loss_fn: S={S} does not split into "
+                             f"{loss_chunks} chunks")
+        cs = S // loss_chunks
+        nll = zsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        ntok = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c in range(loss_chunks):
+            sl = slice(c * cs, (c + 1) * cs)
+            n, z, k = checkpoint(self._chunk_loss, params, x[:, sl],
+                                 labels[:, sl], use_reentrant=False)
+            nll, zsum, ntok = nll + n, zsum + z, ntok + k
+        ntok = torch.clamp(ntok, min=1)
+        loss = nll / ntok
+        zloss = Z_LOSS_COEF * zsum / ntok
+        return loss + zloss + MOE_AUX_COEF * aux, {
+            "loss": loss, "aux": aux, "ntok": ntok}
+
     def prefill(self, params, batch, lengths=None, cache_len=None):
         """Full-seq forward. Returns (last-token logits (B, Vp), cache).
 

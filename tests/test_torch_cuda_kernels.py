@@ -717,3 +717,93 @@ def test_lm_kernel_wrappers_count_and_refuse_bad_input(cuda):
                                ref.flash_attention(q, k, k),
                                rtol=1e-5, atol=1e-5)
     assert ops.launch_counts()["flash_attention"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the gradient guard: a kernel has no backward, so a wrapper given a
+# tensor that requires grad (grad mode on) raises before it launches
+# ---------------------------------------------------------------------------
+def _guard_cases(dev):
+    """{wrapper: (module, call taking the tensor that requires grad)}:
+    every CUDA wrapper, with one float argument requiring grad."""
+    cfg = tcfg.FeatureConfig()
+    tables = tfeat._tables(cfg, dev)
+    x4 = _t(dev, 1, 2, 6, 8, 3)
+    w3, b3 = _t(dev, 2, 3, 3, 4), _t(dev, 3, 4)
+    ln = _t(dev, 4, 32)
+    y = _t(dev, 5, 4, 32)
+    wq = torch.randint(-127, 128, (32, 16), dtype=torch.int8, device=dev)
+    xq = torch.randint(-127, 128, (4, 32), dtype=torch.int8, device=dev)
+    s4, s16 = _t(dev, 6, 4).abs(), _t(dev, 7, 16).abs()
+    hashes = torch.randint(0, 2 ** 31 - 1, (2, 64), dtype=torch.int32,
+                           device=dev)
+    q = _t(dev, 8, 1, 4, 16, 64)
+    return {
+        "tds_conv": (ttc, lambda g: ttc.tds_conv(x4, g(w3), b3)),
+        "tds_conv_ln": (ttc, lambda g: ttc.tds_conv_ln(
+            x4, w3, b3, g(_t(dev, 9, 32)), _t(dev, 10, 32))),
+        "layernorm": (tln, lambda g: tln.layernorm(y, g(ln), ln)),
+        "bias_residual_layernorm": (tln, lambda g: tln.bias_residual_layernorm(
+            y, ln, ln, add_bias=g(ln), res=y)),
+        "rmsnorm": ("rmsnorm", lambda g: tln.rmsnorm(g(y), ln)),
+        "logmel": (tlm, lambda g: tlm.logmel(
+            g(_t(dev, 11, 8, 257).abs()), tables.fb, tables.dct)),
+        "mfcc": (tlm, lambda g: tlm.mfcc(g(_t(dev, 12, 2, 1520)), cfg,
+                                         tables)),
+        "int8_matmul": (tim, lambda g: tim.int8_matmul(xq, wq, g(s4), s16)),
+        "int8_matmul_fused": (tim, lambda g: tim.int8_matmul_fused(
+            g(_t(dev, 13, 4, 32)), wq, s16)),
+        "hypothesis_unit": (thu, lambda g: thu.hypothesis_unit(
+            hashes, g(_t(dev, 14, 2, 64)), _t(dev, 15, 2, 64), k=8,
+            beam=10.0)),
+        "flash_attention": (tfa, lambda g: tfa.flash_attention(
+            g(q), q, q)),
+        "beam_prune": (tbp, lambda g: tbp.beam_prune(
+            g(_t(dev, 16, 1000)), 5.0)),
+    }
+
+
+GUARDED = ("tds_conv", "tds_conv_ln", "layernorm", "bias_residual_layernorm",
+           "rmsnorm", "logmel", "mfcc", "int8_matmul", "int8_matmul_fused",
+           "hypothesis_unit", "flash_attention", "beam_prune")
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_wrapper_refuses_a_tensor_that_requires_grad(cuda, name):
+    mod, call = _guard_cases(cuda)[name]
+    counter = "rmsnorm_launches" if mod == "rmsnorm" else "launches"
+    mod = tln if mod == "rmsnorm" else mod
+    before = getattr(mod, counter)
+    with pytest.raises(RuntimeError, match=r"KernelPolicy\('ref'\) to train"):
+        call(lambda t: t.clone().requires_grad_())
+    assert getattr(mod, counter) == before            # nothing launched
+    # the same call without a gradient to keep launches as before
+    with torch.no_grad():
+        call(lambda t: t.clone().requires_grad_())
+    call(lambda t: t)
+    torch.cuda.synchronize()
+    assert getattr(mod, counter) == before + 2
+
+
+def test_training_runs_the_plain_path_and_the_kernel_path_refuses(cuda):
+    """The TDS training forward: `KernelPolicy("ref")` gives a gradient
+    for every parameter on the card; the kernel path refuses."""
+    from repro_torch.core.treeutil import value_and_grad
+    from repro_torch.kernels.policy import KernelPolicy
+    cfg = tcfg.TDSConfig(
+        n_mfcc=16, stages=(tcfg.TDSStage(1, 3, 16, 5, 2),), sub_kernel=6,
+        vocab_size=8)
+    params = ttds.init_tds(torch.Generator().manual_seed(0), cfg,
+                           device=cuda)
+    feats = _t(cuda, 0, 2, 16, 16)
+    st = ttds.init_batched_stream_state(cfg, 2, cuda)
+
+    def loss(p, mode):
+        lp, _ = ttds.forward_batched(p, cfg, feats, st,
+                                     kernels=KernelPolicy(mode))
+        return lp.mean()
+    _, g = value_and_grad(lambda p: loss(p, "ref"), params)
+    assert all(torch.isfinite(t).all() for v in g.values() for t in v.values())
+    assert float(g["head"]["w"].abs().sum()) > 0
+    with pytest.raises(RuntimeError, match="KernelPolicy"):
+        value_and_grad(lambda p: loss(p, "kernel"), params)

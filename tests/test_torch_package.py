@@ -113,3 +113,57 @@ def test_every_tpu_kernel_and_kernel_function_has_a_port_counterpart():
         missing = sorted(f for f in want if not callable(getattr(port, f,
                                                                  None)))
         assert not missing, (name, missing)
+
+
+def _top_level_public(path):
+    """Public top-level functions and classes of a module, and each
+    public class's public methods as 'Class.method'."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)) \
+                and not n.name.startswith("_"):
+            names.add(n.name)
+            if isinstance(n, ast.ClassDef):
+                names |= {f"{n.name}.{m.name}" for m in n.body
+                          if isinstance(m, ast.FunctionDef)
+                          and not m.name.startswith("_")}
+    return names
+
+
+@pytest.mark.parametrize("module", [
+    "core/ctc", "core/quant", "optim/adamw", "optim/schedules",
+    "ckpt/checkpoint", "runtime/fault", "data/pipeline"])
+def test_training_modules_have_port_counterparts(module):
+    """Every public function, class and method of the training path's
+    reference modules has one of the same name in the port's module of
+    the same path."""
+    import importlib
+    port = importlib.import_module("repro_torch." + module.replace("/", "."))
+    want = _top_level_public(ROOT / "src" / "repro" / f"{module}.py")
+    assert want
+    missing = []
+    for name in sorted(want):
+        obj = port
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        if obj is None:
+            missing.append(name)
+    assert not missing, (module, missing)
+
+
+def test_lm_training_entry_points_have_port_counterparts():
+    """`LM.loss_fn`/`param_shapes`, the loss coefficients, the train step,
+    the launcher, and the names `repro.optim` exports."""
+    from repro_torch import optim
+    from repro_torch.launch import steps, train
+    from repro_torch.models import LM
+    from repro_torch.models import transformer
+    for name in ("AdamWConfig", "init", "update", "cosine_with_warmup"):
+        assert callable(getattr(optim, name)), name
+    for name in ("loss_fn", "param_shapes", "init", "prefill",
+                 "decode_step", "init_cache"):
+        assert callable(getattr(LM, name, None)), name
+    assert transformer.Z_LOSS_COEF == 1e-4
+    assert transformer.MOE_AUX_COEF == 0.01
+    assert callable(steps.make_train_step) and callable(train.main)
