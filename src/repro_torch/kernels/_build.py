@@ -41,7 +41,7 @@ SIGNATURES = {
     "mfcc_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "tds_conv_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                         F, P),
-    "layernorm_launch": (P, P, P, P, P, P, I, I, F, P),
+    "layernorm_launch": (P, P, P, P, P, P, I, I, F, I, P),
     "rmsnorm_launch": (P, P, P, I, I, F, I, P),
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, F, P),

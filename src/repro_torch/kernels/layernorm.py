@@ -3,22 +3,26 @@ with fp32 statistics.
 
 Replaces the TPU kernel `norm_pallas` (src/repro/kernels/layernorm.py):
 `layernorm` and `bias_residual_layernorm` its `kind="layernorm"` half
-(the TDS acoustic model), `rmsnorm` its `kind="rmsnorm"` half (every
-norm of the LM stack).  CUDA source: `csrc/layernorm.cu`.  `layernorm`
-and `bias_residual_layernorm` launch one kernel and count into
-`launches`; `rmsnorm` counts into `rmsnorm_launches`.
+(the TDS acoustic model's fp32 rows; `layernorm` also the LM's bf16
+rows, musicgen-medium's), `rmsnorm` its `kind="rmsnorm"` half (the LM's
+RMSNorms).  CUDA source: `csrc/layernorm.cu`.  `layernorm` and
+`bias_residual_layernorm` launch one kernel and count into `launches`;
+`rmsnorm` counts into `rmsnorm_launches`.
 
 What bounds them on the H100: bytes.  Each row (D <= 1840 floats for the
-TDS LayerNorms, D = 2560 bf16 for h2o-danube-1.8b) is read once and
-written once, and the arithmetic is a handful of operations per element.
-Both keep the row in registers and move 16 bytes a lane.  LayerNorm:
-(y + add_bias) + res in fp32 (the TDS FC block's bias and residual,
-which would otherwise be two elementwise launches), the mean, then the
-mean of squared deviations, one block of up to 512 threads per row with
-one barrier (each warp's partial statistics combined exactly).  RMSNorm: one block of 256 threads per row
-with one barrier; var = mean(x²) in fp32, then (x·rsqrt(var + eps))·scale,
-rounded once to x's dtype, as `apply_norm` does.  Rows that are not
-16-byte aligned take scalar block-per-row kernels.
+TDS LayerNorms, D = 1536 bf16 for musicgen-medium, D = 2560 bf16 for
+h2o-danube-1.8b) is read once and written once, and the arithmetic is a
+handful of operations per element.  Both keep the row in registers and
+move 16 bytes a lane.  LayerNorm: (y + add_bias) + res in fp32 (the TDS
+FC block's bias and residual, which would otherwise be two elementwise
+launches; fp32 rows only), the mean, then the mean of squared
+deviations, one block of up to 512 threads per row with one barrier
+(each warp's partial statistics combined exactly), then
+((x - mu) * rsqrt(var + eps)) * scale + bias rounded once to the row's
+type.  RMSNorm: one block of 256 threads per row with one barrier; var =
+mean(x²) in fp32, then (x·rsqrt(var + eps))·scale, rounded once to x's
+dtype, as `apply_norm` does.  Rows that are not 16-byte aligned take
+scalar block-per-row kernels.
 
 On a CPU tensor a wrapper runs its plain version
 (`ref.bias_residual_layernorm`, `ref.layernorm`, `ref.rmsnorm`).
@@ -37,8 +41,14 @@ rmsnorm_launches = 0    # kernel launches made by `rmsnorm`
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """x: (R, D) f32; scale/bias: (D,) -> (R, D) f32."""
-    return bias_residual_layernorm(x, scale, bias, eps=eps)
+    """x: (R, D) f32 or bf16; scale/bias: (D,) f32 -> (R, D) in x's
+    dtype."""
+    if not x.is_cuda:
+        return ref.layernorm(x, scale, bias, eps=eps)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"layernorm: expected float32 or bfloat16 rows, got "
+                         f"{x.dtype}")
+    return _launch(x, x.dtype, scale, bias, None, None, eps)
 
 
 def bias_residual_layernorm(y: torch.Tensor, scale: torch.Tensor,
@@ -48,13 +58,19 @@ def bias_residual_layernorm(y: torch.Tensor, scale: torch.Tensor,
                             eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm of (y + add_bias) + res.  y, res: (R, D) f32; add_bias,
     scale, bias: (D,) -> (R, D) f32."""
-    global launches
     if not y.is_cuda:
         return ref.bias_residual_layernorm(y, scale, bias, add_bias=add_bias,
                                            res=res, eps=eps)
+    return _launch(y, torch.float32, scale, bias, add_bias, res, eps)
+
+
+def _launch(y, dtype, scale, bias, add_bias, res, eps) -> torch.Tensor:
+    """Checks, then one launch of `layernorm_launch` over y's rows of
+    `dtype` (f32 with the optional addends, or bf16 without them)."""
+    global launches
     _build.refuse_grad("layernorm", y, scale, bias, add_bias, res)
     dev = y.device
-    _build.require(y, "y", torch.float32, 2, dev)
+    _build.require(y, "y", dtype, 2, dev)
     _build.require(scale, "scale", torch.float32, 1, dev)
     _build.require(bias, "bias", torch.float32, 1, dev)
     R, D = y.shape
@@ -75,7 +91,8 @@ def bias_residual_layernorm(y: torch.Tensor, scale: torch.Tensor,
     err = _build.lib().layernorm_launch(
         y.data_ptr(), None if add_bias is None else add_bias.data_ptr(),
         None if res is None else res.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), R, D, float(eps), _build.stream(dev))
+        bias.data_ptr(), out.data_ptr(), R, D, float(eps),
+        int(y.dtype == torch.bfloat16), _build.stream(dev))
     _build.check(err, "layernorm")
     launches += 1
     return out

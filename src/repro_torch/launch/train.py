@@ -11,7 +11,9 @@ The flags are the reference's, less `--mesh` and `--model-parallel`
 (default: the GPU; without a card it raises unless given `cpu`).  The
 model runs `KernelPolicy("ref")`: the CUDA kernels have no backward.
 Parameters come from the port's own `LM.init` (seed 0), the data from
-`SyntheticLM` (a pure function of the step), and `--resume` restores
+`SyntheticLM` (a pure function of the step; an architecture that takes
+frontend embeddings gets the stub frontend's `stub_embeds` with the
+step's labels, as in the reference), and `--resume` restores
 {"params", "opt", "step"} from the latest checkpoint, whose format is
 the reference's.  `main` returns the list of losses.
 """
@@ -20,6 +22,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt.checkpoint import Checkpointer
@@ -31,6 +34,16 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import LM
 from repro_torch.optim import adamw
 from repro_torch.runtime import fault
+
+
+def stub_embeds(step: int, batch: int, seq: int, d_model: int) -> torch.Tensor:
+    """The frontend stub's embeddings for `step`: standard normal draws of
+    `np.random.default_rng(step)` in fp32, rounded to bf16 (half to even,
+    as numpy's `astype`), (batch, seq, d_model), the reference's batch
+    bit for bit."""
+    rng = np.random.default_rng(step)
+    emb = rng.normal(0, 1, (batch, seq, d_model)).astype(np.float32)
+    return torch.from_numpy(emb).to(torch.bfloat16)
 
 
 def main(argv=None):
@@ -79,6 +92,10 @@ def main(argv=None):
     def one_step(state, step):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch(step).items()}
+        if not cfg.embed_inputs:   # frontend stub: embed synthetically
+            batch = {"embeds": stub_embeds(step, args.batch, args.seq,
+                                           cfg.d_model).to(device),
+                     "labels": batch["labels"]}
         return train_step(state, batch)
 
     def log(step, metrics, dt):

@@ -1,19 +1,23 @@
-"""Core NN layers of the LM stack: norms, RoPE, GQA attention, gated MLP.
+"""Core NN layers of the LM stack: norms, RoPE (standard / 2d / M-RoPE),
+GQA attention, gated MLP, int8 serving weights.
 
 Port of `repro/models/layers.py` for one device.  Attention has two
 paths, as in the reference:
 
   * `attention_chunked` — prefill: runs through `ops.flash_attention`,
     the hand-written Hopper kernel that is the TPU execution path of the
-    reference's function (plain PyTorch on the CPU).
+    reference's function (plain PyTorch on the CPU).  Positions given
+    by the batch (`qpos`/`kpos`) take the reference's position-masked
+    attention in plain torch instead (see there).
   * `attention_decode` — one query per row against a (ring-buffer) KV
     cache with absolute per-slot positions; plain torch, as the
     reference computes it outside any kernel.
 
-Every rmsnorm goes through `ops.rmsnorm` (the norm kernel).  All softmax
-math is fp32 whatever the activation dtype.  Parameters are plain dicts
-of tensors with the reference's tree layout, so `params_from_numpy`
-carries the reference's own parameters across.
+Every norm goes through the norm kernel: rmsnorm through `ops.rmsnorm`,
+layernorm through `ops.layernorm`.  All softmax math is fp32 whatever
+the activation dtype.  Parameters are plain dicts of tensors with the
+reference's tree layout, so `params_from_numpy` carries the reference's
+own parameters across.
 """
 from __future__ import annotations
 
@@ -41,19 +45,18 @@ def init_norm(d: int, kind: str, dtype=torch.float32, device="cpu") -> dict:
 def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-6,
                policy=None) -> torch.Tensor:
     """Norm over the last axis with fp32 statistics, output in x's
-    dtype.  rmsnorm goes through the norm kernel over (rows, D);
-    layernorm stays plain (no text config of the dense family uses it)."""
+    dtype, through the norm kernel over (rows, D): rmsnorm
+    `(x·rsqrt(mean x²+eps))·scale`, layernorm
+    `((x-mu)·rsqrt(var+eps))·scale + bias`."""
+    rows = x.reshape(-1, x.shape[-1])
+    scale = p["scale"].float()
     if kind == "rmsnorm":
-        rows = x.reshape(-1, x.shape[-1])
-        return ops.rmsnorm(rows, p["scale"].float(), eps=eps,
-                           policy=policy).reshape(x.shape)
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
-    if "bias" in p:
-        y = y + p["bias"].float()
-    return y.to(x.dtype)
+        y = ops.rmsnorm(rows, scale, eps=eps, policy=policy)
+    else:
+        bias = (p["bias"].float() if "bias" in p
+                else torch.zeros_like(scale))
+        y = ops.layernorm(rows, scale, bias, eps=eps, policy=policy)
+    return y.reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -82,16 +85,71 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) (+ b).  The int8 serving weights
-    (`wq`/`wscale`) come with the int8-LM slice."""
+    """x (..., d_in) @ w (d_in, d_out) (+ b).  int8 serving weights
+    (`wq` (d_in, d_out) int8, `wscale` (d_out,)) are dequantized at use
+    in x's dtype, `wq · wscale`, as the reference does: no int8 GEMM."""
     if "wq" in p:
-        raise NotImplementedError(
-            "int8 LM serving weights are not ported yet (ROADMAP Queue 1, "
-            "item 10: quantize_params_for_serving)")
-    y = torch.matmul(x, p["w"])
+        w = p["wq"].to(x.dtype) * p["wscale"].to(x.dtype)[None, :]
+    else:
+        w = p["w"]
+    y = torch.matmul(x, w)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def _quantize(w: torch.Tensor, axis: int):
+    """Symmetric int8 of fp32 `w` with one scale per slice over `axis`:
+    (q int8, scale = max|w| / 127 f32).  Both divisions are true
+    divisions by tensors (on the card torch turns a division by a Python
+    float into a product with its reciprocal, an ulp off the
+    reference's), and `torch.round` rounds half to even as `jnp.round`."""
+    amax = w.abs().amax(dim=axis)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(w / torch.clamp(scale.unsqueeze(axis),
+                                                min=1e-12)),
+                    -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_linear(p: dict) -> dict:
+    """{'w': (din, dout), 'b'?} -> {'wq': int8, 'wscale': (dout,) f32, 'b'?}:
+    symmetric per-output-channel int8, the serving-weight format."""
+    q, scale = _quantize(p["w"].float(), 0)
+    out = {"wq": q, "wscale": scale}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+# embeddings (a lookup), the router (fp32 by design), the depthwise conv
+# and the SSD dt/B/C projections (exp(cumsum(dt·A)) amplifies their
+# quantization error) stay as they are, with everything under them
+QUANT_SKIP = ("embed", "router", "conv_x", "w_dt", "w_B", "w_C")
+
+
+def quantize_params_for_serving(params: dict) -> dict:
+    """Every 2-D dense linear `w` of an LM parameter tree to int8
+    (`quantize_linear`), and every stacked 3-D one (R, din, dout) with a
+    scale per layer and output channel (R, dout); embeddings, norms, MoE
+    expert tensors and SSM parameters stay as they are.  The given tree
+    is not changed."""
+    def rec(tree, path=()):
+        if not isinstance(tree, dict):
+            return tree
+        if any(s in path for s in QUANT_SKIP):
+            return {k: rec(v, path + (k,)) for k, v in tree.items()}
+        w = tree.get("w")
+        if isinstance(w, torch.Tensor) and w.dim() == 2:
+            return quantize_linear(tree)
+        if isinstance(w, torch.Tensor) and w.dim() == 3:
+            q, scale = _quantize(w.float(), 1)
+            out = {"wq": q, "wscale": scale}
+            if "b" in tree:
+                out["b"] = tree["b"]
+            return out
+        return {k: rec(v, path + (k,)) for k, v in tree.items()}
+    return rec(params)
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -130,16 +188,33 @@ def _rope_rotate(x: torch.Tensor, pos: torch.Tensor, theta: float,
                      dim=-1).to(x.dtype)
 
 
-def rope_width(d: int, mode: str) -> int:
-    """The width of the head-dim slice that `mode` rotates."""
-    return d // 2 if mode == "rope2d" else d
+def mrope_sections(d: int) -> tuple:
+    """M-RoPE's three even head-dim sections (temporal, h, w): s0 = s1 =
+    (d // 3) & ~1, s2 the rest (42 / 42 / 44 at d = 128).  The
+    reference's layout, not Hugging Face's `mrope_section`."""
+    s0 = (d // 3) & ~1
+    return s0, s0, d - 2 * s0
+
+
+def rope_tables_for(positions: torch.Tensor, d: int, mode: str,
+                    theta: float):
+    """The tables `apply_rope(x, positions, mode, theta, tables=)` takes
+    for a head dim of d: one (cos, sin) pair (`rope`, `rope2d`: of the
+    rotated width), three for `mrope` (section i rotated at
+    positions[..., i]), None for `none`."""
+    if mode == "none":
+        return None
+    if mode == "mrope":
+        return tuple(rope_tables(positions[..., i], sec, theta)
+                     for i, sec in enumerate(mrope_sections(d)))
+    return rope_tables(positions, d // 2 if mode == "rope2d" else d, theta)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, mode: str,
                theta: float, tables=None) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int.  `tables`: the
-    `rope_tables(positions, rope_width(D, mode), theta)` of these
-    positions, if the caller computed them already (same values)."""
+    """x: (B, S, H, D); positions: (B, S) int, or (B, S, 3) for mrope.
+    `tables`: `rope_tables_for(positions, D, mode, theta)` if the caller
+    computed them already (the same values)."""
     if mode == "none":
         return x
     if mode == "rope":
@@ -150,9 +225,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, mode: str,
         rot = _rope_rotate(x[..., : d // 2], positions, theta, tables)
         return torch.cat([rot, x[..., d // 2:]], dim=-1)
     if mode == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP Queue 1, item 10: the VLM "
-            "backbone)")
+        # positions (B, S, 3): (temporal, h, w), one per head-dim section
+        parts, off = [], 0
+        for i, sec in enumerate(mrope_sections(x.shape[-1])):
+            parts.append(_rope_rotate(
+                x[..., off:off + sec], positions[..., i], theta,
+                None if tables is None else tables[i]))
+            off += sec
+        return torch.cat(parts, dim=-1)
     raise ValueError(mode)
 
 
@@ -169,21 +249,65 @@ def _mask(qpos, kpos, causal: bool, window: Optional[int]):
     return m
 
 
-def attention_chunked(q, k, v, *, causal=True, window: Optional[int] = None,
+def attention_chunked(q, k, v, *, qpos=None, kpos=None, causal=True,
+                      window: Optional[int] = None,
                       policy=None) -> torch.Tensor:
-    """Prefill attention through the flash-attention kernel.
+    """Prefill attention.  q: (B, S, H, D); k, v: (B, Skv, K, D) with
+    K | H (GQA).  Returns (B, S, H, D).
 
-    q: (B, S, H, D); k, v: (B, S, K, D) with K | H (GQA).  Returns
-    (B, S, H, D).  The reference takes absolute positions qpos/kpos; on
-    the prefill path both are arange(S) for every row, so `kpos >= 0`
-    always holds and its causal/window mask is exactly the kernel's with
-    q_offset = 0 (right-padding of a bucketed prefill cannot leak into
-    real positions under the causal mask).  The reference's chunking
-    (chunk_q/chunk_kv) is the kernel's tiling here."""
+    Without `qpos`/`kpos` it runs the flash-attention kernel: the
+    reference masks on absolute positions, and on the prefill path both
+    are arange(S) in every row unless the batch gives positions, so
+    `kpos >= 0` always holds and its causal/window mask is exactly the
+    kernel's with q_offset = 0 (right-padding of a bucketed prefill
+    cannot leak into real positions under the causal mask).  The
+    reference's chunking (chunk_q/chunk_kv) is the kernel's tiling here.
+
+    With `qpos` (B, Sq) and `kpos` (B, Skv), the token indices of
+    positions the batch gave (an M-RoPE image grid, say), the mask is the
+    reference's on those positions, which the kernel's index mask cannot
+    express; that is the plain `attention_masked`, as the reference
+    computes this function with XLA outside any Pallas kernel.  The
+    model decides by the presence of the batch's "positions" key, never
+    by reading positions back to the host."""
+    if qpos is not None:
+        return attention_masked(q, k, v, qpos, kpos, causal=causal,
+                                window=window)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, policy=policy)
     return out.transpose(1, 2)
+
+
+def attention_masked(q, k, v, qpos, kpos, *, causal=True,
+                     window: Optional[int] = None,
+                     chunk_q: int = 512) -> torch.Tensor:
+    """The reference's `attention_chunked` on absolute positions, plain
+    torch: q (B, Sq, H, D), k/v (B, Skv, K, D), qpos (B, Sq), kpos (B,
+    Skv) (< 0 = invalid).  fp32 scores and softmax over each chunk of
+    `chunk_q` queries against every key; probabilities cast to v's dtype
+    before the P·V product, as the reference's; a row that sees no key
+    gives 0."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for c0 in range(0, Sq, chunk_q):
+        qc = q[:, c0:c0 + chunk_q].float()
+        cq = qc.shape[1]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc.reshape(B, cq, K, G, D),
+                         kf) * scale
+        msk = _mask(qpos[:, c0:c0 + chunk_q], kpos, causal,
+                    window)[:, None, None]                 # (B,1,1,cq,Skv)
+        s = torch.where(msk, s, torch.full_like(s, MASK_VALUE))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = torch.where(msk, p, torch.zeros_like(p))
+        acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vf)
+        out = acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, H, D))
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def attention_decode(q, k_cache, v_cache, qpos, kpos, *,

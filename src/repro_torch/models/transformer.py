@@ -3,9 +3,11 @@
 
 One code path over the reference's layer kinds: attention or Mamba-2
 (SSD) mixers per `layer_pattern`, a gated MLP or an MoE block per
-`moe_every` (or no MLP at all: mamba2's `d_ff = 0`).  M-RoPE and
-frontend embeddings raise `NotImplementedError` naming the ROADMAP item
-that brings them.
+`moe_every` (or no MLP at all: mamba2's `d_ff = 0`); RoPE, 2D-RoPE,
+M-RoPE (three head-dim sections at (B, S, 3) positions) or none; token
+inputs, or frontend embeddings (`embed_inputs=False`: qwen2-vl-7b's
+patch and musicgen-medium's frame embeddings, `{"embeds": (B, S, D)}`
+batches, from the stub frontend the reference also has).
 
 Parameters keep the reference's tree and its stacked layout: each leaf
 under `params["layers"]["p{p}"]` carries a leading repeat axis R, layer
@@ -25,14 +27,19 @@ Entry points (functions of (params, ...), as in the reference):
       cache's own tensors, in place, after the layer loop (the serving
       pool is updated, not copied); `kpos` and `offset` come back as
       new tensors.
+A batch holds "tokens" (B, S) or "embeds" (B, S, D) as the config
+takes, and optionally "positions" ((B, S), or (B, S, 3) for M-RoPE;
+else arange(S) + the cache offset).
 
-Prefill attention goes through the flash-attention kernel and every
-rmsnorm (Mamba's gated norm included) through the norm kernel
-(`KernelPolicy`, per call); decode attention, the SSD scan, the MoE
-dispatch and the matrix products are plain torch, as the reference
-leaves them to XLA.  The kernels have no backward: `loss_fn` runs with
-`KernelPolicy("ref")`, and a kernel given a tensor that requires grad
-raises.
+Prefill attention goes through the flash-attention kernel (positions
+given by the batch take the plain position-masked attention,
+`layers.attention_chunked`) and every norm (Mamba's gated norm
+included) through the norm kernel (`KernelPolicy`, per call); decode
+attention, the SSD scan, the MoE dispatch and the matrix products
+(int8 serving weights dequantized at use) are plain torch, as the
+reference leaves them to XLA.  The kernels have no backward: `loss_fn`
+runs with `KernelPolicy("ref")`, and a kernel given a tensor that
+requires grad raises.
 """
 from __future__ import annotations
 
@@ -62,14 +69,6 @@ class LM:
     the plain path of the prefill attention and the norms."""
 
     def __init__(self, cfg: ModelConfig, policy=None):
-        if cfg.rope == "mrope":
-            raise NotImplementedError(
-                f"{cfg.name}: M-RoPE is not ported yet (ROADMAP Queue 1, "
-                f"item 10: the VLM backbone)")
-        if not cfg.embed_inputs:
-            raise NotImplementedError(
-                f"{cfg.name}: frontend embeddings (embed_inputs=False) are "
-                f"not ported yet (ROADMAP Queue 1, item 10)")
         self.cfg = cfg
         self.policy = policy
         me = cfg.moe.moe_every if cfg.moe else 1
@@ -128,10 +127,12 @@ class LM:
                   else torch.device("meta"))
         params = {"final_norm": layers.init_norm(cfg.d_model, cfg.norm,
                                                  device=device)}
-        std = 1.0 / math.sqrt(cfg.d_model)
-        w = layers.randn(generator, (self.Vp, cfg.d_model))
-        params["embed"] = {"w": (w * std).to(device=device, dtype=self.dtype)}
-        del w
+        if cfg.embed_inputs or cfg.tie_embeddings:
+            std = 1.0 / math.sqrt(cfg.d_model)
+            w = layers.randn(generator, (self.Vp, cfg.d_model))
+            params["embed"] = {"w": (w * std).to(device=device,
+                                                 dtype=self.dtype)}
+            del w
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.init_linear(
                 generator, cfg.d_model, self.Vp, dtype=self.dtype,
@@ -191,13 +192,34 @@ class LM:
     # ------------------------------------------------------------------
     # forward pieces
     # ------------------------------------------------------------------
-    @staticmethod
-    def _positions(B: int, S: int, device, offset=0) -> torch.Tensor:
+    def _positions(self, batch: dict, B: int, S: int, device,
+                   offset=0) -> torch.Tensor:
+        """The batch's "positions" as given, else arange(S) + offset, (B,
+        S), broadcast to (B, S, 3) for M-RoPE."""
+        if "positions" in batch:
+            return batch["positions"]
         pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
-        return (pos + offset).expand(B, S)
+        pos = (pos + offset).expand(B, S)
+        if self.cfg.rope == "mrope":
+            pos = pos[..., None].expand(B, S, 3)
+        return pos
 
-    def _embed(self, params, tokens) -> torch.Tensor:
-        return params["embed"]["w"][tokens.long()]
+    def _ipos(self, positions) -> torch.Tensor:
+        """Token indices of `positions`: M-RoPE's temporal component."""
+        return positions[..., 0] if self.cfg.rope == "mrope" else positions
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        """The token embeddings, or the frontend's "embeds" in the
+        model's dtype (`embed_inputs=False`)."""
+        cfg = self.cfg
+        if cfg.embed_inputs:
+            return params["embed"]["w"][batch["tokens"].long()]
+        if "embeds" not in batch:
+            raise ValueError(
+                f"{cfg.name} takes frontend embeddings (embed_inputs=False):"
+                f" give the batch 'embeds' (B, S, {cfg.d_model}), not "
+                f"{sorted(batch)}")
+        return batch["embeds"].to(self.dtype)
 
     def _logits(self, params, x) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -207,11 +229,8 @@ class LM:
     def _rope_tables(self, positions):
         """RoPE cos/sin of `positions`, shared by every layer's q and k."""
         cfg = self.cfg
-        if cfg.rope == "none":
-            return None
-        return layers.rope_tables(positions,
-                                  layers.rope_width(cfg.head_dim, cfg.rope),
-                                  cfg.rope_theta)
+        return layers.rope_tables_for(positions, cfg.head_dim, cfg.rope,
+                                      cfg.rope_theta)
 
     def _qkv(self, p_mix, x, positions, tables):
         cfg = self.cfg
@@ -226,13 +245,17 @@ class LM:
         k = layers.apply_rope(k, positions, cfg.rope, cfg.rope_theta, tables)
         return q, k, v
 
-    def _attn_full(self, p_mix, x, positions, tables):
-        """Prefill attention. Returns (out, (k, v))."""
+    def _attn_full(self, p_mix, x, positions, tables, given_pos=False):
+        """Prefill attention. Returns (out, (k, v)).  `given_pos`: the
+        batch gave the positions, so the mask is the reference's on
+        their token indices (the plain masked attention), not the flash
+        kernel's on arange(S)."""
         cfg = self.cfg
         B, S, _ = x.shape
         q, k, v = self._qkv(p_mix, x, positions, tables)
-        out = layers.attention_chunked(q, k, v, causal=True,
-                                       window=cfg.attn_window,
+        ipos = self._ipos(positions) if given_pos else None
+        out = layers.attention_chunked(q, k, v, qpos=ipos, kpos=ipos,
+                                       causal=True, window=cfg.attn_window,
                                        policy=self.policy)
         out = layers.linear(p_mix["wo"],
                             out.reshape(B, S, cfg.n_heads * cfg.head_dim))
@@ -248,7 +271,7 @@ class LM:
         B = x.shape[0]
         q, k, v = self._qkv(p_mix, x, positions, tables)
         out = layers.attention_decode(q, kv_cache["k"], kv_cache["v"],
-                                      positions[:, 0], kpos_m,
+                                      self._ipos(positions)[:, 0], kpos_m,
                                       window=cfg.attn_window,
                                       k_new=k, v_new=v)
         out = layers.linear(p_mix["wo"],
@@ -256,7 +279,7 @@ class LM:
         return out, {"k": k, "v": v}
 
     def _sublayer(self, p, lp, x, positions, tables, cache_p, kpos_m,
-                  decode, lengths=None):
+                  decode, lengths=None, given_pos=False):
         """One sub-layer: (x, its new cache, its MoE aux value, None
         without an MoE block)."""
         cfg = self.cfg
@@ -270,7 +293,7 @@ class LM:
                 # causal: right-padding (bucketed prefill) cannot leak
                 # into real positions, so no mask is needed here
                 out, (k, v) = self._attn_full(lp["mixer"], h, positions,
-                                              tables)
+                                              tables, given_pos)
                 new_cache = {"k": k, "v": v}
         else:
             out, new_cache = mamba.apply_mamba(lp["mixer"], h, cfg.ssm,
@@ -288,7 +311,7 @@ class LM:
         return x, new_cache, aux
 
     def _layers(self, params, x, positions, cache=None, *, decode=False,
-                lengths=None):
+                lengths=None, given_pos=False):
         """The layer loop (the reference's `_scan_layers`).  Prefill
         returns (x, per-layer caches stacked to (R, ...): KV (R, B, S, K,
         Dh), Mamba conv/SSM states as `apply_mamba` returns them); decode
@@ -302,7 +325,8 @@ class LM:
                 for p in range(self.P):
                     lp = _layer_params(params["layers"][f"p{p}"], r)
                     x, nc, _ = self._sublayer(p, lp, x, positions, tables,
-                                              None, None, False, lengths)
+                                              None, None, False, lengths,
+                                              given_pos)
                     new[f"p{p}"].append(nc)
             return x, {"layers": {name: _stack(t) for name, t in new.items()}}
 
@@ -349,7 +373,8 @@ class LM:
         return x, {"layers": cache["layers"], "kpos": kpos,
                    "offset": offset + 1}
 
-    def _train_layers(self, params, x, positions, remat: bool):
+    def _train_layers(self, params, x, positions, remat: bool,
+                      given_pos: bool = False):
         """The training forward of the layer loop: (x, the MoE aux sum).
         No cache is kept; with `remat` each layer is recomputed in the
         backward (`torch.utils.checkpoint`), so only its input stays
@@ -373,7 +398,8 @@ class LM:
 
                 def layer(h, p=p, lp=lp):
                     h, _, aux = self._sublayer(p, lp, h, positions, tables,
-                                               None, None, False)
+                                               None, None, False,
+                                               given_pos=given_pos)
                     return h, aux
                 x, aux = (checkpoint(layer, x, use_reentrant=False)
                           if remat else layer(x))
@@ -397,7 +423,8 @@ class LM:
     # public entry points
     # ------------------------------------------------------------------
     def loss_fn(self, params, batch, *, remat=True, loss_chunks=0):
-        """batch: tokens (B, S) and labels (B, S) int (-1 = pad).
+        """batch: tokens (B, S) or embeds (B, S, D), and labels (B, S)
+        int (-1 = pad).
 
         Returns (loss + z-loss + MOE_AUX_COEF * aux, {"loss", "aux",
         "ntok"}).  Cross-entropy runs over the padded vocab in sequence
@@ -405,10 +432,11 @@ class LM:
         overrides), each recomputed in the backward, so the fp32
         (B, S, Vp) logits never exist at once."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch)
         B, S = x.shape[:2]
-        positions = self._positions(B, S, x.device)
-        x, aux = self._train_layers(params, x, positions, remat)
+        positions = self._positions(batch, B, S, x.device)
+        x, aux = self._train_layers(params, x, positions, remat,
+                                    "positions" in batch)
         x = layers.apply_norm(params["final_norm"], x, cfg.norm,
                               policy=self.policy)
         labels = batch["labels"].to(device=x.device, dtype=torch.int64)
@@ -443,14 +471,14 @@ class LM:
         the assembled ring width (the pool's ring may be narrower than
         the padded bucket)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        x = self._embed(params, batch)
         B, S = x.shape[:2]
         dev = x.device
-        positions = self._positions(B, S, dev)
+        positions = self._positions(batch, B, S, dev)
         if lengths is not None:
             lengths = lengths.to(device=dev, dtype=torch.int64)
-        x, cache = self._layers(params, x, positions, lengths=lengths)
+        x, cache = self._layers(params, x, positions, lengths=lengths,
+                                given_pos="positions" in batch)
         if lengths is None:
             x = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
                                   policy=self.policy)
@@ -497,18 +525,18 @@ class LM:
                        else t) for name, t in lay.items()}
 
     def decode_step(self, params, cache, batch):
-        """One-token step. batch: tokens (B, 1).
+        """One-token step. batch: tokens (B, 1) or embeds (B, 1, D).
 
         Returns (logits (B, Vp) f32, next_token (B,) int64, cache): the
         cache's KV and conv/SSM tensors are updated in place (see the module
         docstring)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch)
         B = x.shape[0]
         pos = cache["offset"]
         if pos.dim() == 1:                 # per-slot offsets: (B,) -> (B, 1)
             pos = pos[:, None]
-        positions = self._positions(B, 1, x.device, offset=pos)
+        positions = self._positions(batch, B, 1, x.device, offset=pos)
         x, new_cache = self._layers(params, x, positions, cache, decode=True)
         x = layers.apply_norm(params["final_norm"], x, cfg.norm,
                               policy=self.policy)
@@ -530,5 +558,6 @@ def _stack(trees: list) -> dict:
 
 
 def _layer_params(tree: dict, r: int) -> dict:
-    """Layer r's parameters: every stacked leaf indexed on its R axis."""
+    """Layer r's parameters: every stacked leaf indexed on its R axis
+    (int8 serving weights too: `wq` (R, din, dout), `wscale` (R, dout))."""
     return tree_map(lambda a: a[r], tree)

@@ -8,7 +8,8 @@ tests/test_torch_kernels.py.  Run on a machine with a card:
 
 Tolerances: logmel and the fused MFCC rtol 1e-4, atol 1e-3 (the MFCC:
 the kernel's own FFT against cuFFT, then a log domain); layernorm and tds_conv
-atol 1e-5 (rtol 1e-5); the fused conv + LayerNorm and bias + residual +
+atol 1e-5 (rtol 1e-5); bf16 layernorm rows 1e-2 (one bf16 ulp, as
+rmsnorm's); the fused conv + LayerNorm and bias + residual +
 LayerNorm also atol 1e-5 (rtol 1e-5): the LayerNorm divides the conv
 sum's rounding (~1e-7 relative, sums in another order than cuBLAS) by the
 row's standard deviation, which is O(1) or larger for these inputs, and
@@ -634,6 +635,74 @@ def test_rmsnorm_kernel_matches_plain(cuda, t, d, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     torch.testing.assert_close(got, ref.rmsnorm(x, s), **_TOL[dtype])
+
+
+@pytest.mark.parametrize("t,d,misaligned", [
+    (1, 1536, False), (4, 1536, False), (512, 1536, False),
+    (2048, 1536, False), (8192, 1536, False), (3, 4096, False),
+    (2, 8192, False), (37, 80, False), (16, 1536, True), (5, 100, False),
+    (7, 1540, False), (2, 8200, False)])
+def test_layernorm_kernel_matches_plain_bf16(cuda, t, d, misaligned):
+    """bf16 rows (the LM's LayerNorm, musicgen-medium's D = 1536, from a
+    decode row to 8192 prefill rows; one and two 16-byte vectors a thread
+    up to 8192 values), fp32 scale and bias, the LM's eps: within one
+    bf16 ulp of the plain version (fp32 statistics, one rounding).  A row
+    2 bytes past a 16-byte boundary, D no multiple of 8 (100, 1540) and D
+    past 8192 take the scalar kernel."""
+    x = _t(cuda, d, t, d, scale=3.0).to(torch.bfloat16)
+    if misaligned:
+        buf = torch.empty(t * d + 1, dtype=torch.bfloat16, device=cuda)
+        buf[1:].view(t, d).copy_(x)
+        x = buf[1:].view(t, d)
+    s, b = 1 + 0.1 * _t(cuda, 1, d), 0.1 * _t(cuda, 2, d)
+    ops.reset_launch_counts()
+    got = tln.layernorm(x, s, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and ops.launch_counts()["layernorm"] == 1
+    torch.testing.assert_close(got, ref.layernorm(x, s, b, eps=1e-6),
+                               **_TOL[torch.bfloat16])
+
+
+def test_lm_layernorm_launches_once_per_norm_and_stays_fp32_for_tds(cuda):
+    """`apply_norm(kind="layernorm")` on bf16 activations: one layernorm
+    launch per call, none of rmsnorm; `bias_residual_layernorm` (the TDS
+    model's, with its addends) refuses bf16 rows."""
+    from repro_torch.models import layers as tlayers
+    x = _t(cuda, 4, 2, 9, 1536).to(torch.bfloat16)
+    p = {"scale": 1 + 0.1 * _t(cuda, 5, 1536), "bias": _t(cuda, 6, 1536)}
+    ops.reset_launch_counts()
+    for _ in range(3):
+        y = tlayers.apply_norm(p, x, "layernorm")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["layernorm"] == 3
+    assert ops.launch_counts()["rmsnorm"] == 0
+    want = ref.layernorm(x.reshape(-1, 1536), p["scale"], p["bias"], eps=1e-6)
+    torch.testing.assert_close(y.reshape(-1, 1536), want,
+                               **_TOL[torch.bfloat16])
+    with pytest.raises(ValueError):
+        tln.bias_residual_layernorm(x.reshape(-1, 1536), p["scale"],
+                                    p["bias"], res=x.reshape(-1, 1536))
+    with pytest.raises(ValueError):
+        tln.layernorm(x.reshape(-1, 1536).half(), p["scale"], p["bias"])
+    assert ops.launch_counts()["layernorm"] == 3
+
+
+def test_quantize_linear_on_the_card_equals_the_cpu_bitwise(cuda):
+    """int8 LM serving weights quantized on the card: `wq` and `wscale`
+    bit for bit the CPU's (and so the reference's), 2-D and stacked 3-D.
+    The scale divides by a tensor: `amax / 127.0` on a CUDA tensor is a
+    product with the reciprocal, an ulp off in some channels."""
+    from repro_torch.models import layers as tlayers
+    for shape in ((256, 4096), (2, 512, 2048)):
+        w = _t(cuda, 7, *shape, scale=0.05).to(torch.bfloat16)
+        tree = {"l": {"w": w, "b": _t(cuda, 8, shape[-1])}}
+        got = tlayers.quantize_params_for_serving(tree)["l"]
+        want = tlayers.quantize_params_for_serving(
+            {"l": {k: v.cpu() for k, v in tree["l"].items()}})["l"]
+        assert got["wq"].dtype == torch.int8 and got["wq"].is_cuda
+        assert torch.equal(got["wq"].cpu(), want["wq"])
+        assert torch.equal(got["wscale"].cpu(), want["wscale"])
+        assert got["b"] is tree["l"]["b"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

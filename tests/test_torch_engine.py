@@ -240,3 +240,30 @@ def test_engine_config_validation_and_backpressure(system):
         eng.open()
     with pytest.raises(ValueError, match="NaN"):
         sess.push(np.array([0.0, np.nan], np.float32))
+
+
+def test_queue_high_water_counts_an_open_before_its_admission(system):
+    """`max_queue` bounds the queue while every slot is busy.  An open
+    that finds the queue full but a slot free (released, not yet refilled
+    by the pump) is appended, sampled and then admitted within the same
+    call, so the high-water depth reads `max_queue + 1`, and never more.
+    Both packages sample alike; the network phase of the card script holds
+    the server's high-water depth to this bound."""
+    from repro.serving import AdmissionRejected as JaxRejected
+    from repro.serving import SessionFaulted as JaxFaulted
+
+    def drive(eng, faulted, rejected):
+        first = eng.open()
+        eng.open()                               # queued: depth 1
+        eng._fault_session(first, faulted(first.sid, "slot released"))
+        eng.open()                               # appended (2), admits one
+        depth_after = len(eng._queue)
+        with pytest.raises(rejected):            # slot busy, queue full
+            eng.open()
+        return eng.metrics.max_queue_depth, depth_after
+
+    jeng, _ = jserve.asr_demo_engine(1, JaxPolicy("ref"), max_queue=1)
+    want = drive(jeng, JaxFaulted, JaxRejected)
+    got = drive(_port_engine(system, 1, max_queue=1), SessionFaulted,
+                AdmissionRejected)
+    assert got == want == (2, 1)

@@ -65,12 +65,6 @@ def test_apply_rope_matches_jax(mode, theta, dtype):
     _close(got, want, DTYPES[dtype][2])
 
 
-def test_mrope_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        tl.apply_rope(torch.zeros(1, 2, 1, 6), torch.zeros(1, 2, 3), "mrope",
-                      1e4)
-
-
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 5),
                                            (False, 3)])
 def test_mask_matches_jax(causal, window):
@@ -154,9 +148,11 @@ def test_linear_and_mlp_match_jax(act):
     _close(tl.linear(tp["w_down"], torch.from_numpy(x[..., :1].repeat(48, -1))),
            jl.linear(jp["w_down"], jnp.asarray(x[..., :1].repeat(48, -1))),
            1e-5)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tl.linear({"wq": torch.zeros(2, 2, dtype=torch.int8),
-                   "wscale": torch.ones(2)}, torch.zeros(1, 2))
+    # int8 serving weights: dequantized at use, as the reference does
+    jq = jl.quantize_linear(jp["w_down"])
+    tq = tl.quantize_linear(tp["w_down"])
+    _close(tl.linear(tq, torch.from_numpy(x[..., :1].repeat(48, -1))),
+           jl.linear(jq, jnp.asarray(x[..., :1].repeat(48, -1))), 1e-5)
 
 
 def test_init_shapes_and_std():

@@ -467,13 +467,6 @@ def test_bf16_decode_matches_jax(arch):
         [76, 16]
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("qwen2-vl-7b", "M-RoPE"), ("musicgen-medium", "embed_inputs")])
-def test_unported_families_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        LM(get_config(arch).tiny())
-
-
 def test_init_matches_reference_shapes():
     _check_init("qwen2-72b")
 
