@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port on one GPU: the streaming ASR decode path,
 batched LM serving (dense, SSM and MoE families), the standalone
 beam-threshold prune, the network front-end, training (CTC training
-of the full-width TDS model, the LM trainer at full width), and the rest
+of the full-width TDS model, the LM trainer at full width), the rest
 of the LM stack (M-RoPE and frontend embeddings, the LM's bf16 LayerNorm,
-int8 LM serving weights).
+int8 LM serving weights), and the sharded ASR serving step (a mesh of
+`torch.distributed` ranks, here sharing the one card).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -27,7 +28,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                fused in (`tds_conv_ln`) in both designs (a cluster per row, a
                block per row); layernorm at every LayerNorm launched on
                its own (`bias_residual_layernorm`: fc2's bias and the FC
-               block's residual in, and final_ln without).
+               block's residual in, and final_ln without); int8_matmul
+               also at the sharded step's shapes (K = 600/760/920 over 2
+               ranks, 300/380/460 over 4; the full N and the overlap's
+               two column chunks), pre-quantized, bitwise.
   3. demo    — the demo system through `AsrEngine` at 1 and 4 slots,
                fp32 and int8 programs, KernelPolicy("kernel") vs
                KernelPolicy("ref"): equal words and tokens, scores close.
@@ -221,6 +225,25 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                h2o-danube-1.8b on int8 weights through `LmEngine` with
                phase 8's prompts and slots, beside phase 8; in fp32 its
                kernel and plain policies give equal tokens on 4 prompts.
+ 22. mesh     — the sharded ASR serving step: 4 ranks spawned on the one
+               card (gloo over CUDA tensors: NCCL refuses two ranks on
+               one device; a file:// rendezvous under build/chip_smoke/;
+               every collective bounded by 120 s), the kernel library
+               built before they start.  Phase 5's system and
+               utterances, fp32 and int8, through `AsrEngine.serve` at
+               meshes 2 ('model'), 2x1 and 2x2 ('data', 'model') and 2
+               with the overlapped all-reduce.  On every rank: launches
+               per step as phase 5's (29 int8_matmul, 58 with the
+               overlap's two chunks) and 29 (58) all-reduces with a
+               'model' axis; fp32 words and tokens equal phase 5's,
+               scores within 1e-3; the first step's log-probs within
+               MESH_LOGP_ATOL (int8: INT8_LOGP_ATOL) of the unsharded
+               forward's; int8 serving and log-probs bitwise equal with
+               the plain sharded products substituted; every rank's
+               results equal.  Step times, all-reduces and bytes a step
+               are printed as "N ranks sharing one card, gloo
+               host-staged collectives: not a multi-card figure".  At
+               most 150 s.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -233,6 +256,7 @@ import json
 import os
 import gc
 import pathlib
+import pickle
 import shutil
 import signal
 import subprocess
@@ -263,7 +287,7 @@ from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import mesh as meshlib, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
@@ -414,6 +438,17 @@ NET_POISON_SID = 1
 NET_PHASE_LIMIT_S = 60.0
 # training (phases 17, 18) runs the kernels' plain versions
 PLAIN = KernelPolicy("ref")
+# phase 22: the sharded ASR step, MESH_WORLD ranks sharing the one card;
+# (mesh spec, overlap_psum) cases, each over the world's first ranks
+MESH_WORLD = 4
+MESH_CASES = (("2", False), ("2x1", False), ("2x2", False), ("2", True))
+MESH_TIMEOUT_S = 120.0          # each collective's (and the rendezvous's)
+MESH_PHASE_LIMIT_S = 150.0
+MESH_SCORE_ATOL = 1e-3          # the reference's sharded-serving bound
+# the fp32 first step's log-probs, sharded vs unsharded forward: the
+# partial products are summed in another order (cuBLAS at K/2, then one
+# add); 4.77e-6 on every mesh on an H100, the limit 10x that
+MESH_LOGP_ATOL = 5e-5
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -710,6 +745,28 @@ def check_kernels(dev) -> dict:
                      f"(must be bitwise)")
             close("int8_matmul", got, want,
                   f"M={m} K={k} N={n} {label} (bitwise)")
+    torch.cuda.synchronize()
+
+    # the sharded step's products (phase 22): each rank's pre-quantized
+    # columns of the full rows' quantization against its K-contiguous
+    # weight rows, K = 1200/1520/1840 over 2 and 4 ranks, whole and in the
+    # overlap's two column chunks; bitwise
+    for m, k, n in sorted(set(fc_shapes(TDS_CONFIG, 4, 4)
+                              + fc_shapes(TDS_CONFIG, 1, 1))):
+        _, _, xq, xs, wq, ws = int8_inputs(dev, gen, m, k, n)
+        for model in (2, 4):
+            kl = k // model
+            xl = xq[:, kl:2 * kl].contiguous()     # rank 1's columns
+            wl = wq[kl:2 * kl].t().contiguous().t()
+            for lo, hi in [(0, n)] + ops.overlap_splits(n):
+                got = kim.int8_matmul(xl, wl[:, lo:hi], xs, ws[lo:hi])
+                want = ref.int8_matmul(xl, wl[:, lo:hi], xs, ws[lo:hi])
+                if not torch.equal(got, want):
+                    fail(f"int8_matmul shard M={m} K={kl} N={hi - lo}: "
+                         f"{(got != want).sum().item()} entries differ from "
+                         f"the plain version (must be bitwise)")
+                close("int8_matmul", got, want,
+                      f"M={m} K={kl} N={hi - lo} shard of {model} (bitwise)")
     torch.cuda.synchronize()
     return err
 
@@ -3523,6 +3580,352 @@ def int8_engine(dev, serve) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 22: the sharded ASR serving step, rank groups on the one card
+# ---------------------------------------------------------------------------
+def mesh_of(spec: str, world: int):
+    """`--mesh`-style spec -> (mesh over the world's first ranks, or None
+    on the others; its rank count).  Every rank of the world calls it."""
+    if "x" in spec:
+        shape, names = tuple(int(v) for v in spec.split("x")), ("data",
+                                                                "model")
+    else:
+        shape, names = (int(spec),), ("model",)
+    n = int(np.prod(shape))
+    if n > world:
+        fail(f"mesh {spec} needs {n} of the phase's {world} ranks")
+    return meshlib.make_mesh(shape, names, ranks=range(n)), n
+
+
+def shared_card_label(n: int, smi: str) -> str:
+    name, limit = (s.strip() for s in smi.split(",", 1))
+    return (f"{n} ranks sharing one {name} ({limit}), gloo host-staged "
+            f"collectives: not a multi-card figure")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count the collectives of the mesh's axes that move data (axes of
+    more than one rank): all-reduces, their bytes, object broadcasts."""
+    stats = {"all_reduce": 0, "all_reduce_bytes": 0, "broadcast": 0}
+    ar, bc = meshlib.MeshAxis.all_reduce, meshlib.MeshAxis.broadcast_object
+
+    def all_reduce(self, t, async_op=False):
+        if self.size > 1:
+            stats["all_reduce"] += 1
+            stats["all_reduce_bytes"] += t.numel() * t.element_size()
+        return ar(self, t, async_op)
+
+    def broadcast_object(self, obj, src_index):
+        stats["broadcast"] += self.size > 1
+        return bc(self, obj, src_index)
+    meshlib.MeshAxis.all_reduce = all_reduce
+    meshlib.MeshAxis.broadcast_object = broadcast_object
+    try:
+        yield stats
+    finally:
+        meshlib.MeshAxis.all_reduce = ar
+        meshlib.MeshAxis.broadcast_object = bc
+
+
+@contextlib.contextmanager
+def plain_sharded_int8_products():
+    """The sharded int8 product's plain version (`ref.int8_matmul` on the
+    full rows' local columns) in place of the pre-quantized kernel, which
+    `ops.int8_matmul_prepared(axis=)` looks up on its module at every
+    call."""
+    kernel = kim.int8_matmul
+    kim.int8_matmul = lambda xq, wq, xs, ws: ref.int8_matmul(xq, wq, xs, ws)
+    try:
+        yield
+    finally:
+        kim.int8_matmul = kernel
+
+
+def mesh_step_ms(eng, slots, w) -> float:
+    """Median wall time of 5 uncommitted steps (after one warm-up) over
+    `slots` at `w` windows, ending in a synchronize; every rank of the
+    mesh runs it in lockstep."""
+    ts = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._step_slots(slots, w, commit=False)
+        torch.cuda.synchronize()
+        if i:
+            ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def mesh_engine(dev, system, mesh, overlap, use_int8):
+    tds_cfg, _, lex, lm, params, dec_cfg = system
+    prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg, use_int8=use_int8)
+    return AsrEngine(EngineConfig(prog, n_slots=4, mesh=mesh,
+                                  overlap_psum=overlap), params, device=dev)
+
+
+def mesh_case(dev, system, utts, mesh, overlap, want, say) -> dict:
+    """One mesh of phase 22 on this rank (every rank of the mesh runs it
+    alike): the fp32 and the int8 engine serve phase 5's utterances with
+    the counts set to 0 just before and read just after; the first
+    step's log-probs against the unsharded forward; the int8 kernel path
+    against its plain products, bitwise; step times."""
+    out = {}
+    model = mesh.shape["model"]
+    chunks = 2 if overlap and model > 1 else 1
+    n_fc = tds.kernel_census(system[0])["fc"]        # 29 FC/head products
+    batch = torch.from_numpy(window_batch(mesh_engine(
+        dev, system, None, False, False), utts, 4, 4)).to(dev)
+    st = tds.init_batched_stream_state(system[0], 4, dev)
+    for int8 in (False, True):
+        tag = "int8" if int8 else "fp32"
+        eng = mesh_engine(dev, system, mesh, overlap, int8)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with counting_collectives() as coll:
+            t0 = time.perf_counter()
+            results = eng.serve(utts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        steps = list(eng.step_shapes)
+        n = len(steps)
+        expect = {name: 0 for name in counts}
+        expect.update({"logmel": n, "tds_conv": 18 * n, "layernorm": 15 * n,
+                       "hypothesis_unit": sum(w for _, _, w in steps),
+                       "int8_matmul": n_fc * chunks * n if int8 else 0})
+        if counts != expect or not n:
+            fail(f"mesh {dict(mesh.shape)} {tag} rank {mesh.rank}: launch "
+                 f"counts {counts} != expected {expect}")
+        expect_ar = n_fc * chunks * n if model > 1 else 0
+        if coll["all_reduce"] != expect_ar:
+            fail(f"mesh {dict(mesh.shape)} {tag}: {coll['all_reduce']} "
+                 f"all-reduces over {n} steps, expected {expect_ar}")
+        t0 = time.perf_counter()
+        eng.serve(utts)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        for i, r in enumerate(results):
+            if not np.isfinite(r["score"]):
+                fail(f"mesh {dict(mesh.shape)} {tag} utt {i}: non-finite "
+                     f"score {r['score']}")
+        # the first step's log-probs against the unsharded forward
+        lp, _ = eng.acoustic(batch, st)
+        lp0, _ = mesh_engine(dev, system, None, False, int8).acoustic(batch,
+                                                                      st)
+        torch.cuda.synchronize()
+        if lp.shape != lp0.shape or not torch.isfinite(lp).all():
+            fail(f"mesh {dict(mesh.shape)} {tag}: log-probs "
+                 f"{tuple(lp.shape)} or non-finite")
+        lp_err = (lp - lp0).abs().max().item()
+        tol = INT8_LOGP_ATOL if int8 else MESH_LOGP_ATOL
+        if lp_err > tol:
+            fail(f"mesh {dict(mesh.shape)} {tag}: first step's log-probs "
+                 f"{lp_err:.3e} from the unsharded forward's (limit {tol})")
+        case = {"results": results, "counts": counts, "steps": steps,
+                "serve_s": wall, "warm_serve_s": warm,
+                "all_reduce_per_step": coll["all_reduce"] / n,
+                "all_reduce_bytes_per_step": coll["all_reduce_bytes"] / n,
+                "broadcasts": coll["broadcast"], "logp_err": lp_err}
+        if int8:
+            # the plain products on the same mesh: the same bits
+            with plain_sharded_int8_products():
+                sub, _ = eng.acoustic(batch, st)
+                plain = mesh_engine(dev, system, mesh, overlap, True).serve(
+                    utts)
+            torch.cuda.synchronize()
+            if not torch.equal(sub, lp):
+                fail(f"mesh {dict(mesh.shape)} int8: the first step's "
+                     f"log-probs change with the plain sharded products")
+            for i, (a, b) in enumerate(zip(results, plain)):
+                if not (np.array_equal(a["words"], b["words"])
+                        and np.array_equal(a["tokens"], b["tokens"])
+                        and a["score"] == b["score"]):
+                    fail(f"mesh {dict(mesh.shape)} int8 utt {i}: kernel "
+                         f"path {a} vs plain products {b}")
+        else:
+            diffs = []
+            for i, (a, b) in enumerate(zip(results, want)):
+                if not (np.array_equal(a["words"], b["words"])
+                        and np.array_equal(a["tokens"], b["tokens"])):
+                    fail(f"mesh {dict(mesh.shape)} fp32 utt {i}: words "
+                         f"{a['words'].tolist()} vs phase 5's "
+                         f"{b['words'].tolist()}")
+                diffs.append(abs(a["score"] - b["score"]))
+            if max(diffs) >= MESH_SCORE_ATOL:
+                fail(f"mesh {dict(mesh.shape)} fp32: scores {max(diffs):.3e}"
+                     f" from phase 5's (limit {MESH_SCORE_ATOL})")
+            case["score_diff"] = max(diffs)
+        for s in range(4):
+            eng.feed_slot(s, utts[s])
+        case["step_ms"], case["step_all_reduce_bytes"] = {}, {}
+        for key, slots, w in (("b=4 w=4", [0, 1, 2, 3], 4),
+                              ("b=1 w=1", [0], 1)):
+            with counting_collectives() as coll:
+                case["step_ms"][key] = mesh_step_ms(eng, slots, w)
+            case["step_all_reduce_bytes"][key] = \
+                coll["all_reduce_bytes"] / 6       # mesh_step_ms's calls
+        say(f"[mesh {dict(mesh.shape)}{' overlap' if overlap else ''}] "
+            f"{tag}: {n} steps, rank {mesh.rank}'s launches {counts}; "
+            f"{case['all_reduce_per_step']:.0f} all-reduces "
+            f"({case['all_reduce_bytes_per_step'] / 1e6:.3f} MB) a step "
+            f"over the serve, "
+            f"{case['broadcasts']} readout broadcasts; first step's "
+            f"log-probs {lp_err:.3e} from the unsharded forward; "
+            + (f"scores {case['score_diff']:.3e} from phase 5's, words "
+               f"equal 8/8" if not int8 else
+               "kernel path bitwise equal to the plain products'")
+            + f"; step b=4 w=4 {case['step_ms']['b=4 w=4']:.3f} ms, b=1 "
+            f"w=1 {case['step_ms']['b=1 w=1']:.3f} ms, serve {wall:.3f} s "
+            f"(warm {warm:.3f} s)")
+        out[tag] = case
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, init, want, out_dir, smi):
+    """One rank of phase 22 (a spawned process): joins the world on the
+    card (gloo: the ranks share it), builds phase 5's system, then runs
+    each case of MESH_CASES that covers it, the others waiting at a
+    barrier.  Writes (ok, results or traceback) to out_dir."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)     # 4 ranks on the host's cores: no spinning
+    res = None
+    try:
+        dev = meshlib.init_ranks(None, init_method=init, rank=rank,
+                                 world_size=world, timeout_s=MESH_TIMEOUT_S)
+        fp32_numerics()
+        _build.lib()
+        say = print if rank == 0 else (lambda *a, **k: None)
+
+        def say_flush(msg):
+            say(msg, flush=True)
+        system = full_width_system(dev)
+        utts = full_width_utterances(system[1])
+        out = {"device": str(dev),
+               "backend": torch.distributed.get_backend()}
+        if rank == 0:           # the unsharded step on the same card
+            eng = mesh_engine(dev, system, None, False, False)
+            for s in range(4):
+                eng.feed_slot(s, utts[s])
+            out["unsharded_step_ms"] = {
+                "b=4 w=4": mesh_step_ms(eng, [0, 1, 2, 3], 4),
+                "b=1 w=1": mesh_step_ms(eng, [0], 1)}
+            del eng
+        torch.distributed.barrier()
+        for spec, overlap in MESH_CASES:
+            mesh, n = mesh_of(spec, world)
+            if mesh is not None:
+                t0 = time.perf_counter()
+                out[f"{spec}{' overlap' if overlap else ''}"] = dict(
+                    mesh_case(dev, system, utts, mesh, overlap, want,
+                              say_flush),
+                    ranks=n, label=shared_card_label(n, smi),
+                    case_s=time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+        res = (True, out)
+    except BaseException:          # reported to the parent, which fails
+        import traceback
+        res = (False, traceback.format_exc())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+def mesh_phase(smi, full_results) -> dict:
+    """Phase 22: MESH_WORLD ranks spawned on the one card (gloo over
+    CUDA tensors, a file:// rendezvous under build/chip_smoke/, every
+    collective bounded by MESH_TIMEOUT_S), the kernel library built
+    before they start.  Each mesh's fp32 transcripts equal phase 5's;
+    the rest as `mesh_case` says; every rank's results equal rank 0's;
+    the phase within MESH_PHASE_LIMIT_S."""
+    import multiprocessing as mp
+    t_phase = time.perf_counter()
+    work = OUT / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    init = f"file://{work / 'rendezvous'}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, MESH_WORLD, init, full_results, str(work),
+                               smi)) for r in range(MESH_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = t_phase + MESH_PHASE_LIMIT_S
+    while any(p.is_alive() for p in procs) and time.perf_counter() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    time.sleep(1.0)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    outs = []
+    for r, p in enumerate(procs):
+        path = work / f"rank{r}.pkl"
+        if not path.exists():
+            fail(f"mesh phase: rank {r} wrote no result (exit code "
+                 f"{p.exitcode}; killed at the phase's limit of "
+                 f"{MESH_PHASE_LIMIT_S} s if still running)")
+        ok, val = pickle.loads(path.read_bytes())
+        if not ok:
+            fail(f"mesh phase: rank {r} failed:\n{val}")
+        outs.append(val)
+    phase_s = time.perf_counter() - t_phase
+    r0 = outs[0]
+    print(f"[mesh] {MESH_WORLD} ranks on {sorted({o['device'] for o in outs})}"
+          f", backend {r0['backend']}; unsharded step on the same card: "
+          f"b=4 w=4 {r0['unsharded_step_ms']['b=4 w=4']:.3f} ms, b=1 w=1 "
+          f"{r0['unsharded_step_ms']['b=1 w=1']:.3f} ms", flush=True)
+    cases = {}
+    for spec, overlap in MESH_CASES:
+        key = f"{spec}{' overlap' if overlap else ''}"
+        mine = [o[key] for o in outs if key in o]
+        for o in mine[1:]:
+            for tag in ("fp32", "int8"):
+                for a, b in zip(o[tag]["results"], mine[0][tag]["results"]):
+                    if not (np.array_equal(a["words"], b["words"])
+                            and a["score"] == b["score"]):
+                        fail(f"mesh {key} {tag}: ranks disagree: {a} vs {b}")
+        c = mine[0]
+        cases[key] = {
+            "ranks": c["ranks"], "label": c["label"], "case_s": c["case_s"],
+            **{tag: {k: v for k, v in c[tag].items() if k != "results"}
+               for tag in ("fp32", "int8")},
+            "counts_by_rank": [{tag: o[tag]["counts"]
+                                for tag in ("fp32", "int8")} for o in mine]}
+        for tag in ("fp32", "int8"):
+            s = c[tag]
+            print(f"[mesh {key}] {tag}: step b=4 w=4 "
+                  f"{s['step_ms']['b=4 w=4']:.3f} ms "
+                  f"({s['step_all_reduce_bytes']['b=4 w=4']:.0f} bytes "
+                  f"all-reduced), b=1 w=1 {s['step_ms']['b=1 w=1']:.3f} ms "
+                  f"({s['step_all_reduce_bytes']['b=1 w=1']:.0f} bytes), "
+                  f"warm serve of 8 utterances {s['warm_serve_s']:.3f} s; "
+                  f"{s['all_reduce_per_step']:.0f} all-reduces and "
+                  f"{s['all_reduce_bytes_per_step']:.0f} bytes a step over "
+                  f"the serve ({c['label']})", flush=True)
+    counts = {name: sum(cs[tag][name] for case in cases.values()
+                        for cs in case["counts_by_rank"]
+                        for tag in ("fp32", "int8"))
+              for name in outs[0][next(iter(cases))]["fp32"]["counts"]}
+    print(f"[mesh] phase 22 took {phase_s:.2f} s (limit "
+          f"{MESH_PHASE_LIMIT_S:.0f} s); launches over every rank and mesh "
+          f"{counts}", flush=True)
+    if phase_s > MESH_PHASE_LIMIT_S:
+        fail(f"mesh phase took {phase_s:.1f} s, more than "
+             f"{MESH_PHASE_LIMIT_S} s")
+    return {"cases": cases, "counts": counts, "phase_s": phase_s,
+            "unsharded_step_ms": r0["unsharded_step_ms"],
+            "backend": r0["backend"]}
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3757,6 +4160,11 @@ def main() -> None:
                                   + int8_lm["engine"]["counts"][name]
                                   for name in vlm["counts"]}}
 
+    # 22. the sharded ASR serving step: rank groups sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(smi, full_results)
+
     kernels = []
     for name in KERNELS:
         r = rows[name]
@@ -3765,7 +4173,8 @@ def main() -> None:
                               else counts)[name],
                    "network": network["counts"][name],
                    "trained asr fp32": asr_train["decode_fp32"]["counts"][name],
-                   "trained asr int8": asr_train["decode_int8"]["counts"][name]}
+                   "trained asr int8": asr_train["decode_int8"]["counts"][name],
+                   "asr mesh (all ranks)": mesh["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -3880,7 +4289,7 @@ def main() -> None:
         "lm": lm_results, "lm2": lm2_results, "beam_prune": bp_results,
         "network": network, "asr_train": asr_train, "lm_train": lm_train,
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
-                AUDIO_ARCH: audio, "int8": int8_lm}},
+                AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh},
         indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
@@ -3891,8 +4300,9 @@ def main() -> None:
           f"{asr_train['decode_fp32']['counts']}, int8 "
           f"{asr_train['decode_int8']['counts']}; training itself launched "
           f"none (KernelPolicy('ref')); "
-          + "; ".join(f"{path}: {c}" for path, c in lm3_paths.items()),
-          flush=True)
+          + "; ".join(f"{path}: {c}" for path, c in lm3_paths.items())
+          + f"; the sharded ASR step (every rank, every mesh): "
+          f"{mesh['counts']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """Public kernel entry points, dispatched by `KernelPolicy`.
 
-Port of `repro/kernels/ops.py` (all but the mesh helpers).  Each
-function resolves its policy against the device of its input (see
-`kernels/policy.py`): ``ref`` runs the plain PyTorch version in
-`kernels/ref.py` (CPU or card), ``kernel`` the CUDA kernel's wrapper
-(card only).  The wrappers never fall back: a failed build or launch
-raises.
+Port of `repro/kernels/ops.py`.  Each function resolves its policy
+against the device of its input (see `kernels/policy.py`): ``ref`` runs
+the plain PyTorch version in `kernels/ref.py` (CPU or card), ``kernel``
+the CUDA kernel's wrapper (card only).  The wrappers never fall back: a
+failed build or launch raises.
+
+The mesh helpers (`shard_local_cols`, `overlap_splits`,
+`psum_overlap_matmul`, and `int8_matmul_prepared(axis=)`) serve the
+sharded ASR step: `axis` is a `launch.mesh.MeshAxis`, this rank's view
+of the 'model' axis, whose `all_reduce` is the reference's `psum`.
 """
 from __future__ import annotations
 
@@ -182,19 +186,91 @@ def prepare_int8_weights(w):
     return wq_t.contiguous().t(), ws
 
 
-def int8_matmul_prepared(x, wq, ws, *, policy=None, axis=None):
+def shard_local_cols(x, kloc, axis):
+    """Model-parallel contraction helper: the activation columns matching
+    this rank's feature-axis weight shard, rows [i*kloc, (i+1)*kloc) of
+    the full weight, where i is the rank's index along `axis`.  Shared by
+    the fp32 (`tds.forward_batched`) and int8 (`int8_matmul_prepared`)
+    paths, so that the slicing rule cannot diverge between them; callers
+    detect a sharded weight by shape (w.shape[0] != x.shape[1]) and
+    all-reduce the partial products.  Returns a view."""
+    return x[:, axis.index * kloc:(axis.index + 1) * kloc]
+
+
+def overlap_splits(n: int, n_chunks: int = 2):
+    """[lo, hi) output-column chunk boundaries for the latency-hiding
+    all-reduce split (`psum_overlap_matmul`); one full-width chunk when
+    n < n_chunks."""
+    n_chunks = max(1, min(int(n_chunks), int(n)))
+    return [(i * n // n_chunks, (i + 1) * n // n_chunks)
+            for i in range(n_chunks)]
+
+
+def _overlapped(n, product, axis, n_chunks=2):
+    """Chunk c's all-reduce runs (async) while chunk c+1's product is
+    computed; `product(lo, hi)` gives a chunk's local partial."""
+    parts, works = [], []
+    for lo, hi in overlap_splits(n, n_chunks):
+        part = product(lo, hi)
+        works.append(axis.all_reduce(part, async_op=True))
+        parts.append(part)
+    for work in works:
+        work.wait()
+    return torch.cat(parts, dim=1)
+
+
+def psum_overlap_matmul(xloc, wm, axis, n_chunks: int = 2):
+    """Latency-hiding model-parallel contraction: xloc (M, K/n) local
+    activation columns, wm (K/n, N) this rank's feature-axis weight
+    shard -> the full (M, N) all-reduced product.
+
+    The output columns are split into chunks, and chunk c's all-reduce
+    is started (`async_op`) before chunk c+1's local product, so a
+    backend with asynchronous collectives sums c under c+1's product.
+    Each output element is still one local dot and one all-reduce, as in
+    the synchronous `all_reduce(xloc @ wm)`, but the narrower products
+    may be blocked differently, so the two agree numerically (~1e-6),
+    not bitwise; the synchronous path stays the parity reference."""
+    return _overlapped(wm.shape[1], lambda lo, hi: xloc @ wm[:, lo:hi],
+                       axis, n_chunks)
+
+
+def int8_matmul_prepared(x, wq, ws, *, policy=None, axis=None,
+                         overlap=False):
     """x: (M, K) float; wq/ws from `prepare_int8_weights` -> (M, N) f32.
 
     The hot-path half of the int8 pipeline: per-row activation
     quantization, the int8 matmul and the fp32 rescale, one launch on the
-    card (`int8_matmul.int8_matmul_fused`).  `axis` (a model-parallel
-    mesh axis in the reference) is not ported."""
-    if axis is not None:
-        raise NotImplementedError("int8_matmul_prepared: the sharded "
-                                  "(axis=) contraction is not ported")
-    if resolve(policy, x) == "ref":
-        return _ref.int8_matmul_prepared(x, wq, ws)
-    return _im.int8_matmul_fused(x.float().contiguous(), wq, ws)
+    card (`int8_matmul.int8_matmul_fused`).
+
+    `axis` (a `MeshAxis`, the sharded step's 'model' axis): where `wq`
+    arrives as a feature-axis shard, (K/n_model, N), detected by shape
+    against `x`, the activations are quantized on their full rows first
+    (`quantize_rows`, so the per-row scales equal the unsharded path's),
+    this rank's xq columns are sliced (made contiguous), the rescaled
+    partial product `(acc·xs)·ws` is taken by the pre-quantized kernel
+    (`int8_matmul.int8_matmul`; the fused one would take its scales from
+    the local columns alone), and the partials are all-reduced over
+    `axis`.  `overlap` splits the output columns as `psum_overlap_matmul`
+    does; the column slice of the K-contiguous weight view stays
+    K-contiguous, so no chunk copies its weight."""
+    if axis is None or wq.shape[0] == x.shape[1]:
+        if resolve(policy, x) == "ref":
+            return _ref.int8_matmul_prepared(x, wq, ws)
+        return _im.int8_matmul_fused(x.float().contiguous(), wq, ws)
+    mode = resolve(policy, x)
+    xq, xs = quantize_rows(x)
+    xloc = shard_local_cols(xq, wq.shape[0], axis).contiguous()
+
+    def product(lo, hi):
+        if mode == "ref":
+            return _ref.int8_matmul(xloc, wq[:, lo:hi], xs, ws[lo:hi])
+        return _im.int8_matmul(xloc, wq[:, lo:hi], xs, ws[lo:hi])
+    if overlap:
+        return _overlapped(wq.shape[1], product, axis)
+    out = product(0, wq.shape[1])
+    axis.all_reduce(out)
+    return out
 
 
 def int8_matmul(x, w, *, policy=None):

@@ -1,0 +1,211 @@
+"""Serving meshes over `torch.distributed` ranks, port of `repro/launch/mesh.py`.
+
+A `Mesh` is the port's counterpart of `jax.sharding.Mesh` for the
+serving step: named axes over a grid of ranks, laid out row-major as
+`jax.make_mesh` lays out devices (on a ('data', 'model') mesh, rank
+d * n_model + m sits at data shard d, model index m).  The reference
+runs one controller over every device; here every rank runs its own
+copy of the program (SPMD) and a `Mesh` is that rank's view: each axis's
+size, the rank's index along it, and the process group of the ranks
+that share its other coordinates (the group an all-reduce over that
+axis runs in).
+
+Functions, not module-level state: importing this module reads nothing
+of torch.distributed or of the cards.
+
+  init_ranks(device)         the world, from torchrun's environment or an
+                             explicit init_method (the tests: file://)
+  make_mesh(shape, names)    a Mesh over the world's ranks (or a subset)
+  make_local_mesh(model)     the reference's (world / model, model) mesh
+  choose_backend(...)        nccl or gloo, the one place that decides
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import rank_device
+
+# how long a collective (and the rendezvous) may wait for the other ranks
+# before it raises: ranks that diverge fail the run instead of hanging it
+DEFAULT_TIMEOUT_S = 300.0
+
+
+class _Done:
+    """The handle of a collective over a one-rank axis: nothing to wait
+    for."""
+
+    def wait(self) -> bool:
+        return True
+
+
+@dataclass(frozen=True, eq=False)
+class MeshAxis:
+    """One mesh axis as this rank sees it.  `ranks` lists the global
+    ranks of its group in index order; `group` is None on an axis of
+    size 1, where every collective is a no-op."""
+    name: str
+    size: int
+    index: int
+    ranks: tuple
+    group: Optional[object] = None
+
+    def all_reduce(self, t: torch.Tensor, async_op: bool = False):
+        """Sum `t` in place over the axis (the reference's `psum`).  With
+        `async_op`, returns a handle whose `wait()` completes it."""
+        if self.size == 1:
+            return _Done() if async_op else None
+        return dist.all_reduce(t, group=self.group, async_op=async_op)
+
+    def broadcast_object(self, obj, src_index: int):
+        """The picklable `obj` of the rank at `src_index` along the axis,
+        on every rank of the axis (the other ranks pass anything)."""
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[src_index],
+                                   group=self.group)
+        return box[0]
+
+
+@dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's view of a serving mesh: `axis_names`, `shape` (a dict,
+    as the reference's `mesh.shape[name]`) and each axis's `MeshAxis`."""
+    axis_names: tuple
+    shape: dict
+    axes: dict = field(repr=False)
+    rank: int = 0
+
+    @property
+    def size(self) -> int:
+        return int(np.prod([self.shape[a] for a in self.axis_names]))
+
+    @property
+    def coords(self) -> dict:
+        return {a: self.axes[a].index for a in self.axis_names}
+
+    def axis(self, name: str) -> MeshAxis:
+        return self.axes[name]
+
+    def __repr__(self) -> str:
+        dims = ", ".join(f"{a!r}: {self.shape[a]}" for a in self.axis_names)
+        return f"Mesh({{{dims}}}, rank {self.rank} at {self.coords})"
+
+
+def choose_backend(device_type: str, local_world_size: int,
+                   n_cards: int) -> str:
+    """The process-group backend: nccl when the ranks run on the card and
+    each rank of this host has a card of its own; gloo when ranks share a
+    card (NCCL refuses two ranks on one device; gloo stages CUDA tensors
+    through the host) or run on the CPU."""
+    if device_type == "cuda" and 0 < local_world_size <= n_cards:
+        return "nccl"
+    return "gloo"
+
+
+def world_size() -> int:
+    """Ranks in the world: the initialized group's, else torchrun's
+    WORLD_SIZE, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def init_ranks(device=None, *, init_method: Optional[str] = None,
+               rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Initialize this process's rank of the world and bind it to its
+    device (`device.rank_device`); returns the device.
+
+    Without `init_method` the world comes from torchrun's environment
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/MASTER_PORT); otherwise
+    `rank` and `world_size` must be given (the tests pass a `file://`
+    rendezvous, so concurrent test workers never share a port).  The
+    backend is `choose_backend`'s, printed on rank 0.  Every collective
+    waits at most `timeout_s`."""
+    dev = rank_device(device)
+    if dist.is_initialized():
+        return dev
+    if init_method is None:
+        missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                               "MASTER_PORT") if k not in os.environ]
+        if missing:
+            raise RuntimeError(
+                f"init_ranks: no {missing} in the environment; launch one "
+                f"process per rank with torchrun --nproc-per-node N, or "
+                f"pass init_method, rank and world_size")
+        init_method = "env://"
+        rank = int(os.environ["RANK"])
+        world_size = int(os.environ["WORLD_SIZE"])
+    elif rank is None or world_size is None:
+        raise ValueError("init_ranks: an init_method needs rank and "
+                         "world_size")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = choose_backend(dev.type, local, n_cards)
+    dist.init_process_group(
+        backend, init_method=init_method, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    if rank == 0:
+        print(f"[mesh] {world_size} ranks, backend {backend} ({local} "
+              f"ranks on this host, {n_cards} cards; rank 0 on {dev})",
+              flush=True)
+    return dev
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """A mesh of `shape` over `ranks` (default: every rank of the world),
+    row-major.  Every rank of the world must call it alike, for
+    `dist.new_group` is collective over the world; a rank outside
+    `ranks` gets None.  A mesh of one rank needs no initialized world."""
+    shape = tuple(int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    if len(shape) != len(axis_names) or min(shape, default=0) < 1:
+        raise ValueError(f"make_mesh: shape {shape} for axes {axis_names}")
+    n = int(np.prod(shape))
+    if ranks is None:
+        ranks = range(world_size())
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) != n:
+        raise ValueError(f"make_mesh: a {shape} mesh needs {n} ranks, got "
+                         f"{len(ranks)}")
+    if n > 1 and not dist.is_initialized():
+        raise RuntimeError(f"make_mesh: a {shape} mesh needs an initialized "
+                           f"world of ranks (init_ranks)")
+    me = dist.get_rank() if dist.is_initialized() else ranks[0]
+    grid = np.asarray(ranks).reshape(shape)
+    axes = {}
+    for i, name in enumerate(axis_names):
+        # each line of ranks along axis i: same coordinates on the others
+        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+            line = tuple(int(r) for r in line)
+            group = dist.new_group(list(line)) if shape[i] > 1 else None
+            if me in line:
+                axes[name] = MeshAxis(name, shape[i], line.index(me), line,
+                                      group)
+    if me not in ranks:
+        return None
+    return Mesh(axis_names, dict(zip(axis_names, shape)), axes, me)
+
+
+def make_local_mesh(model: int = 1) -> Mesh:
+    """The ('data', 'model') mesh over the whole world: model ranks on
+    the 'model' axis, the rest on 'data' (tests, smoke runs)."""
+    n = world_size()
+    if model < 1 or n % model:
+        raise ValueError(f"make_local_mesh: {n} ranks do not split into "
+                         f"'model' axes of {model}")
+    return make_mesh((n // model, model), ("data", "model"))

@@ -22,6 +22,17 @@ Runs on the GPU unless --device names another.
       --slots 2 --prompt-len 8 --max-new 4
   PYTHONPATH=src python -m repro_torch.launch.serve --serve --streams 4 \
       --port 0 --max-queue 4 --watchdog 30
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --mode asr --streams 4 --mesh 2x2
+
+`--mesh N` runs the ASR step model-parallel over N ranks, one process
+each (torchrun): every TDS FC/head weight is split over the ranks on
+its feature axis, each rank contracts its slice and the partial
+products are all-reduced.  `--mesh RxC` makes the mesh 2D ('data',
+'model'): the slot pool splits over the R-way 'data' axis (each data
+shard decodes n_slots/R slots, with no 'data' collectives), weights over
+the C-way 'model' axis.  `--overlap-psum` chunks each all-reduce so it
+runs under the next chunk's product.  Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -32,8 +43,56 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.policy import MODES, KernelPolicy
+from repro_torch.launch import mesh as meshlib
 from repro_torch.serving import (AsrEngine, AsrProgram, EngineConfig,
                                  LmEngine, LmProgram)
+
+
+def serve_mesh(spec, device=None):
+    """`--mesh` spec -> a serving `Mesh`, or None for the single-device
+    engine.
+
+      * N (int or "N") : a 1-axis ('model',) mesh over N ranks; N <= 1 ->
+                         None.
+      * "RxC"          : a 2-axis ('data', 'model') mesh over R*C ranks:
+                         the slot pool splits over the R-way 'data' axis,
+                         FC/head weights over the C-way 'model' axis.
+                         "1x1" -> a real 1x1 mesh (the 2D step on one
+                         rank).
+
+    A mesh of more than one rank initializes this process's rank from
+    torchrun's environment (`launch.mesh.init_ranks`), binding it to
+    `device` (default: its card); the world must hold exactly the
+    mesh's ranks."""
+    if isinstance(spec, str) and "x" in spec:
+        try:
+            r, c = (int(v) for v in spec.split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh {spec!r}: expected N or RxC")
+        if r < 1 or c < 1:
+            raise SystemExit(f"--mesh {spec!r}: axes must be >= 1")
+        shape, names = (r, c), ("data", "model")
+    else:
+        n_model = int(spec)
+        if n_model <= 1:
+            return None
+        shape, names = (n_model,), ("model",)
+    n = int(np.prod(shape))
+    world = meshlib.world_size()
+    if world != n:
+        raise SystemExit(
+            f"--mesh {spec} needs {n} ranks but the world has {world}: "
+            f"launch one process per rank, as torchrun --nproc-per-node "
+            f"{n} -m repro_torch.launch.serve ... --mesh {spec}")
+    if n > 1:
+        meshlib.init_ranks(device)
+    return meshlib.make_mesh(shape, names)
+
+
+def _say(*args, **kwargs) -> None:
+    """print, on rank 0 only."""
+    if meshlib.is_rank0():
+        print(*args, **kwargs)
 
 
 def asr_demo_system():
@@ -60,20 +119,24 @@ def asr_demo_system():
 def asr_demo_engine(n_slots: int, kernels: KernelPolicy = None,
                     device=None, max_queue=None, session_deadline=None,
                     system=None, use_int8: bool = False,
-                    worker_watchdog=None, faults=None) -> tuple:
+                    worker_watchdog=None, faults=None, mesh=None,
+                    overlap_psum: bool = False) -> tuple:
     """(engine, words): an AsrEngine over the demo system's program at
     beam 25.  `system` replaces the demo system's tuple (e.g. with
     parameters carried across from the reference); `use_int8` serves the
     int8 program (FC/head products through the int8 kernel);
     `max_queue`, `session_deadline`, `worker_watchdog` and `faults` are
-    `EngineConfig`'s admission and fault-tolerance knobs."""
+    `EngineConfig`'s admission and fault-tolerance knobs; `mesh` (see
+    `serve_mesh`) shards the step, `overlap_psum` chunks its
+    all-reduces."""
     tds_cfg, words, lex, lm, params, dec_cfg = (
         system if system is not None else asr_demo_system())
     program = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg,
                          use_int8=use_int8).with_beam_width(25.0)
     engine = AsrEngine(EngineConfig(program, n_slots=n_slots,
                                     kernels=kernels or KernelPolicy(),
-                                    max_queue=max_queue,
+                                    mesh=mesh, max_queue=max_queue,
+                                    overlap_psum=overlap_psum,
                                     session_deadline=session_deadline,
                                     worker_watchdog=worker_watchdog,
                                     faults=faults),
@@ -87,7 +150,9 @@ def serve_asr(args):
     from repro_torch.data.pipeline import SyntheticASR
 
     engine, words = asr_demo_engine(1, KernelPolicy(args.kernels),
-                                    device=args.device, use_int8=args.int8)
+                                    device=args.device, use_int8=args.int8,
+                                    mesh=args.serving_mesh,
+                                    overlap_psum=args.overlap_psum)
     data = SyntheticASR(words)
     spp = engine.plan.samples_per_step
     n_utts = 2 if args.utterances is None else args.utterances
@@ -102,10 +167,10 @@ def serve_asr(args):
         best = session.finish()
         dt = time.time() - t0
         rtf = dt / (len(audio) / 16000)
-        print(f"utt {u}: {len(audio)/16000:.2f}s audio, decoded in {dt:.2f}s "
-              f"(RTF {rtf:.2f}) on {engine.device}, steps={best['steps']}, "
-              f"best words={best['words'].tolist()} score={best['score']:.2f} "
-              f"(ref={utt['words'].tolist()})")
+        _say(f"utt {u}: {len(audio)/16000:.2f}s audio, decoded in {dt:.2f}s "
+             f"(RTF {rtf:.2f}) on {engine.device}, steps={best['steps']}, "
+             f"best words={best['words'].tolist()} score={best['score']:.2f} "
+             f"(ref={utt['words'].tolist()})")
 
 
 def serve_asr_multistream(args):
@@ -114,7 +179,9 @@ def serve_asr_multistream(args):
     from repro_torch.data.pipeline import SyntheticASR
 
     engine, words = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
-                                    device=args.device, use_int8=args.int8)
+                                    device=args.device, use_int8=args.int8,
+                                    mesh=args.serving_mesh,
+                                    overlap_psum=args.overlap_psum)
     data = SyntheticASR(words)
     n_utts = args.utterances if args.utterances is not None \
         else max(args.streams, 2)
@@ -126,13 +193,15 @@ def serve_asr_multistream(args):
         torch.cuda.synchronize(engine.device)
     dt = time.time() - t0
     for u, (utt, best) in enumerate(zip(utts, results)):
-        print(f"utt {u}: {len(utt['audio'])/16000:.2f}s audio, "
-              f"steps={best['steps']}, best words={best['words'].tolist()} "
-              f"score={best['score']:.2f} (ref={utt['words'].tolist()})")
-    print(f"served {n_utts} utterances ({audio_s:.2f}s audio) over "
-          f"{args.streams} streams on {engine.device} in {dt:.2f}s: "
-          f"{engine.n_steps} decoding steps, RTF {dt/audio_s:.2f}, "
-          f"throughput {audio_s/dt:.2f}x realtime")
+        _say(f"utt {u}: {len(utt['audio'])/16000:.2f}s audio, "
+             f"steps={best['steps']}, best words={best['words'].tolist()} "
+             f"score={best['score']:.2f} (ref={utt['words'].tolist()})")
+    mesh = args.serving_mesh
+    _say(f"served {n_utts} utterances ({audio_s:.2f}s audio) over "
+         f"{args.streams} streams on {engine.device}"
+         f"{'' if mesh is None else f' ({mesh.size} ranks, {mesh.shape})'} "
+         f"in {dt:.2f}s: {engine.n_steps} decoding steps, RTF "
+         f"{dt/audio_s:.2f}, throughput {audio_s/dt:.2f}x realtime")
     return results
 
 
@@ -271,6 +340,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions on the CPU)")
+    ap.add_argument("--mesh", type=str, default="1", metavar="N|RxC",
+                    help="--mode asr parallel spec over torchrun's ranks: "
+                         "N splits every TDS FC/head weight over N ranks "
+                         "('model' axis); RxC also splits the slot pool "
+                         "over an R-way 'data' axis (C-way 'model'); 1 = "
+                         "the single-device engine")
+    ap.add_argument("--overlap-psum", action="store_true",
+                    help="sharded ASR step: chunk each model-axis "
+                         "all-reduce so it runs under the next chunk's "
+                         "product (~1e-6 from the synchronous one)")
     ap.add_argument("--serve", action="store_true",
                     help="run the asyncio network front-end (HTTP "
                          "chunked streaming over the demo ASR + LM "
@@ -299,13 +378,24 @@ def main(argv=None):
                     help="--serve: bound on the SIGTERM graceful drain "
                          "(seconds; in-flight sessions finishing)")
     args = ap.parse_args(argv)
+    if args.mesh not in ("1", "0"):
+        if args.serve:
+            ap.error("--serve does not take --mesh yet (ROADMAP item 11)")
+        if args.mode == "lm":
+            ap.error("--mesh is ASR-only (LmEngine rejects a mesh; the LM "
+                     "mesh is ROADMAP item 11)")
     if args.serve:
         return serve_network(args)
     if args.mode == "lm":
         return serve_lm(args)
-    if args.streams > 1:
-        return serve_asr_multistream(args)
-    return serve_asr(args)
+    args.serving_mesh = serve_mesh(args.mesh, args.device)
+    try:
+        if args.streams > 1:
+            return serve_asr_multistream(args)
+        return serve_asr(args)
+    finally:
+        if args.serving_mesh is not None and args.serving_mesh.size > 1:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """TDS acoustic model as an explicit kernel sequence, port of
-`repro/models/tds.py` (fp32 and int8 programs, single device).
+`repro/models/tds.py` (fp32 and int8 programs; FC/head products
+optionally sharded over a mesh's 'model' axis).
 
 The network is a list of 79 kernels: 18 CONV, 29 FC, 32 LayerNorm.
 Activations are (T, w, c) maps; convs are time-only (kernel k x 1) with
@@ -193,7 +194,8 @@ def quantize_params(params, cfg: TDSConfig) -> dict:
 
 def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
                     use_int8: bool = False, kernels=None,
-                    prepared: Optional[dict] = None):
+                    prepared: Optional[dict] = None, axis=None,
+                    overlap: bool = False):
     """Slot-native TDS forward.  feats: (B, T, n_mfcc); state: the
     batched stream state ((B, k-1, w, c_in) per conv).  Returns
     (log_probs (B, T', V), new_state).
@@ -204,17 +206,40 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
     through `kernels` (a KernelPolicy).  `use_int8` routes the FC/head
     products through the int8 path; `prepared` (from `quantize_params`)
     supplies its pre-quantized weights, without which they are quantized
-    on every call.  Returns new tensors; `state` is not modified."""
+    on every call.  Returns new tensors; `state` is not modified.
+
+    `axis` (a `launch.mesh.MeshAxis`, the sharded serving step's 'model'
+    axis): FC/head weights then arrive as feature-axis shards, (K/n_model,
+    N) on each rank, and each contraction becomes the rank's partial
+    product over its activation columns, all-reduced over `axis`; the
+    bias is added after the reduction.  Convs, LayerNorms and the B*T
+    row fold are untouched (replicated), so only the weight reads are
+    split.  A weight left whole (its K does not divide the axis) is
+    detected by shape and contracts locally, as with axis=None.
+    `overlap` routes each sharded contraction through
+    `ops.psum_overlap_matmul`'s output-column split (~1e-6 from the
+    synchronous all-reduce, which stays the parity path)."""
     from repro_torch.kernels import ops
 
     def matmul(xm, name, p):
         """The FC/head product without its bias."""
         if not use_int8:
-            return xm @ p["w"]
+            wm = p["w"]
+            if axis is None or wm.shape[0] == xm.shape[1]:
+                return xm @ wm
+            # model-parallel contraction: this rank's activation columns
+            # against its weight rows, partial sums all-reduced
+            xloc = ops.shard_local_cols(xm, wm.shape[0], axis)
+            if overlap:
+                return ops.psum_overlap_matmul(xloc, wm, axis)
+            y = xloc @ wm
+            axis.all_reduce(y)
+            return y
         if prepared is not None and name in prepared:
             pq = prepared[name]
             return ops.int8_matmul_prepared(xm, pq["wq"], pq["ws"],
-                                            policy=kernels)
+                                            policy=kernels, axis=axis,
+                                            overlap=overlap)
         return ops.int8_matmul(xm, p["w"], policy=kernels)
 
     fp32_numerics()
@@ -289,18 +314,19 @@ def forward_batched(params, cfg: TDSConfig, feats: torch.Tensor, state: dict,
 
 def forward(params, cfg: TDSConfig, feats: torch.Tensor,
             state: Optional[dict] = None, use_int8: bool = False,
-            kernels=None, prepared: Optional[dict] = None):
+            kernels=None, prepared: Optional[dict] = None, axis=None):
     """feats: (T, n_mfcc). Returns (log_probs (T', V), new_state).
 
     state=None => offline (zero left context).  use_int8 routes the
     FC/head products through the int8 path (ASRPU's 8-bit MAC;
     `prepared` from `quantize_params` skips the per-call weight
-    quantization).  The B=1 slice of `forward_batched`: single-stream
-    and slot-pooled decoding share one code path."""
+    quantization; `axis` as in `forward_batched`).  The B=1 slice of
+    `forward_batched`: single-stream and slot-pooled decoding share one
+    code path."""
     st_in = state if state is not None \
         else init_stream_state(cfg, feats.device)
     bst = {k: v[None] for k, v in st_in.items()}
     logp, ns = forward_batched(params, cfg, feats[None], bst,
                                use_int8=use_int8, kernels=kernels,
-                               prepared=prepared)
+                               prepared=prepared, axis=axis)
     return logp[0], {k: v[0] for k, v in ns.items()}

@@ -1,11 +1,11 @@
 """Streaming ASR engine: B utterance slots, ONE slot-batched decoding step.
 
-Port of `repro/serving/asr.py` for one device (no mesh).  The decoding
-step — acoustic scoring (MFCC with the fused logmel tail, then the TDS
-kernel sequence) and one hypothesis expansion per emitted acoustic frame
-— runs over a GATHERED sub-batch of slots: every TDS product sees the
-slot axis folded into its rows, and the expansion gathers the shared
-lexicon trie and bigram table once over the flattened slot index set.
+Port of `repro/serving/asr.py`.  The decoding step — acoustic scoring
+(MFCC with the fused logmel tail, then the TDS kernel sequence) and one
+hypothesis expansion per emitted acoustic frame — runs over a GATHERED
+sub-batch of slots: every TDS product sees the slot axis folded into
+its rows, and the expansion gathers the shared lexicon trie and bigram
+table once over the flattened slot index set.
 Each slot keeps its own sample buffer; TDS left context and `BeamState`
 carry a leading slot axis on the engine's device.
 
@@ -18,6 +18,20 @@ extracted exactly as a one-window step would see it.  The scheduler
 picks the window count w retiring the most windows (w x eligible slots,
 largest w on ties) and gathers exactly the eligible slots into the
 smallest covering power-of-two slot bucket.
+
+Under a serving mesh (`EngineConfig.mesh`, a `launch.mesh.Mesh`) the
+engine runs SPMD, one copy per rank: every rank is fed the same sessions
+and holds the same host state (sample buffers, owners, schedule), so
+every rank makes the same scheduling decisions and calls the same
+collectives in the same order.  FC/head weights are this rank's
+feature-axis shards (the forward all-reduces over 'model').  With a
+'data' axis each rank holds only its data shard's slots, global slots
+[d*sps, (d+1)*sps) (sps = n_slots / n_data): a step assembles a
+shard-aligned batch, every shard the same local bucket, and each rank
+steps its own rows and writes back only its real ones.  A readout of a
+slot held by another data shard reaches every rank by an object
+broadcast over the 'data' axis, so `serve()` returns the same list on
+every rank.
 
 Commit discipline: a step builds new pool tensors and assigns them only
 after the whole step succeeded, so a step that raises leaves pool state,
@@ -78,23 +92,38 @@ class AsrEngine(Engine):
         assert self._spp == self.plan.samples_per_step, \
             (self._spp, self.plan.samples_per_step)
         assert features.frames_producible(self._need, fc) == nfr
+        mesh = config.mesh
+        # 2D ('data', 'model') mesh: the slot pool itself is sharded, each
+        # data shard holding n_slots / n_data contiguous slots (slot s on
+        # shard s // slots_per_shard); mesh=None and 1D ('model',) meshes
+        # keep the whole pool on every rank
+        self._model_axis = mesh.axis("model") if mesh is not None else None
+        self._data_axis = (mesh.axis("data") if mesh is not None
+                           and "data" in mesh.axis_names else None)
+        self._n_data = self._data_axis.size if self._data_axis else 1
+        self._slots_per_shard = self.n_slots // self._n_data
+        # the first global slot this rank's pool rows hold
+        self._slot0 = (self._data_axis.index * self._slots_per_shard
+                       if self._data_axis else 0)
         self._buckets = self.program.step_buckets()
         self._slot_buckets = self._make_slot_buckets()
         self.params, self._prepared = self.program.prepare_params(
-            params, self.device)
+            params, self.device, mesh)
         self._lex = self.program.lex.to(self.device)
         self._lm = self.program.lm.to(self.device)
         self._reset_pool()
 
     # ---- the fused decoding step -------------------------------------
     def _make_slot_buckets(self):
-        """Ascending sub-batch sizes a gathered step may run at: powers
-        of two, topped by n_slots."""
+        """Ascending per-shard sub-batch sizes a gathered step may run
+        at: powers of two, topped by slots_per_shard (n_slots without a
+        'data' axis).  With one, the step's batch is bucket * n_data
+        rows, every shard the same local bucket."""
         out, b = [], 1
-        while b < self.n_slots:
+        while b < self._slots_per_shard:
             out.append(b)
             b *= 2
-        out.append(self.n_slots)
+        out.append(self._slots_per_shard)
         return tuple(sorted(set(out)))
 
     def acoustic(self, samples: torch.Tensor, stream_state: dict,
@@ -112,13 +141,20 @@ class AsrEngine(Engine):
         feats = feats.reshape(b, w * nfr, -1)
         return tds.forward_batched(self.params, prog.tds_cfg, feats,
                                    stream_state, use_int8=prog.use_int8,
-                                   kernels=kernels, prepared=self._prepared)
+                                   kernels=kernels, prepared=self._prepared,
+                                   axis=self._model_axis,
+                                   overlap=self.config.overlap_psum)
 
-    def _run_step(self, stream_state, beam_state, samples, slots):
+    def _run_step(self, stream_state, beam_state, samples, slots,
+                  write=None):
         """One slot-batched decoding step over a GATHERED sub-batch.
         samples: (b, w, need) — w buffered windows for each of the b
-        gathered slots; slots: (b,) pool indices.  Returns NEW pool
-        tensors; the inputs are not modified."""
+        gathered slots; slots: (b,) pool rows.  `write` (data-sharded
+        pools): the batch rows to write back, this shard's real ones; the
+        pad rows (which read pool row 0) write nothing.  Index -1 cannot
+        mark them, as in the reference's drop-mode scatter: torch wraps
+        it to the last row.  Returns NEW pool tensors; the inputs are
+        not modified."""
         prog = self.program
         ss = treeutil.tree_map(lambda a: a[slots], stream_state)
         bs = treeutil.tree_map(lambda a: a[slots], beam_state)
@@ -133,8 +169,15 @@ class AsrEngine(Engine):
         # (up to the unordered atomics of the plain version's
         # scatter_add on the card), so index_put's choice among
         # duplicate writes is safe.
-        def put(full, new):
-            return full.index_put((slots,), new)
+        if write is None:
+            def put(full, new):
+                return full.index_put((slots,), new)
+        else:
+            rows = torch.from_numpy(write).to(self.device)
+            dst = slots[rows]
+
+            def put(full, new):
+                return full.index_put((dst,), new[rows])
         return (treeutil.tree_map(put, stream_state, new_ss),
                 treeutil.tree_map(put, beam_state, bs))
 
@@ -153,11 +196,12 @@ class AsrEngine(Engine):
         if self._stream_state is not None:
             return
         # build both, then commit both: a failure cannot leave the pool
-        # with a stream state but no beam
+        # with a stream state but no beam.  This rank's rows only: its
+        # data shard's slots
         stream_state = tds.init_batched_stream_state(
-            self.program.tds_cfg, self.n_slots, self.device)
+            self.program.tds_cfg, self._slots_per_shard, self.device)
         beam = dec.init_batched_state(
-            self.n_slots, self.program.dec_cfg.beam_size, self._lm,
+            self._slots_per_shard, self.program.dec_cfg.beam_size, self._lm,
             self.device)
         self._stream_state = stream_state
         self._beam = beam
@@ -180,14 +224,22 @@ class AsrEngine(Engine):
     def reset_slot(self, slot: int) -> None:
         """Utterance boundary in one slot: clear its buffer, left
         context and hypothesis memory; other slots are untouched.  The
-        device reset runs first and commits both trees together."""
-        if self._stream_state is not None:
-            new_stream = tds.reset_stream_slot(self._stream_state, slot,
+        device reset runs first (on the ranks holding the slot) and
+        commits both trees together."""
+        row = self._local_row(slot)
+        if self._stream_state is not None and row is not None:
+            new_stream = tds.reset_stream_slot(self._stream_state, row,
                                                self.program.tds_cfg)
-            new_beam = dec.reset_slot(self._beam, slot, self._lm)
+            new_beam = dec.reset_slot(self._beam, row, self._lm)
             self._stream_state, self._beam = new_stream, new_beam
         self._slot_bufs[slot] = np.zeros((0,), np.float32)
         self._slot_steps[slot] = 0
+
+    def _local_row(self, slot: int):
+        """This rank's pool row of global `slot`, or None when another
+        data shard holds it."""
+        row = slot - self._slot0
+        return row if 0 <= row < self._slots_per_shard else None
 
     def feed_slot(self, slot: int, samples) -> None:
         """Append raw samples to one slot's stream buffer (initializing
@@ -297,10 +349,24 @@ class AsrEngine(Engine):
                 "asr_step", slots=tuple(slots),
                 sids=tuple(self._owner[s].sid for s in slots
                            if self._owner[s] is not None))
-        samples = torch.from_numpy(batch).to(self.device)
-        slots_t = torch.from_numpy(idx).to(self.device)
-        new_ss, new_beam = self._run_step(self._stream_state, self._beam,
-                                          samples, slots_t)
+        if self._data_axis is None:
+            samples = torch.from_numpy(batch).to(self.device)
+            slots_t = torch.from_numpy(idx).to(self.device)
+            new_ss, new_beam = self._run_step(self._stream_state, self._beam,
+                                              samples, slots_t)
+        else:
+            # this shard's rows of the shard-aligned batch; pad rows
+            # (index -1) read pool row 0 and write nothing
+            bloc = b // self._n_data
+            mine = slice(self._data_axis.index * bloc,
+                         (self._data_axis.index + 1) * bloc)
+            valid = idx[mine] >= 0
+            rows = np.where(valid, idx[mine] - self._slot0, 0)
+            samples = torch.from_numpy(batch[mine]).to(self.device)
+            slots_t = torch.from_numpy(rows).to(self.device)
+            new_ss, new_beam = self._run_step(
+                self._stream_state, self._beam, samples, slots_t,
+                write=np.flatnonzero(valid))
         if not commit:
             return
         self._stream_state, self._beam = new_ss, new_beam
@@ -316,16 +382,35 @@ class AsrEngine(Engine):
     def _assemble_batch(self, slots, w):
         """Gather each eligible slot's next `w` buffered windows into a
         bucket-padded (b, w, samples_per_window) batch plus its (b,)
-        int64 slot-index vector.  b is the smallest slot bucket covering
-        len(slots); padding duplicates row 0 and its slot index.
-        Assembly is non-destructive: `_retire` consumes the samples only
-        after the step succeeded."""
-        b = next(x for x in self._slot_buckets if x >= len(slots))
-        batch = np.zeros((b, w, self._need), np.float32)
-        for j, s in enumerate(slots):
-            self._fill_row(batch, j, s, w)
-        batch[len(slots):] = batch[0]  # bucket padding: duplicate rows
-        idx = np.array(slots + slots[:1] * (b - len(slots)), np.int64)
+        int64 slot-index vector.  Assembly is non-destructive: `_retire`
+        consumes the samples only after the step succeeded.
+
+        Without a 'data' axis, b is the smallest slot bucket covering
+        len(slots); padding duplicates row 0 and its slot index.  With
+        one, the batch is shard-aligned: slots group by home shard,
+        every shard gets the same local bucket `bloc` (the smallest
+        covering the largest group), so shard d's slots sit at rows
+        [d*bloc, (d+1)*bloc); pad rows are zeros with index -1 (a shard
+        with no eligible slot has no row to duplicate)."""
+        if self._data_axis is None:
+            b = next(x for x in self._slot_buckets if x >= len(slots))
+            batch = np.zeros((b, w, self._need), np.float32)
+            for j, s in enumerate(slots):
+                self._fill_row(batch, j, s, w)
+            batch[len(slots):] = batch[0]  # bucket padding: duplicate rows
+            idx = np.array(slots + slots[:1] * (b - len(slots)), np.int64)
+            return batch, idx
+        sps = self._slots_per_shard
+        groups = [[s for s in slots if s // sps == d]
+                  for d in range(self._n_data)]
+        bloc = next(x for x in self._slot_buckets
+                    if x >= max(len(g) for g in groups))
+        batch = np.zeros((bloc * self._n_data, w, self._need), np.float32)
+        idx = np.full((bloc * self._n_data,), -1, np.int64)
+        for d, group in enumerate(groups):
+            for j, s in enumerate(group):
+                self._fill_row(batch, d * bloc + j, s, w)
+                idx[d * bloc + j] = s
         return batch, idx
 
     def _fill_row(self, batch, row, slot, w):
@@ -371,13 +456,23 @@ class AsrEngine(Engine):
     def slot_best(self, slot: int, final: bool = False) -> dict:
         """Best hypothesis of one slot as host arrays; final=True commits
         a pending utterance-final word (the stored beam is not
-        advanced)."""
+        advanced).  Under a 'data' axis the ranks holding the slot read
+        it out and broadcast it over 'data' (every rank calls this
+        alike)."""
         if self._beam is None:
             return empty_hypothesis()
-        st = dec.slot_state(self._beam, slot)
-        if final:
-            st = dec.finalize(st, self._lex, self._lm, self.program.dec_cfg)
-        return dec.materialize_best(dec.best(st))
+        row = self._local_row(slot)
+        res = None
+        if row is not None:
+            st = dec.slot_state(self._beam, row)
+            if final:
+                st = dec.finalize(st, self._lex, self._lm,
+                                  self.program.dec_cfg)
+            res = dec.materialize_best(dec.best(st))
+        if self._data_axis is None:
+            return res
+        return self._data_axis.broadcast_object(
+            res, slot // self._slots_per_shard)
 
     # ---- session mechanics -------------------------------------------
     def _push(self, session: Session, chunk) -> None:

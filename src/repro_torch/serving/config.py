@@ -3,9 +3,10 @@
 One frozen program per workload — an `AsrProgram` (acoustic model +
 hypothesis expansion + decoding step geometry, compiled into a static
 `StepPlan`) or an `LmProgram` (LM arch + cache/generation budget) —
-wrapped in an `EngineConfig` that adds the slot-pool size and the kernel
-policy.  A configured engine never mutates its program.  Everything is
-served on one device: there is no mesh.
+wrapped in an `EngineConfig` that adds the slot-pool size, the kernel
+policy and, for the ASR engine, an optional serving mesh of
+`torch.distributed` ranks (`launch.mesh.Mesh`).  A configured engine
+never mutates its program.
 """
 from __future__ import annotations
 
@@ -62,15 +63,31 @@ class AsrProgram:
         return make_step_plan(self.tds_cfg, self.feat_cfg, self.step_ms,
                               self.dec_cfg.beam_size)
 
-    def prepare_params(self, params, device):
+    def prepare_params(self, params, device, mesh=None):
         """Build-time weight preparation, returning `(params, prepared)`
-        on `device`: int8 programs quantize every FC/head weight matrix
-        once, there (`tds.quantize_params`), so that the hot path only
-        quantizes activations; fp32 programs get `prepared=None`."""
+        on `device`:
+
+          * int8 programs quantize every FC/head weight matrix once,
+            there (`tds.quantize_params`), so that the hot path only
+            quantizes activations; fp32 programs get `prepared=None`;
+          * with a `mesh`, both trees are then cut to this rank's blocks
+            (`parallel.sharding.shard_tree`): FC/head weights and their
+            int8 `wq` split on the feature axis over 'model'
+            (`tds_param_specs`, `tds_prepared_specs`), everything else
+            whole, so each rank holds only its weight shards.  The
+            scales `ws` come from the whole weights."""
         from repro_torch.models import tds
         params = tds.params_from_numpy(params, device)
         prepared = (tds.quantize_params(params, self.tds_cfg)
                     if self.use_int8 else None)
+        if mesh is not None:
+            from repro_torch.parallel import sharding as shlib
+            params = shlib.shard_tree(
+                params, shlib.tds_param_specs(self.tds_cfg, mesh), mesh)
+            if prepared is not None:
+                prepared = shlib.shard_tree(
+                    prepared, shlib.tds_prepared_specs(self.tds_cfg, mesh),
+                    mesh)
         return params, prepared
 
     def validate_input(self, chunk: np.ndarray) -> None:
@@ -186,6 +203,19 @@ class EngineConfig:
     admission backpressure bound (`AdmissionRejected` when every slot is
     busy and the queue is full; None = unbounded).
 
+    `mesh` (a `launch.mesh.Mesh` with a 'model' axis and optionally a
+    'data' axis; ASR only) runs the decoding step sharded, one copy of
+    the engine per rank, every rank fed the same sessions: FC/head
+    weights split on their feature axis over 'model' (each rank
+    contracts its slice, the partial products are all-reduced), and
+    with a 'data' axis the slot pool split into `n_slots / n_data`
+    contiguous slots per data shard, each shard stepping its own slots
+    with no 'data'-axis collective.  `n_slots` must divide evenly over
+    'data'.  None (the default) is the single-device engine.
+    `overlap_psum` chunks each sharded contraction's all-reduce so it
+    runs under the next chunk's product (`ops.psum_overlap_matmul`;
+    ~1e-6 from the synchronous all-reduce); a no-op without a mesh.
+
     Fault-tolerance knobs (README "Fault tolerance"):
 
     `session_deadline` — wall-clock seconds a session may live from
@@ -202,7 +232,9 @@ class EngineConfig:
     program: Program
     n_slots: int = 1
     kernels: KernelPolicy = field(default_factory=KernelPolicy)
+    mesh: Optional[object] = None      # launch.mesh.Mesh
     max_queue: Optional[int] = None
+    overlap_psum: bool = False
     session_deadline: Optional[float] = None
     worker_watchdog: Optional[float] = None
     faults: Optional[object] = None    # FaultPolicy; object() keeps the
@@ -222,6 +254,32 @@ class EngineConfig:
             raise ValueError(
                 f"worker_watchdog must be None or > 0, got "
                 f"{self.worker_watchdog}")
+        if self.mesh is not None:
+            if "model" not in self.mesh.axis_names:
+                raise ValueError(
+                    f"serving mesh needs a 'model' axis, got {self.mesh}")
+            extra = [a for a in self.mesh.axis_names
+                     if a not in ("data", "model")]
+            if extra:
+                raise ValueError(
+                    f"serving mesh axes must be ('data', 'model') or "
+                    f"('model',), got extra axes {extra} in {self.mesh}")
+            if "data" in self.mesh.axis_names:
+                nd = self.mesh.shape["data"]
+                if self.n_slots % nd != 0:
+                    raise ValueError(
+                        f"n_slots={self.n_slots} must divide evenly over "
+                        f"the 'data' mesh axis (size {nd}): each data "
+                        f"shard owns n_slots/n_data pool slots")
+            clocks = [k for k in ("session_deadline", "worker_watchdog")
+                      if getattr(self, k) is not None]
+            if clocks and self.mesh.size > 1:
+                raise ValueError(
+                    f"{' and '.join(clocks)} read the wall clock, which "
+                    f"differs between ranks, so the ranks' schedules would "
+                    f"diverge: not served under a mesh of "
+                    f"{self.mesh.size} ranks (ROADMAP item 11, "
+                    f"'--serve --mesh')")
 
 
 def make_engine(config: EngineConfig, params, device=None):

@@ -55,6 +55,11 @@ class LmEngine(Engine):
         if not isinstance(config.program, LmProgram):
             raise TypeError(f"LmEngine needs an LmProgram, got "
                             f"{type(config.program)!r}")
+        if config.mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig.mesh (model-parallel serving) is wired for "
+                "the ASR engine; LM serving over a mesh waits for the LM "
+                "mesh (ROADMAP item 11)")
         self.device = resolve_device(device)
         super().__init__(config)
         self.program: LmProgram = config.program

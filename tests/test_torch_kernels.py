@@ -162,10 +162,26 @@ def test_int8_matmul_pipeline_matches_jax(m, k, n, mode):
 
 
 def test_int8_matmul_prepared_refuses_a_mesh_axis():
+    """The sharded contraction (`axis=`) was refused until it was ported;
+    it is taken now.  A whole weight ignores the axis (bitwise the
+    unsharded call); a feature-axis shard takes the scales of the FULL
+    rows and the rank's columns (a one-rank axis: no all-reduce; the
+    multi-rank path is tests/test_torch_mesh.py's)."""
+    from repro_torch.launch.mesh import MeshAxis
     x, w = _t(_np(0, 4, 16)), _t(_np(1, 16, 8))
     wq, ws = tops.prepare_int8_weights(w)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tops.int8_matmul_prepared(x, wq, ws, axis="model")
+    for index in (0, 1):
+        ax = MeshAxis("model", 1, index, (0,))
+        assert torch.equal(tops.int8_matmul_prepared(x, wq, ws, axis=ax),
+                           tops.int8_matmul_prepared(x, wq, ws))
+        shard = wq[8 * index:8 * (index + 1)]
+        xq, xs = tops.quantize_rows(x)
+        want = tref.int8_matmul(xq[:, 8 * index:8 * (index + 1)], shard, xs,
+                                ws)
+        for overlap in (False, True):
+            got = tops.int8_matmul_prepared(x, shard, ws, axis=ax,
+                                            overlap=overlap)
+            assert torch.equal(got, want), (index, overlap)
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,7 @@ def test_every_tpu_kernel_and_kernel_function_has_a_port_counterpart():
     """Each module of the JAX package that reaches `pl.pallas_call` has a
     kernel in `ops.KERNEL_MODULES`, and every public function of
     `repro.kernels.ref` and `repro.kernels.ops` one of the same name in
-    the port, apart from the mesh helpers (not ported yet)."""
+    the port, the mesh helpers included."""
     from repro_torch.kernels import ops, ref
     ref_dir = ROOT / "src" / "repro" / "kernels"
     pallas = set()
@@ -107,9 +107,8 @@ def test_every_tpu_kernel_and_kernel_function_has_a_port_counterpart():
                 pallas.add(f.stem)
     assert len(pallas) == 7, pallas
     assert pallas <= set(ops.KERNEL_MODULES), pallas - set(ops.KERNEL_MODULES)
-    mesh = {"shard_local_cols", "overlap_splits", "psum_overlap_matmul"}
     for name, port in (("ref", ref), ("ops", ops)):
-        want = _top_level_functions(ref_dir / f"{name}.py") - mesh
+        want = _top_level_functions(ref_dir / f"{name}.py")
         missing = sorted(f for f in want if not callable(getattr(port, f,
                                                                  None)))
         assert not missing, (name, missing)
