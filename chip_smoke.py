@@ -4,8 +4,9 @@ batched LM serving (dense, SSM and MoE families), the standalone
 beam-threshold prune, the network front-end, training (CTC training
 of the full-width TDS model, the LM trainer at full width), the rest
 of the LM stack (M-RoPE and frontend embeddings, the LM's bf16 LayerNorm,
-int8 LM serving weights), and the sharded ASR serving step (a mesh of
-`torch.distributed` ranks, here sharing the one card).
+int8 LM serving weights), the sharded ASR serving step (a mesh of
+`torch.distributed` ranks, here sharing the one card) and the sharded
+LM serving cells (`launch/steps.build_cell` on such a mesh).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -244,6 +245,42 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                are printed as "N ranks sharing one card, gloo
                host-staged collectives: not a multi-card figure".  At
                most 150 s.
+ 23. lm mesh  — the sharded LM serving cells: `build_cell` prefill and
+               decode on ('data', 'model') meshes of the 4 ranks sharing
+               the card (gloo): h2o-danube-1.8b at 1x2, 1x4 and 2x2
+               (B = 4), qwen2-moe-a2.7b at 1x2 and 1x4 (B = 2, expert
+               parallel), mamba2-1.3b at 1x2 (B = 4); prefill S = 2048,
+               then 8 decode steps fed the unsharded run's tokens, on
+               int8 serving weights (`LM.init_local`: each rank draws the
+               stream whole and keeps its blocks).  The unsharded
+               references are computed in this process first, written
+               under build/chip_smoke/lm_mesh/ and freed.  On every rank:
+               its parameter blocks bitwise the unsharded serving tree's
+               (fingerprints of the bits); launches per cell as one
+               device's (rmsnorm 49 a forward, 97 for mamba2; flash 24 a
+               prefill).  At full depth in bf16 and at LM_MESH_LAYERS
+               layers in fp32 and bf16, the kernel path and the mesh's
+               plain path (replaying the kernel path's MoE routes) run
+               prefill and the decode steps.  The kernels, isolated from
+               the shards: the kernel path's logits within the limit of
+               the plain path's (bf16: EMB_DEPTH_RATIO x the unsharded
+               kernel-vs-plain gap or one bf16 ulp of max |logit| if
+               that is larger; fp32: LM_LOGIT_RTOL), its decode
+               tokens equal the plain path's where the plain margin is
+               sure.  The shards: in fp32 both paths' logits within
+               LM_LOGIT_RTOL of max |logit| of the unsharded paths', the
+               caches' blocks within LM_MESH_CACHE_RTOL of max |value|
+               (the control bug, a first projection skipped, at least
+               LM_MESH_CONTROL x each limit), decode tokens equal the
+               unsharded run's where sure; in bf16 at LM_MESH_LAYERS
+               layers each path's gap from an fp32 evaluation of the
+               same weights on the mesh within EMB_DEPTH_RATIO x the
+               unsharded path's.  qwen2-moe's expert-parallel prefill
+               drops tokens at its local capacity, so its shards are
+               held to the mesh's plain path only.
+               Times, collectives and bytes per cell, peak memory per
+               rank printed ("not a multi-card figure").  At most
+               LM_MESH_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -253,6 +290,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import math
 import os
 import gc
 import pathlib
@@ -262,6 +300,7 @@ import signal
 import subprocess
 import sys
 import time
+import types
 import warnings
 from dataclasses import replace
 
@@ -274,6 +313,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))     # the port, from this checkout
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.configs.tds_asr import (DECODER_CONFIG,  # noqa: E402
                                          FEATURE_CONFIG, TDS_CONFIG)
 from repro_torch.core import ctc, features, lexicon as lx  # noqa: E402
@@ -287,7 +327,7 @@ from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
-from repro_torch.launch import mesh as meshlib, train  # noqa: E402
+from repro_torch.launch import mesh as meshlib, steps, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
@@ -295,6 +335,7 @@ from repro_torch.models import LM, layers, moe, tds  # noqa: E402
 from repro_torch.core.treeutil import (leaves_with_paths,  # noqa: E402
                                        tree_map, value_and_grad)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel import sharding as shlib  # noqa: E402
 from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
                                  EngineConfig, FaultPolicy, FaultSpec,
                                  LmEngine, LmProgram)
@@ -449,6 +490,32 @@ MESH_SCORE_ATOL = 1e-3          # the reference's sharded-serving bound
 # partial products are summed in another order (cuBLAS at K/2, then one
 # add); 4.77e-6 on every mesh on an H100, the limit 10x that
 MESH_LOGP_ATOL = 5e-5
+# phase 23: the sharded LM serving cells, (arch, mesh, global batch);
+# prefill (B, LM_MESH_SEQ), then LM_MESH_STEPS decode steps
+LM_MESH_CASES = ((LM_ARCH, "1x2", 4), (LM_ARCH, "1x4", 4), (LM_ARCH, "2x2", 4),
+                 (MOE_ARCH, "1x2", 2), (MOE_ARCH, "1x4", 2),
+                 (MAMBA_ARCH, "1x2", 4))
+LM_MESH_SEQ = 2048
+LM_MESH_STEPS = 8
+LM_MESH_LAYERS = 4              # the fp32 and the shallow bf16 checks' depth
+# fp32 at LM_MESH_LAYERS layers, sharded vs unsharded: prefill logits
+# within LM_LOGIT_RTOL of max |logit|, cache blocks within
+# LM_MESH_CACHE_RTOL of the cache's largest |value|.  Relative: the
+# shards' products sum in another order (cuBLAS picks its algorithm by
+# the shard's width).  Set from two readings on an H100 (PERF.md, PR
+# 24): the largest sound gap (mamba2-1.3b: logits 1.81e-4 on 4.69, cache
+# 1.11e-4 on 4.63, 2.4e-5 of it) and the control bug, the first layer's
+# output projection skipped, which must move each by LM_MESH_CONTROL
+# times its limit or more; the mesh's plain path is held to the same
+# limits against the unsharded plain path (the shards' roundings alone)
+LM_MESH_CACHE_RTOL = 1e-4
+LM_MESH_CONTROL = 10.0
+# a decode token must equal the other path's where that path's top-two
+# margin is above LM_MESH_SURE times the allowed logit gap
+LM_MESH_SURE = 2.0
+LM_MESH_TIMEOUT_S = 300.0       # each collective's (ranks wait at barriers)
+LM_MESH_PHASE_LIMIT_S = 450.0
+LM_MESH_DIR = ROOT / "build" / "chip_smoke" / "lm_mesh"
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -3926,6 +3993,661 @@ def mesh_phase(smi, full_results) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 23. the sharded LM serving cells: build_cell prefill and decode on a
+# ('data', 'model') mesh of ranks sharing the card
+# ---------------------------------------------------------------------------
+class CoordMesh:
+    """What the spec rules and `sharding.local_block` read of a mesh, as
+    the rank at `rank` of an "RxC" ('data', 'model') mesh sees it: the
+    parent's view of each rank's blocks (no process group)."""
+
+    def __init__(self, spec: str, rank: int):
+        r, c = (int(v) for v in spec.split("x"))
+        self.axis_names = ("data", "model")
+        self.shape = {"data": r, "model": c}
+        self.coords = {"data": rank // c, "model": rank % c}
+
+    def axis(self, entry):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        size, index = 1, 0
+        for n in names:
+            size, index = size * self.shape[n], (index * self.shape[n]
+                                                 + self.coords[n])
+        return types.SimpleNamespace(size=size, index=index)
+
+
+def fingerprint(t: torch.Tensor) -> tuple:
+    """The bits of `t` as two 64-bit sums of its bytes read as int32
+    words (plain, and each word times an odd function of its position;
+    both exact, wrapping mod 2**64), with its shape and dtype.  Equal
+    tensors give equal fingerprints; unequal ones agreeing by chance is
+    vanishingly unlikely.  On the card: a rank compares its blocks with
+    the parent's blocks of the unsharded tree without either process
+    holding the other's."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    w = b.view(torch.int32)
+    s1 = s2 = 0
+    step = 1 << 26
+    for i in range(0, w.numel(), step):
+        c = w[i:i + step].long()
+        pos = torch.arange(i, i + c.numel(), device=c.device,
+                           dtype=torch.int64)
+        s1 += int(c.sum())
+        s2 += int((c * (pos * 2654435761 + 97531)).sum())
+    return (s1 % 2 ** 64, s2 % 2 ** 64, tuple(t.shape), str(t.dtype))
+
+
+def lm_mesh_archs() -> dict:
+    """{arch: (global batch, [mesh specs])} of LM_MESH_CASES."""
+    out = {}
+    for arch, spec, batch in LM_MESH_CASES:
+        out.setdefault(arch, (batch, []))[1].append(spec)
+    return out
+
+
+def top2(logits: torch.Tensor, vocab: int):
+    """(argmax, top-two margin) of each row over the real vocabulary."""
+    v = logits[:, :vocab].float()
+    t = torch.topk(v, 2, dim=-1).values
+    return v.argmax(-1), t[:, 0] - t[:, 1]
+
+
+def lm_mesh_configs(cfg):
+    """Phase 23's three depths of a model: (tag, config): the full-depth
+    bf16 model, LM_MESH_LAYERS layers in fp32 (the same draws), and
+    LM_MESH_LAYERS layers in bf16 (where each path's roundings are also
+    measured against an fp32 evaluation of the same weights)."""
+    short = replace(cfg, n_layers=LM_MESH_LAYERS)
+    return (("bf16", cfg), ("fp32", replace(short, dtype="float32")),
+            ("bf16 L4", short))
+
+
+@contextlib.contextmanager
+def moe_routes(log: list, replay: bool):
+    """Record every MoE router call's expert choices into `log`, in call
+    order, or with `replay` give each call the next recorded choices
+    (with its own router probabilities at those experts, renormalised).
+    The kernel path records and its plain path replays, so both route
+    and drop alike and their gap is the kernels' and the roundings',
+    not that of a token that one path sends elsewhere: bf16 roundings
+    flip a few top-k choices, and at the expert-parallel local capacity
+    a flip moves which later tokens are dropped.  Models without MoE
+    make no router call."""
+    orig = moe.route
+    it = iter(log)
+
+    def recorded(logits, k):
+        probs, top_p, top_e = orig(logits, k)
+        log.append(top_e)
+        return probs, top_p, top_e
+
+    def replayed(logits, k):
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_e = next(it)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        return probs, top_p, top_e
+    moe.route = replayed if replay else recorded
+    try:
+        yield
+    finally:
+        moe.route = orig
+    if replay and next(it, None) is not None:
+        fail("moe routes: a replay made fewer router calls than recorded")
+
+
+def upcast(tree):
+    """A serving tree's floating leaves in fp32, its int8 weights kept:
+    the same weights, for an fp32 evaluation of a bf16 model."""
+    return tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                    tree)
+
+
+def skip_first_projection(params):
+    """`params` with the first layer's mixer output projection (wo, or
+    Mamba's out_proj) zeroed: the control bug that the fp32 limits must
+    see (its gap is held to at least LM_MESH_CONTROL times the limit)."""
+    p0 = params["layers"]["p0"]
+    mix = p0["mixer"]
+    name = "wo" if "wo" in mix else "out_proj"
+    lin = {k: v.clone() for k, v in mix[name].items()}
+    for v in lin.values():
+        v[0].zero_()
+    return dict(params, layers=dict(params["layers"], p0=dict(
+        p0, mixer=dict(mix, **{name: lin}))))
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits): the least nonzero gap
+    two bf16 logits of that size can show.  A bf16 limit below it would
+    ask the largest logits to agree bitwise, so the gap it scales is
+    floored there (mamba2-1.3b at 4 layers: its unsharded kernel-vs-plain
+    gap 1.5625e-2 is one ulp of a logit in [2, 4); on the mesh one flip
+    at a logit in [4, 8) reads 3.125e-2)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def max_gap(a, b) -> float:
+    return (a.float().cpu() - b.float().cpu()).abs().max().item()
+
+
+def cache_gap(got, want) -> float:
+    """The largest |difference| over two caches' layer leaves (trees or
+    lists of leaves in tree order)."""
+    def flat(t):
+        return list(_leaves(t)) if isinstance(t, dict) else t
+    return max(max_gap(g, w) for g, w in zip(flat(got), flat(want)))
+
+
+def lm_mesh_reference(dev, arch: str, batch: int, specs) -> dict:
+    """The unsharded outputs phase 23's ranks are held to, computed in
+    the parent before they start and written to LM_MESH_DIR, for each
+    depth of `lm_mesh_configs` on the int8 serving tree (seed SEED):
+    the kernel path's prefill logits and the plain path's (replaying
+    the kernel path's MoE routes; their gap is the bf16 limits' scale),
+    LM_MESH_STEPS greedy decode steps of the kernel path (the tokens
+    fed, each step's argmax and top-two margin); in fp32 also both
+    paths' caches and the control (`skip_first_projection`) readings;
+    at LM_MESH_LAYERS layers in bf16 also the fp32 evaluation of the
+    same weights (`upcast`, plain, routes replayed) and each path's gap
+    from it.  Returns the fingerprints of every rank's parameter blocks
+    per mesh (the tree is freed before the ranks start)."""
+    cfg = get_config(arch)
+    S = LM_MESH_SEQ
+    rng = np.random.RandomState(SEED + 23)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, S))
+                              .astype(np.int32)).to(dev)
+    tb = {"tokens": tokens}
+    out = {"tokens": tokens.cpu()}
+    prints = {}
+    for tag, c in lm_mesh_configs(cfg):
+        lm_k = LM(c, KernelPolicy("auto"))
+        params = layers.quantize_params_for_serving(
+            lm_k.init(torch.Generator(device=dev).manual_seed(SEED)))
+        if tag == "bf16":
+            for spec in specs:
+                rules = shlib.param_shardings(c, params, CoordMesh(spec, 0))
+                r, m = (int(v) for v in spec.split("x"))
+                for rank in range(r * m):
+                    cm = CoordMesh(spec, rank)
+                    prints[(spec, rank)] = tree_map(
+                        lambda t, sp, cm=cm: fingerprint(
+                            shlib.local_block(t, sp, cm)), params, rules)
+        routes = []
+        with moe_routes(routes, replay=False):
+            logits, cache = lm_k.prefill(params, tb)
+        with moe_routes(routes, replay=True):
+            plain, plain_cache = LM(c, PLAIN).prefill(params, tb)
+        res = {"logits": logits.float().cpu(), "plain": plain.float().cpu(),
+               "gap": max_gap(logits, plain)}
+        if tag == "fp32":
+            res["cache"] = tree_map(lambda t: t.cpu().clone(), cache)
+            res["plain cache"] = tree_map(lambda t: t.cpu().clone(),
+                                          plain_cache)
+            mut, mut_cache = lm_k.prefill(skip_first_projection(params), tb)
+            res["control"] = max_gap(mut, logits)
+            res["control cache"] = cache_gap(mut_cache["layers"],
+                                             cache["layers"])
+            del mut, mut_cache
+        if tag == "bf16 L4":
+            with moe_routes(routes, replay=True):
+                truth, _ = LM(replace(c, dtype="float32"), PLAIN).prefill(
+                    upcast(params), tb)
+            res.update(truth=truth.cpu(), err=max_gap(logits, truth),
+                       plain_err=max_gap(plain, truth))
+            del truth
+        del plain, plain_cache, routes
+        fed, argmax, margin = [], [], []
+        tok, _ = top2(logits, cfg.vocab_size)
+        for _ in range(LM_MESH_STEPS):
+            fed.append(tok.cpu())
+            lg, _, cache = lm_k.decode_step(params, cache,
+                                            {"tokens": tok[:, None]})
+            tok, mg = top2(lg, cfg.vocab_size)
+            argmax.append(tok.cpu())
+            margin.append(mg.cpu())
+        res.update(fed=torch.stack(fed), argmax=torch.stack(argmax),
+                   margin=torch.stack(margin))
+        out[tag] = res
+        del params, cache, logits, lm_k
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, LM_MESH_DIR / f"{arch}.pt")
+    print(f"[lm mesh] {arch}: unsharded references at B={batch} S={S}: "
+          f"kernel-vs-plain prefill gaps bf16 {out['bf16']['gap']:.4e}, "
+          f"{LM_MESH_LAYERS} layers bf16 {out['bf16 L4']['gap']:.4e}, fp32 "
+          f"{out['fp32']['gap']:.3e}; {LM_MESH_LAYERS} layers bf16 from "
+          f"the fp32 evaluation: kernel {out['bf16 L4']['err']:.4e}, plain "
+          f"{out['bf16 L4']['plain_err']:.4e}; fp32 control (first "
+          f"projection skipped): logits {out['fp32']['control']:.4e}, cache "
+          f"{out['fp32']['control cache']:.4e}; bf16 decode margins min "
+          f"{out['bf16']['margin'].min().item():.4f}", flush=True)
+    return prints
+
+
+@contextlib.contextmanager
+def counting_lm_collectives():
+    """Count the collectives of mesh axes of more than one rank, by kind,
+    with the bytes each rank puts in."""
+    stats = {}
+    ax = meshlib.MeshAxis
+    orig = {name: getattr(ax, name) for name in (
+        "all_reduce", "all_reduce_max", "all_gather", "all_to_all")}
+
+    def wrap(name):
+        def counted(self, t, *args, **kwargs):
+            if self.size > 1:
+                n, b = stats.get(name, (0, 0))
+                stats[name] = (n + 1, b + t.numel() * t.element_size())
+            return orig[name](self, t, *args, **kwargs)
+        return counted
+    for name in orig:
+        setattr(ax, name, wrap(name))
+    try:
+        yield stats
+    finally:
+        for name, fn in orig.items():
+            setattr(ax, name, fn)
+
+
+def lm_mesh_run(dev, fn, args, norms, attn):
+    """One main-path call of a cell: launch counts set to 0 just before
+    and read just after (every wrapper of the path must have launched
+    as expected), collectives counted, wall time to a synchronize."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with counting_lm_collectives() as coll:
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    expect = {name: 0 for name in counts}
+    expect["rmsnorm"], expect["flash_attention"] = norms, attn
+    if counts != expect:
+        fail(f"lm mesh: launch counts {counts} != expected {expect}")
+    return res, ms, counts, dict(coll)
+
+
+def lm_mesh_case(dev, arch, spec, batch, mesh, prints, rank) -> dict:
+    """One (arch, mesh) case on this rank; fails on any check.  At each
+    depth the kernel path (counted) and the mesh's plain path (replaying
+    its MoE routes) run prefill and LM_MESH_STEPS decode steps fed the
+    unsharded run's tokens, and are held:
+      * kernels isolated from the shards: the kernel path's prefill
+        logits within `limit` of the mesh's plain path's (bf16:
+        EMB_DEPTH_RATIO x the unsharded kernel-vs-plain gap, that gap
+        floored at one bf16 ulp of max |logit| (`bf16_ulp`); fp32:
+        LM_LOGIT_RTOL), its decode tokens equal the plain path's where
+        the plain top-two margin is above LM_MESH_SURE x `limit`;
+      * the shards: in fp32 both paths' logits within LM_LOGIT_RTOL of
+        max |logit| of the unsharded paths', their caches' blocks within
+        LM_MESH_CACHE_RTOL of the cache's max |value| (the control bug
+        at least LM_MESH_CONTROL times each limit), decode tokens equal
+        the unsharded argmax where sure; in bf16 at LM_MESH_LAYERS
+        layers each path's gap from the fp32 evaluation of the same
+        weights on the mesh within EMB_DEPTH_RATIO x the unsharded
+        path's.  Where the expert-parallel prefill dropped tokens (a
+        local capacity) the shards are held to the mesh's plain path
+        only: the unsharded function drops others."""
+    cfg = get_config(arch)
+    ref = torch.load(LM_MESH_DIR / f"{arch}.pt")
+    S = LM_MESH_SEQ
+    norms, attn = LM_LAUNCHES[arch]
+    kern = KernelPolicy("auto")
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = {"counts": {}, "collectives": {}, "ms": {}}
+    toks = ref["tokens"].to(dev)
+    bspec = shlib.batch_shardings({"t": toks}, mesh)["t"]
+
+    def local(t):
+        return shlib.local_block(t.to(dev), bspec, mesh).contiguous()
+
+    def held(what, got, limit):
+        # every prefill check of a depth is made and printed before any
+        # failure ends the case
+        if not got <= limit:
+            problems.append(f"{what} {got:.4e} (limit {limit:.4e})")
+    pre = ShapeSpec("prefill", S, batch, "prefill")
+    dec = ShapeSpec("decode", S, batch, "decode")
+    for tag, c in lm_mesh_configs(cfg):
+        rb = ref[tag]
+        # two norms a layer and the final one; a flash launch a layer
+        n_norm = norms if tag == "bf16" else 2 * LM_MESH_LAYERS + 1
+        n_attn = attn if tag == "bf16" or not attn else LM_MESH_LAYERS
+        fn_p, (p_loc, b_loc) = steps.build_cell(c, pre, mesh, policy=kern)
+        fn_d, (_, c_loc, d_loc) = steps.build_cell(c, dec, mesh, policy=kern)
+        fn_pp, _ = steps.build_cell(c, pre, mesh, policy=PLAIN)
+        lm_pd = steps.build_lm(c, mesh, PLAIN)
+        lay_pd = lm_pd.layout(dec, int8=True)
+        t0 = time.perf_counter()
+        params = steps.build_lm(c, mesh, kern).init_local(
+            torch.Generator(device=dev).manual_seed(SEED), int8=True)
+        torch.cuda.synchronize()
+        res[f"{tag} init_s"] = time.perf_counter() - t0
+        got = [tuple(t.shape) for t in _leaves(params)]
+        if got != [tuple(t.shape) for t in _leaves(p_loc)]:
+            fail(f"lm mesh {arch} {spec}: rank {rank}'s blocks are not "
+                 f"build_cell's local shapes")
+        if tag == "bf16":
+            mine = tree_map(fingerprint, params)
+            bad = [path for (path, a), (_, b) in zip(
+                _dict_paths(mine), _dict_paths(prints)) if a != b]
+            n_leaves = len(list(_dict_paths(mine)))
+            if bad or n_leaves != len(list(_dict_paths(prints))):
+                fail(f"lm mesh {arch} {spec}: rank {rank}'s blocks differ "
+                     f"from the unsharded serving tree's at {bad[:4]}")
+            res["bitwise_leaves"] = n_leaves
+        batch_l = {"tokens": local(toks)}
+        routes = []
+        moe.drops.clear()
+        with moe_routes(routes, replay=False):
+            (logits, cache), ms, cnt, coll = lm_mesh_run(
+                dev, fn_p, (params, batch_l), n_norm, n_attn)
+        drops = [int(d) for d in moe.drops]
+        moe.drops.clear()
+        with moe_routes(routes, replay=True):
+            plain, plain_cache = fn_pp(params, batch_l)
+        if [int(d) for d in moe.drops] != drops:
+            fail(f"lm mesh {arch} {spec}: {tag} plain path replaying the "
+                 f"kernel path's routes dropped {list(moe.drops)}, not "
+                 f"{drops}")
+        res["ms"][f"{tag} prefill"] = ms
+        res["counts"][f"{tag} prefill"] = cnt
+        res["collectives"][f"{tag} prefill"] = coll
+        res[f"{tag} drops"] = drops
+        if [tuple(t.shape) for t in _leaves(cache)] != [
+                tuple(t.shape) for t in _leaves(c_loc)]:
+            fail(f"lm mesh {arch} {spec}: the prefill cache's blocks are "
+                 f"not build_cell's local cache shapes")
+        if not (torch.isfinite(logits.float()).all()
+                and torch.isfinite(plain.float()).all()):
+            fail(f"lm mesh {arch} {spec}: non-finite {tag} logits")
+        # the kernels, isolated from the shards' roundings
+        problems = []
+        limit = (LM_LOGIT_RTOL[torch.float32] if tag == "fp32"
+                 else EMB_DEPTH_RATIO * max(rb["gap"], bf16_ulp(
+                     rb["logits"].abs().max().item())))
+        res[f"{tag} kernel gap"] = max_gap(logits, plain)
+        res[f"{tag} limit"] = limit
+        held(f"{tag} prefill logits, kernel path vs the mesh's plain path",
+             res[f"{tag} kernel gap"], limit)
+        # the shards: sharded vs unsharded, each path
+        res[f"{tag} gap"] = max_gap(logits, rb["logits"])
+        res[f"{tag} plain gap"] = max_gap(plain, rb["plain"])
+        whole = not any(drops)
+        cross = LM_LOGIT_RTOL[torch.float32] * rb["logits"].abs().max().item()
+        if tag == "fp32":
+            specs = lm_pd.cache_specs(batch, S)
+
+            def blocks(tree):
+                return [shlib.local_block(t.to(dev), sp, mesh)
+                        for t, sp in zip(_leaves(tree["layers"]),
+                                         _leaves(specs["layers"]))]
+            scale = max(t.abs().max().item()
+                        for t in _leaves(rb["cache"]["layers"]))
+            climit = LM_MESH_CACHE_RTOL * scale
+            res["fp32 cache max"] = scale
+            for what, got, lim in (("logits", rb["control"], cross),
+                                   ("cache", rb["control cache"], climit)):
+                if got < LM_MESH_CONTROL * lim:
+                    fail(f"lm mesh {arch}: the control bug (first "
+                         f"projection skipped) moves the fp32 {what} by "
+                         f"{got:.3e}, under {LM_MESH_CONTROL} x its limit "
+                         f"{lim:.3e}: the check would not see it")
+            if whole:
+                held("fp32 prefill logits from the unsharded kernel path's",
+                     res["fp32 gap"], cross)
+                held("fp32 plain prefill logits from the unsharded plain "
+                     "path's", res["fp32 plain gap"], cross)
+                res["fp32 cache err"] = cache_gap(cache["layers"],
+                                                  blocks(rb["cache"]))
+                res["fp32 plain cache err"] = cache_gap(
+                    plain_cache["layers"], blocks(rb["plain cache"]))
+                held("fp32 plain cache blocks from the unsharded plain "
+                     "path's", res["fp32 plain cache err"], climit)
+            else:
+                res["fp32 cache err"] = cache_gap(cache["layers"],
+                                                  plain_cache["layers"])
+            held("fp32 cache blocks from the unsharded (or, where tokens "
+                 "were dropped, the mesh's plain) path's",
+                 res["fp32 cache err"], climit)
+            kp = shlib.local_block(rb["cache"]["kpos"].to(dev),
+                                   specs["kpos"], mesh)
+            if not torch.equal(kp, cache["kpos"]):
+                fail(f"lm mesh {arch} {spec}: the cache's kpos block")
+        if tag == "bf16 L4":
+            # each path against the fp32 evaluation of the same weights
+            # on the same mesh (routes replayed), as the unsharded paths
+            fn_t, _ = steps.build_cell(replace(c, dtype="float32"), pre,
+                                       mesh, policy=PLAIN)
+            with moe_routes(routes, replay=True):
+                truth, _ = fn_t(upcast(params), batch_l)
+            res["L4 err"] = max_gap(logits, truth)
+            res["L4 plain err"] = max_gap(plain, truth)
+            res["L4 truth gap"] = max_gap(truth, rb["truth"])
+            res["L4 err un"], res["L4 plain err un"] = (rb["err"],
+                                                        rb["plain_err"])
+            held("bf16 L4 kernel path's logits from the mesh's fp32 "
+                 "evaluation", res["L4 err"], EMB_DEPTH_RATIO * rb["err"])
+            held("bf16 L4 plain path's logits from the mesh's fp32 "
+                 "evaluation", res["L4 plain err"],
+                 EMB_DEPTH_RATIO * rb["plain_err"])
+            del truth
+        if rank == 0:
+            kg, g, pg = (res[f"{tag} {k}"] for k in (
+                "kernel gap", "gap", "plain gap"))
+            print(f"[lm mesh {arch} {spec}] {tag}: prefill {ms:.1f} ms; "
+                  f"kernel vs the mesh's plain path {kg:.4e} (limit "
+                  f"{limit:.4e}); from the unsharded run: kernel path "
+                  f"{g:.4e}, plain path {pg:.4e} (max |logit| "
+                  f"{rb['logits'].abs().max().item():.3f})"
+                  + (f"; drops per layer {drops}" if drops else ""),
+                  flush=True)
+        if problems:
+            fail(f"lm mesh {arch} {spec}: " + "; ".join(problems))
+        del plain
+        # decode: the unsharded run's tokens fed to both paths
+        step_ms, n_held, n_held_un = [], 0, 0
+        for i in range(LM_MESH_STEPS):
+            feed = {"tokens": local(rb["fed"][i][:, None])}
+            r_i = []
+            with moe_routes(r_i, replay=False):
+                (tok, cache), ms, cnt, coll = lm_mesh_run(
+                    dev, fn_d, (params, cache, feed), n_norm, 0)
+            with moe_routes(r_i, replay=True):
+                plg, ptok, plain_cache = lm_pd.decode_step(
+                    params, plain_cache, feed, layout=lay_pd)
+            step_ms.append(ms)
+            # a token is only as sure as the logits: held where the
+            # plain path's top-two margin is above LM_MESH_SURE x limit
+            sure = (top2(plg, cfg.vocab_size)[1] > LM_MESH_SURE * limit).cpu()
+            n_held += int(sure.sum())
+            if not torch.equal(tok.cpu()[sure], ptok.cpu()[sure]):
+                fail(f"lm mesh {arch} {spec}: {tag} decode step {i} tokens "
+                     f"{tok.tolist()} != the mesh's plain path's "
+                     f"{ptok.tolist()} where sure ({sure.tolist()})")
+            if tag == "fp32" and whole:
+                sure = rb["margin"][i] > LM_MESH_SURE * cross
+                n_held_un += int(sure.sum())
+                if not torch.equal(tok.cpu()[sure], rb["argmax"][i][sure]):
+                    fail(f"lm mesh {arch} {spec}: fp32 decode step {i} "
+                         f"tokens {tok.tolist()} != the unsharded run's "
+                         f"{rb['argmax'][i].tolist()} where sure")
+        res["ms"][f"{tag} decode step"] = float(np.median(step_ms))
+        res["counts"][f"{tag} decode step"] = cnt
+        res["collectives"][f"{tag} decode step"] = coll
+        res[f"{tag} decode tokens held"] = n_held
+        if tag == "fp32":
+            res["fp32 decode tokens held (unsharded)"] = n_held_un
+        del params, cache, plain_cache, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def _dict_paths(tree, path=()):
+    """(path, leaf) pairs of a dict tree; tuples are leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _dict_paths(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def lm_mesh_rank(rank, world, init, out_dir, prints):
+    """One rank of phase 23 (a spawned process): joins the world on the
+    card, then runs each case of LM_MESH_CASES whose mesh covers it, the
+    others waiting at a barrier.  Writes (ok, results or traceback)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)
+    res = None
+    try:
+        dev = meshlib.init_ranks(None, init_method=init, rank=rank,
+                                 world_size=world,
+                                 timeout_s=LM_MESH_TIMEOUT_S)
+        fp32_numerics()
+        _build.lib()
+        out = {"device": str(dev)}
+        for arch, spec, batch in LM_MESH_CASES:
+            mesh, n = mesh_of(spec, world)
+            if mesh is not None:
+                t0 = time.perf_counter()
+                out[f"{arch} {spec}"] = dict(
+                    lm_mesh_case(dev, arch, spec, batch, mesh,
+                                 prints[(arch, spec, rank)], rank),
+                    ranks=n, case_s=time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+        res = (True, out)
+    except BaseException:          # reported to the parent, which fails
+        import traceback
+        res = (False, traceback.format_exc())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+def lm_mesh_phase(dev, smi) -> dict:
+    """Phase 23: the unsharded references in this process (then freed),
+    then MESH_WORLD ranks spawned on the card run every case (see
+    `lm_mesh_case`); every rank's logits and tokens checked on the rank,
+    launches per rank and per cell checked and printed with the
+    collectives, times and peak memory; within LM_MESH_PHASE_LIMIT_S."""
+    import multiprocessing as mp
+    t_phase = time.perf_counter()
+    shutil.rmtree(LM_MESH_DIR, ignore_errors=True)
+    LM_MESH_DIR.mkdir(parents=True)
+    prints = {}
+    for arch, (batch, specs) in lm_mesh_archs().items():
+        for (spec, rank), fp in lm_mesh_reference(dev, arch, batch,
+                                                  specs).items():
+            prints[(arch, spec, rank)] = fp
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    init = f"file://{LM_MESH_DIR / 'rendezvous'}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=lm_mesh_rank,
+                         args=(r, MESH_WORLD, init, str(LM_MESH_DIR),
+                               prints)) for r in range(MESH_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = t_phase + LM_MESH_PHASE_LIMIT_S
+    while any(p.is_alive() for p in procs) and time.perf_counter() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    time.sleep(1.0)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    outs = []
+    for r, p in enumerate(procs):
+        path = LM_MESH_DIR / f"rank{r}.pkl"
+        if not path.exists():
+            fail(f"lm mesh phase: rank {r} wrote no result (exit code "
+                 f"{p.exitcode}; killed at the phase's limit of "
+                 f"{LM_MESH_PHASE_LIMIT_S} s if still running)")
+        ok, val = pickle.loads(path.read_bytes())
+        if not ok:
+            fail(f"lm mesh phase: rank {r} failed:\n{val}")
+        outs.append(val)
+    phase_s = time.perf_counter() - t_phase
+    cases, counts = {}, {"rmsnorm": 0, "flash_attention": 0}
+    tags = [tag for tag, _ in lm_mesh_configs(get_config(LM_ARCH))]
+    for arch, spec, batch in LM_MESH_CASES:
+        key = f"{arch} {spec}"
+        mine = [o[key] for o in outs if key in o]
+        label = shared_card_label(len(mine), smi)
+        for r, c in enumerate(mine):
+            # the logits are whole on every rank: every rank's gaps alike
+            for k in [k for k in c if k.endswith(("gap", "err"))
+                      and "cache" not in k]:
+                if c[k] != mine[0][k]:
+                    fail(f"lm mesh {key}: rank {r}'s {k} {c[k]} != rank "
+                         f"0's {mine[0][k]}")
+            for cell, cnt in c["counts"].items():
+                n = LM_MESH_STEPS if cell.endswith("decode step") else 1
+                for name in counts:
+                    counts[name] += n * cnt[name]
+            per_cell = {k: (v["rmsnorm"], v["flash_attention"])
+                        for k, v in c["counts"].items()}
+            print(f"[lm mesh {key}] rank {r}: (rmsnorm, flash) launches "
+                  f"per cell {per_cell}; peak {c['peak_gb']:.2f} GB; "
+                  f"{c['bitwise_leaves']} parameter blocks bitwise",
+                  flush=True)
+        # the cache's blocks differ by rank: the largest gap over them
+        c = dict(mine[0], **{k: max(m[k] for m in mine) for k in (
+            "fp32 cache err", "fp32 plain cache err") if k in mine[0]})
+        ms = c["ms"]
+        print(f"[lm mesh {key}] B={batch} S={LM_MESH_SEQ} ({label}): "
+              + "; ".join(f"{t} prefill {ms[f'{t} prefill']:.1f} ms, decode "
+                          f"step {ms[f'{t} decode step']:.1f} ms"
+                          for t in tags)
+              + "; kernel vs the mesh's plain path (limit): "
+              + ", ".join(f"{t} {c[f'{t} kernel gap']:.4e} "
+                          f"({c[f'{t} limit']:.4e})" for t in tags)
+              + "; sharded vs unsharded (kernel / plain path): "
+              + ", ".join(f"{t} {c[f'{t} gap']:.4e} / "
+                          f"{c[f'{t} plain gap']:.4e}" for t in tags)
+              + f"; bf16 {LM_MESH_LAYERS} layers from the fp32 evaluation "
+              f"(mesh / unsharded): kernel {c['L4 err']:.4e} / "
+              f"{c['L4 err un']:.4e}, plain {c['L4 plain err']:.4e} / "
+              f"{c['L4 plain err un']:.4e}, the two evaluations "
+              f"{c['L4 truth gap']:.3e} apart; fp32 cache "
+              f"{c['fp32 cache err']:.3e}"
+              + (f" (plain path {c['fp32 plain cache err']:.3e})"
+                 if "fp32 plain cache err" in c else "")
+              + f" of max |value| {c['fp32 cache max']:.3f}; decode tokens "
+              "held against the mesh's plain path: "
+              + ", ".join(f"{t} {c[f'{t} decode tokens held']}"
+                          for t in tags)
+              + f", fp32 against the unsharded run "
+              f"{c['fp32 decode tokens held (unsharded)']}"
+              + (f"; EP drops per layer bf16 {c['bf16 drops']}, fp32 "
+                 f"{c['fp32 drops']}" if c["bf16 drops"] else "")
+              + f"; case {c['case_s']:.1f} s; rank 0's collectives per "
+              f"cell (calls, bytes put in) {c['collectives']}", flush=True)
+        cases[key] = {"label": label, "ranks": mine}
+    print(f"[lm mesh] phase 23 took {phase_s:.2f} s (references "
+          f"{ref_s:.2f} s; limit {LM_MESH_PHASE_LIMIT_S:.0f} s); launches "
+          f"over every rank and case {counts} ({smi})", flush=True)
+    if phase_s > LM_MESH_PHASE_LIMIT_S:
+        fail(f"lm mesh phase took {phase_s:.1f} s, more than "
+             f"{LM_MESH_PHASE_LIMIT_S} s")
+    return {"cases": cases, "counts": counts, "phase_s": phase_s,
+            "ref_s": ref_s}
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4164,6 +4886,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     mesh = mesh_phase(smi, full_results)
+    # 23. the sharded LM serving cells (build_cell prefill and decode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh = lm_mesh_phase(dev, smi)
 
     kernels = []
     for name in KERNELS:
@@ -4236,6 +4962,7 @@ def main() -> None:
         by_path = {LM_ARCH: serve["counts"][name]}
         by_path.update({arch: lm2[arch]["counts"][name] for arch in lm2})
         by_path.update({path: c[name] for path, c in lm3_paths.items()})
+        by_path["lm mesh (all ranks)"] = lm_mesh["counts"][name]
         lm_errs[name] = max(lm_errs[name], lm3_errs[name])
         kernels.append({
             "name": name, "route": "cuda",
@@ -4289,7 +5016,8 @@ def main() -> None:
         "lm": lm_results, "lm2": lm2_results, "beam_prune": bp_results,
         "network": network, "asr_train": asr_train, "lm_train": lm_train,
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
-                AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh},
+                AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
+        "lm_mesh": lm_mesh},
         indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
@@ -4302,7 +5030,8 @@ def main() -> None:
           f"none (KernelPolicy('ref')); "
           + "; ".join(f"{path}: {c}" for path, c in lm3_paths.items())
           + f"; the sharded ASR step (every rank, every mesh): "
-          f"{mesh['counts']}", flush=True)
+          f"{mesh['counts']}; the sharded LM cells (every rank, every "
+          f"case): {lm_mesh['counts']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,11 @@ runs one controller over every device; here every rank runs its own
 copy of the program (SPMD) and a `Mesh` is that rank's view: each axis's
 size, the rank's index along it, and the process group of the ranks
 that share its other coordinates (the group an all-reduce over that
-axis runs in).
+axis runs in).  Every collective the sharded models need lives on
+`MeshAxis` (sum and max all-reduces, all-gather, all-to-all), each a
+no-op on an axis of one rank; gloo takes CUDA
+tensors in all of them (ranks sharing one card), so none is staged
+through the host by hand.
 
 Functions, not module-level state: importing this module reads nothing
 of torch.distributed or of the cards.
@@ -17,11 +21,13 @@ of torch.distributed or of the cards.
                              explicit init_method (the tests: file://)
   make_mesh(shape, names)    a Mesh over the world's ranks (or a subset)
   make_local_mesh(model)     the reference's (world / model, model) mesh
+  make_production_mesh(...)  the reference's (16, 16) / (2, 16, 16) meshes
   choose_backend(...)        nccl or gloo, the one place that decides
 """
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
@@ -63,6 +69,39 @@ class MeshAxis:
             return _Done() if async_op else None
         return dist.all_reduce(t, group=self.group, async_op=async_op)
 
+    def all_reduce_max(self, t: torch.Tensor):
+        """Elementwise maximum of `t` in place over the axis (the
+        reference's `pmax`: flash-decoding's running maximum)."""
+        if self.size == 1:
+            return None
+        return dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The axis's blocks of `t` concatenated along `dim` in index
+        order (each rank's `t` has the same shape): the whole of a
+        dimension split over the axis."""
+        if self.size == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Equal splits of dim 0: block j of `t` goes to the rank at index
+        j, and block i of the result came from the rank at index i (the
+        reference's untiled `all_to_all(x, axis, 0, 0)` over a leading
+        axis of the axis's size)."""
+        if self.size == 1:
+            return t
+        if t.shape[0] % self.size:
+            raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
+                             f"not split over {self.name!r} ({self.size})")
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
+
     def broadcast_object(self, obj, src_index: int):
         """The picklable `obj` of the rank at `src_index` along the axis,
         on every rank of the axis (the other ranks pass anything)."""
@@ -91,7 +130,16 @@ class Mesh:
     def coords(self) -> dict:
         return {a: self.axes[a].index for a in self.axis_names}
 
-    def axis(self, name: str) -> MeshAxis:
+    def axis(self, name) -> MeshAxis:
+        """The axis `name`, or the combined axis of a tuple of names (its
+        ranks row-major over them, as the reference's spec entry
+        ("data", "model") splits a dimension); () gives a one-rank
+        axis."""
+        if isinstance(name, tuple):
+            if not name:
+                return MeshAxis((), 1, 0, (self.rank,))
+            if len(name) == 1:
+                name = name[0]
         return self.axes[name]
 
     def __repr__(self) -> str:
@@ -188,17 +236,43 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     me = dist.get_rank() if dist.is_initialized() else ranks[0]
     grid = np.asarray(ranks).reshape(shape)
     axes = {}
-    for i, name in enumerate(axis_names):
-        # each line of ranks along axis i: same coordinates on the others
-        for line in np.moveaxis(grid, i, -1).reshape(-1, shape[i]):
+    # every single axis, then every combination of two or more in mesh
+    # order (an LM spec may split one dimension over ("data", "model"))
+    combos = [(i,) for i in range(len(shape))] + [
+        c for n_ax in range(2, len(shape) + 1)
+        for c in itertools.combinations(range(len(shape)), n_ax)]
+    for combo in combos:
+        key = (axis_names[combo[0]] if len(combo) == 1
+               else tuple(axis_names[i] for i in combo))
+        size = int(np.prod([shape[i] for i in combo]))
+        rest = [i for i in range(len(shape)) if i not in combo]
+        # each line of ranks over the combo: same coordinates on the rest
+        lines = np.transpose(grid, rest + list(combo)).reshape(-1, size)
+        for line in lines:
             line = tuple(int(r) for r in line)
-            group = dist.new_group(list(line)) if shape[i] > 1 else None
+            group = dist.new_group(list(line)) if size > 1 else None
             if me in line:
-                axes[name] = MeshAxis(name, shape[i], line.index(me), line,
-                                      group)
+                axes[key] = MeshAxis(key if isinstance(key, str)
+                                     else "+".join(key), size,
+                                     line.index(me), line, group)
     if me not in ranks:
         return None
     return Mesh(axis_names, dict(zip(axis_names, shape)), axes, me)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes: ('data', 'model') of (16, 16),
+    256 ranks, or ('pod', 'data', 'model') of (2, 16, 16), 512 ranks,
+    over the world's first ranks.  A smaller world raises, naming the
+    count the mesh needs."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    if world_size() < need:
+        raise ValueError(f"make_production_mesh: a {shape} {axes} mesh "
+                         f"needs {need} ranks, the world has "
+                         f"{world_size()}")
+    return make_mesh(shape, axes, ranks=range(need))
 
 
 def make_local_mesh(model: int = 1) -> Mesh:

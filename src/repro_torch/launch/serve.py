@@ -382,8 +382,9 @@ def main(argv=None):
         if args.serve:
             ap.error("--serve does not take --mesh yet (ROADMAP item 11)")
         if args.mode == "lm":
-            ap.error("--mesh is ASR-only (LmEngine rejects a mesh; the LM "
-                     "mesh is ROADMAP item 11)")
+            ap.error("--mesh is ASR-only (LmEngine rejects a mesh; "
+                     "sharded LM serving goes through launch/steps.py "
+                     "build_cell)")
     if args.serve:
         return serve_network(args)
     if args.mode == "lm":

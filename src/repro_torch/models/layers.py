@@ -1,8 +1,7 @@
 """Core NN layers of the LM stack: norms, RoPE (standard / 2d / M-RoPE),
 GQA attention, gated MLP, int8 serving weights.
 
-Port of `repro/models/layers.py` for one device.  Attention has two
-paths, as in the reference:
+Attention has two paths, as in the reference:
 
   * `attention_chunked` — prefill: runs through `ops.flash_attention`,
     the hand-written Hopper kernel that is the TPU execution path of the
@@ -11,7 +10,14 @@ paths, as in the reference:
     attention in plain torch instead (see there).
   * `attention_decode` — one query per row against a (ring-buffer) KV
     cache with absolute per-slot positions; plain torch, as the
-    reference computes it outside any kernel.
+    reference computes it outside any kernel.  On a mesh,
+    `attention_decode_sharded` is its flash-decoding over a
+    sequence-sharded cache.
+
+Port of `repro/models/layers.py`.  The tensor-parallel helpers
+(`linear_col`, `linear_row`, `apply_mlp_sharded`) compute on a rank's
+blocks of a weight split over the 'model' axis and call that axis's
+collectives (`launch/mesh.py`).
 
 Every norm goes through the norm kernel: rmsnorm through `ops.rmsnorm`,
 layernorm through `ops.layernorm`.  All softmax math is fp32 whatever
@@ -84,15 +90,19 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) (+ b).  int8 serving weights
-    (`wq` (d_in, d_out) int8, `wscale` (d_out,)) are dequantized at use
-    in x's dtype, `wq · wscale`, as the reference does: no int8 GEMM."""
+def weight(p: dict, dtype) -> torch.Tensor:
+    """A linear's weight (d_in, d_out); int8 serving weights (`wq`
+    (d_in, d_out) int8, `wscale` (d_out,)) dequantized in `dtype`,
+    `wq · wscale`, as the reference does at use: no int8 GEMM."""
     if "wq" in p:
-        w = p["wq"].to(x.dtype) * p["wscale"].to(x.dtype)[None, :]
-    else:
-        w = p["w"]
-    y = torch.matmul(x, w)
+        return p["wq"].to(dtype) * p["wscale"].to(dtype)[None, :]
+    return p["w"]
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out) (+ b), int8 serving weights
+    dequantized at use in x's dtype (`weight`)."""
+    y = torch.matmul(x, weight(p, x.dtype))
     if "b" in p:
         y = y + p["b"]
     return y
@@ -355,6 +365,99 @@ def attention_decode(q, k_cache, v_cache, qpos, kpos, *,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def attention_decode_sharded(q, k_cache, v_cache, qpos, kpos, *,
+                             window: Optional[int] = None, k_new=None,
+                             v_new=None, sharder=None,
+                             axis=None) -> torch.Tensor:
+    """Flash-decoding over a sequence-sharded cache, as the reference's
+    `attention_decode_sharded`: this rank's `k_cache`/`v_cache` (B, Sc_l,
+    K, D) and `kpos` (Sc_l,) are its block of the sequence over `axis`
+    (default: the sharder's 'model' axis).  Each rank computes a masked
+    partial softmax over its slice, then the ranks combine: the MAX of
+    the row maxima m, then the SUM of l·w and acc·w with w = exp(m -
+    max m) (one all-reduce of both); the current token's (k_new, v_new)
+    joins after as its own logit column, and the output is acc / max(l,
+    1e-30).  O(B·H·D) on the wire instead of gathering the cache.  q:
+    (B, 1, H, D); qpos: (B,).  Scores and softmax in fp32."""
+    ax = sharder.model_axis if axis is None else axis
+    B, _, H, D = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, K, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
+    valid = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        valid = valid & ((qpos[:, None] - kpos[None, :]) < window)
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, torch.full_like(s, MASK_VALUE))
+    m_loc = s.amax(-1)                                       # (B, K, G)
+    p = torch.exp(s - m_loc[..., None])
+    p = torch.where(vmask, p, torch.zeros_like(p))
+    l_loc = p.sum(-1)
+    acc_loc = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                           v_cache.float())
+    m = m_loc.clone()
+    ax.all_reduce_max(m)
+    w = torch.exp(m_loc - m)
+    both = torch.cat([(l_loc * w)[..., None], acc_loc * w[..., None]], -1)
+    ax.all_reduce(both)
+    l, acc = both[..., 0], both[..., 1:]
+    if k_new is not None:
+        s_self = torch.einsum("bkgd,bkd->bkg", qg,
+                              k_new[:, 0].float()) * scale
+        m2 = torch.maximum(m, s_self)
+        w = torch.exp(m - m2)
+        p_self = torch.exp(s_self - m2)
+        l = l * w + p_self
+        acc = (acc * w[..., None]
+               + p_self[..., None] * v_new[:, 0].float()[:, :, None])
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel linears (a rank's blocks on the 'model' axis)
+# ---------------------------------------------------------------------------
+def out_features(p: dict) -> int:
+    """Output columns of a linear's weight as this rank holds it."""
+    return (p["wq"] if "wq" in p else p["w"]).shape[-1]
+
+
+def in_features(p: dict) -> int:
+    """Contraction rows of a linear's weight as this rank holds it."""
+    return (p["wq"] if "wq" in p else p["w"]).shape[-2]
+
+
+def feature_block(y: torch.Tensor, axis) -> torch.Tensor:
+    """This rank's block of y's last dimension over `axis`."""
+    n = y.shape[-1] // axis.size
+    return y[..., axis.index * n:(axis.index + 1) * n]
+
+
+def linear_col(p: dict, x: torch.Tensor, n_out: int, axis) -> torch.Tensor:
+    """Column-parallel linear, its whole output on every rank: x (...,
+    d_in) whole; a weight split on its output columns (fewer than
+    `n_out` here) gives the rank's block, all-gathered over `axis`."""
+    y = linear(p, x)
+    if out_features(p) < n_out:
+        return axis.all_gather(y, y.dim() - 1)
+    return y
+
+
+def linear_row(p: dict, x: torch.Tensor, axis) -> torch.Tensor:
+    """Row-parallel linear: x (..., d_in / n) is the rank's block of the
+    contraction, the weight its block of rows.  The rank's partial
+    product is fp32, the fp32 partials are all-reduced over `axis` and
+    rounded once to x's dtype, then the (whole) bias is added."""
+    y = torch.matmul(x.float(), weight(p, x.dtype).float())
+    axis.all_reduce(y)
+    y = y.to(x.dtype)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 # ---------------------------------------------------------------------------
 # gated MLP
 # ---------------------------------------------------------------------------
@@ -369,3 +472,13 @@ def init_mlp(generator: torch.Generator, d: int, f: int,
 def apply_mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return linear(p["w_down"],
                   activation(linear(p["w_gate"], x), act) * linear(p["w_up"], x))
+
+
+def apply_mlp_sharded(p: dict, x: torch.Tensor, act: str, d_ff: int,
+                      axis) -> torch.Tensor:
+    """The gated MLP on a rank's blocks: w_gate/w_up column-parallel and
+    w_down row-parallel over `axis` when d_ff is split, else whole."""
+    if out_features(p["w_gate"]) == d_ff:
+        return apply_mlp(p, x, act)
+    h = activation(linear(p["w_gate"], x), act) * linear(p["w_up"], x)
+    return linear_row(p["w_down"], h, axis)

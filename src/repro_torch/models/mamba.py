@@ -7,8 +7,15 @@ y = C.h + D*x.  The SSD products and the depthwise conv stay plain torch,
 as the reference computes them outside any kernel; the gated RMSNorm
 goes through the norm kernel (`ops.rmsnorm`, per `policy`).
 
-One device: the reference's `sharder` constraints (d_inner and heads
-over a 'model' mesh axis) are identities there and are dropped.  This
+On a mesh (`sharder`), as the reference: d_inner and the heads split
+over 'model' (w_z, w_x, w_dt, the conv and their caches are the rank's
+blocks; the depthwise conv and the per-head SSD never mix heads), w_B
+and w_C, whose column blocks would split the state dimension every
+head needs whole, are all-gathered, the gated RMSNorm, which runs over
+the whole d_inner, gets its rows all-gathered before the norm kernel
+(the rank's block of its output goes on), and out_proj is
+row-parallel: its fp32 partials are all-reduced.  Where the heads do
+not divide the axis every rank computes the whole block.  This
 is serving only, so `ssd_chunked` carries the state through a Python
 loop over chunks without the reference's checkpointing: one (B, H, L, L)
 decay matrix is live at a time, as in its `lax.scan`.
@@ -157,7 +164,7 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
-                lengths=None, policy=None):
+                lengths=None, policy=None, sharder=None):
     """x: (B, S, D). cache: optional {'conv', 'ssm'} for decode/streaming.
 
     Returns (y, new_cache).  S == 1 with a cache uses the exact step
@@ -165,15 +172,26 @@ def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
     (bucketed prefill): dt is zeroed there, so the SSD recurrence carries
     the state through pad positions untouched (decay exp(0) = 1, update
     0), and the conv state is taken before the padding.  `policy`
-    selects the kernel or the plain path of the gated RMSNorm."""
+    selects the kernel or the plain path of the gated RMSNorm.
+
+    With a `sharder`, `p` and `cache` hold this rank's blocks (see the
+    module docstring) and so does the returned cache."""
     B, S, D = x.shape
     nh = spec.n_heads(D)
     P, N, G = spec.head_dim, spec.d_state, spec.ngroups
-    A = -torch.exp(p["A_log"].float())
-    z = layers.linear(p["w_z"], x)                            # (B,S,di)
+    ax = (None if sharder is None or sharder.mesh is None
+          else sharder.model_axis)
+    if ax is not None and nh % ax.size:
+        # heads that do not divide 'model': every rank computes it all
+        return _whole_mamba(p, x, spec, cache, lengths, policy, ax)
+    heads = slice(0, nh) if ax is None else slice(
+        ax.index * (nh // ax.size), (ax.index + 1) * (nh // ax.size))
+    nh_l = heads.stop - heads.start
+    A = -torch.exp(p["A_log"][heads].float())
+    z = layers.linear(p["w_z"], x)                            # (B,S,di_l)
     xi = layers.linear(p["w_x"], x)
     dt = _softplus(layers.linear(p["w_dt"], x).float()
-                   + p["dt_bias"].float())                    # (B,S,nh)
+                   + p["dt_bias"][heads].float())             # (B,S,nh_l)
     if lengths is not None:
         lengths = lengths.to(device=x.device, dtype=torch.int64)
         pad = (torch.arange(S, device=x.device)[None, :]
@@ -183,33 +201,83 @@ def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
     conv_state = cache["conv"] if cache is not None else None
     xi, new_conv = _causal_conv(xi, p["conv_x"]["w"], p["conv_x"]["b"],
                                 conv_state, lengths=lengths)
-    Bm = layers.linear(p["w_B"], x).reshape(B, S, G, N)
-    Cm = layers.linear(p["w_C"], x).reshape(B, S, G, N)
-    xh = xi.reshape(B, S, nh, P)
+    if ax is None:
+        Bm = layers.linear(p["w_B"], x).reshape(B, S, G, N)
+        Cm = layers.linear(p["w_C"], x).reshape(B, S, G, N)
+    else:
+        # the whole state dimension, then each local head's group
+        Bm, Cm = (layers.linear_col(p[k], x, G * N, ax).reshape(
+                      B, S, G, N)
+                  for k in ("w_B", "w_C"))
+        if G > 1:
+            Bm, Cm = (t.repeat_interleave(nh // G, dim=2)[:, :, heads]
+                      for t in (Bm, Cm))
+    xh = xi.reshape(B, S, nh_l, P)
+    Dh = p["D"][heads].float()
+    Gl = Bm.shape[2]
 
     if S == 1 and cache is not None:
         # exact single-step recurrence
         h = cache["ssm"].float()                              # (B,nh,P,N)
         dt1 = dt[:, 0]                                        # (B,nh)
         dec = torch.exp(dt1 * A[None, :])                     # (B,nh)
-        Bf = Bm[:, 0].repeat_interleave(nh // G, dim=1).float()  # (B,nh,N)
-        Cf = Cm[:, 0].repeat_interleave(nh // G, dim=1).float()
+        Bf = Bm[:, 0].repeat_interleave(nh_l // Gl, dim=1).float()
+        Cf = Cm[:, 0].repeat_interleave(nh_l // Gl, dim=1).float()
         xf = xh[:, 0].float()                                 # (B,nh,P)
         h_new = (h * dec[:, :, None, None]
                  + torch.einsum("bh,bhp,bhn->bhpn", dt1, xf, Bf))
         y = torch.einsum("bhpn,bhn->bhp", h_new, Cf)
-        y = y + p["D"].float()[None, :, None] * xf
-        y = y.reshape(B, 1, nh * P).to(x.dtype)
+        y = y + Dh[None, :, None] * xf
+        y = y.reshape(B, 1, nh_l * P).to(x.dtype)
         new_cache = {"conv": new_conv, "ssm": h_new}
     else:
         h0 = cache["ssm"] if cache is not None else None
         y, hT = ssd_chunked(xh, dt, A, Bm, Cm, spec.chunk_size, h0)
-        y = y + p["D"].float()[None, None, :, None] * xh.float()
-        y = y.reshape(B, S, nh * P).to(x.dtype)
+        y = y + Dh[None, None, :, None] * xh.float()
+        y = y.reshape(B, S, nh_l * P).to(x.dtype)
         new_cache = {"conv": new_conv, "ssm": hT}
 
     # gated RMSNorm (mamba2's RMSNormGated), then the output projection;
     # the gate's product in fp32, rounded once
     y = (y.float() * F.silu(z.float())).to(x.dtype)
+    if ax is None:
+        y = layers.apply_norm(p["norm_gate"], y, "rmsnorm", policy=policy)
+        return layers.linear(p["out_proj"], y), new_cache
+    # the norm runs over the whole d_inner: gather the rows first
+    y = ax.all_gather(y, 2)
     y = layers.apply_norm(p["norm_gate"], y, "rmsnorm", policy=policy)
-    return layers.linear(p["out_proj"], y), new_cache
+    return layers.linear_row(p["out_proj"], layers.feature_block(y, ax),
+                             ax), new_cache
+
+
+def _whole_mamba(p, x, spec, cache, lengths, policy, ax):
+    """apply_mamba on every rank alike, for heads that do not divide the
+    mesh axis `ax`: the weights and the conv state gathered whole
+    wherever d_inner split them, the rank's block of the new conv
+    state returned where the cache splits it."""
+    di = spec.d_inner(x.shape[-1])
+
+    def whole(lin, n_out, rows=False):
+        if rows:
+            if layers.in_features(lin) == n_out:
+                return lin
+            return {k: ax.all_gather(v, 0) if k in ("w", "wq") else v
+                    for k, v in lin.items()}
+        if layers.out_features(lin) == n_out:
+            return lin
+        return {k: ax.all_gather(v, v.dim() - 1) for k, v in lin.items()}
+    q = dict(p)
+    for k, n in (("w_z", di), ("w_x", di), ("w_B", spec.ngroups
+                                              * spec.d_state),
+                 ("w_C", spec.ngroups * spec.d_state),
+                 ("w_dt", spec.n_heads(x.shape[-1]))):
+        q[k] = whole(p[k], n)
+    q["conv_x"] = whole(p["conv_x"], di)
+    q["out_proj"] = whole(p["out_proj"], di, rows=True)
+    split_conv = cache is not None and cache["conv"].shape[-1] < di
+    if split_conv:
+        cache = dict(cache, conv=ax.all_gather(cache["conv"], 2))
+    y, new_cache = apply_mamba(q, x, spec, cache, lengths, policy)
+    if p["conv_x"]["w"].shape[-1] < di:
+        new_cache["conv"] = layers.feature_block(new_cache["conv"], ax)
+    return y, new_cache

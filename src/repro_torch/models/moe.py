@@ -19,12 +19,25 @@ deterministic:
     which tokens are dropped depends on every token in the batch,
     bucket padding included.
 
-The expert-parallel path (`apply_moe_ep`, `_local_dispatch_combine`:
-shard_map and all-to-all over a 'model' mesh axis) is not ported: it
-belongs to ROADMAP Queue 1, item 11 (multi-device).
+On a mesh (`sharder`: a rank's view, `parallel/sharding.Sharder`), as
+the reference:
+  * expert-parallel prefill (`apply_moe_ep`, `_local_dispatch_combine`)
+    when the experts split over 'model', not under REPRO_BASELINE=1,
+    S > 1 and the batch and sequence divide: each rank routes its own
+    tokens (its batch rows, its sequence block) with a LOCAL capacity
+    Cl, two all-to-alls over 'model' carry the expert buffers there and
+    back, the shared expert runs on the local tokens, aux is averaged
+    over 'model' and the batch axes;
+  * otherwise (decode, S = 1; the baseline; axes that do not divide)
+    the reference's GSPMD path, whose semantics are the unsharded
+    function's: every rank routes all tokens with the global capacity
+    C, computes its experts (expert-parallel) or its block of every
+    expert's d_ff (tensor-parallel), and the partial outputs are
+    combined with one fp32 all-reduce over 'model'.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -88,15 +101,37 @@ def dispatch(flat_e: torch.Tensor, n_experts: int, cap: int):
 
 
 def apply_moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str,
-              sharder=None):
+              sharder=None, *, batch_local: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux_loss () fp32).
 
-    `sharder` stands for the reference's expert-parallel layouts, which
-    are not ported: any sharder raises."""
-    if sharder is not None:
-        raise NotImplementedError(
-            "expert-parallel MoE (apply_moe_ep) is not ported yet (ROADMAP "
-            "Queue 1, item 11: multi-device)")
+    With a `sharder`, `p` holds this rank's blocks (FSDP blocks already
+    gathered) and x its rows: the rank's block of the batch over the
+    batch axes when `batch_local`, else the whole batch (a batch that
+    does not divide them); y has x's rows."""
+    if sharder is None or sharder.mesh is None:
+        return _moe(p, x, spec, act)
+    nm = sharder.nm
+    ep = spec.n_experts % nm == 0
+    divisible = (batch_local or sharder.nb == 1) and x.shape[1] % nm == 0
+    if ep and not sharder.baseline and x.shape[1] > 1 and divisible:
+        return apply_moe_ep(p, x, spec, act, sharder)
+    # the GSPMD path routes the global batch: gather the rows over the
+    # batch axes where they are split, and keep this rank's after
+    bax = sharder.batch_axis if batch_local else None
+    xa = x if bax is None else bax.all_gather(x, 0)
+    y, aux = _moe(p, xa, spec, act, sharder.model_axis)
+    if bax is not None and bax.size > 1:
+        n = x.shape[0]
+        y = y[bax.index * n:(bax.index + 1) * n]
+    return y, aux
+
+
+def _moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str, axis=None):
+    """The capacity-C sorted dispatch over all of x's tokens.  With a
+    mesh `axis` ('model'), `p` may hold the rank's experts (fewer than
+    n_experts: expert-parallel) or the rank's block of every expert's
+    d_ff (tensor-parallel); the rank's partial y, and the shared
+    expert's, are summed in fp32 over the axis and rounded once."""
     B, S, D = x.shape
     T = B * S
     E, K = spec.n_experts, spec.top_k
@@ -110,34 +145,174 @@ def apply_moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str,
     flat_e = top_e.reshape(-1)                                  # (T*K,)
     order, counts, starts, pos, keep = dispatch(flat_e, E, C)
 
-    # expert buffer (E, C, D) filled by gather: slot (e, c) takes the
+    # this rank's experts [lo, lo + El) (all of them unless expert-
+    # parallel) and whether its expert products are partial sums over
+    # a block of d_ff (tensor-parallel within each expert)
+    El = p["w_gate"].shape[0]
+    lo = 0 if El == E else axis.index * El
+    partial = axis is not None and p["w_gate"].shape[2] < spec.expert_d_ff
+
+    # expert buffer (El, C, D) filled by gather: slot (e, c) takes the
     # candidate ranked starts[e] + c, zeroed when c >= counts[e]
     slots = torch.arange(C, device=dev)
-    slot_rank = starts[:, None] + slots[None, :]                # (E, C)
-    slot_valid = slots[None, :] < counts[:, None]
+    slot_rank = starts[lo:lo + El, None] + slots[None, :]       # (El, C)
+    slot_valid = slots[None, :] < counts[lo:lo + El, None]
     cand_of_slot = order[torch.clamp(slot_rank, max=T * K - 1)]
-    tok_of_slot = cand_of_slot // K                             # (E, C)
-    buf = xt[tok_of_slot.reshape(-1)].reshape(E, C, D)
+    tok_of_slot = cand_of_slot // K                             # (El, C)
+    buf = xt[tok_of_slot.reshape(-1)].reshape(El, C, D)
     buf = torch.where(slot_valid[..., None], buf, torch.zeros_like(buf))
 
     h = (layers.activation(torch.bmm(buf, p["w_gate"]), act)
          * torch.bmm(buf, p["w_up"]))
-    out = torch.bmm(h, p["w_down"]).reshape(E * C, D)
+    if partial:
+        out = torch.bmm(h.float(), p["w_down"].float())
+    else:
+        out = torch.bmm(h, p["w_down"])
+    out = out.reshape(El * C, D)
 
-    # combine: candidate (t, k)'s slot is flat_e*C + pos (gathered back)
-    slot = torch.clamp(flat_e * C + torch.clamp(pos, max=C - 1),
-                       max=E * C - 1)
+    # combine: candidate (t, k)'s slot is flat_e*C + pos (gathered back);
+    # under expert parallelism only the rank's experts' candidates
+    mine = keep
+    if El < E:
+        mine = keep & (flat_e >= lo) & (flat_e < lo + El)
+    slot = torch.clamp((flat_e - lo) * C + torch.clamp(pos, max=C - 1),
+                       min=0, max=El * C - 1)
     gathered = out[slot]
-    gathered = torch.where(keep[:, None], gathered,
+    gathered = torch.where(mine[:, None], gathered,
                            torch.zeros_like(gathered))
-    y = (gathered.reshape(T, K, D)
-         * top_p[..., None].to(x.dtype)).sum(dim=1)
-
-    if "shared" in p:
-        y = y + layers.apply_mlp(p["shared"], xt, act)
+    if axis is None or (El == E and not partial):
+        y = (gathered.reshape(T, K, D)
+             * top_p[..., None].to(x.dtype)).sum(dim=1)
+        if "shared" in p:
+            y = y + layers.apply_mlp(p["shared"], xt, act)
+    else:
+        # fp32 partial sums of the rank's candidates, one all-reduce
+        y = (gathered.reshape(T, K, D).float()
+             * top_p[..., None].to(x.dtype).float()).sum(dim=1)
+        if "shared" in p:
+            sh = p["shared"]
+            if layers.out_features(sh["w_gate"]) < spec.shared_d_ff:
+                hs = (layers.activation(layers.linear(sh["w_gate"], xt), act)
+                      * layers.linear(sh["w_up"], xt))
+                y = y + torch.matmul(
+                    hs.float(), layers.weight(sh["w_down"], x.dtype).float())
+            elif axis.index == 0:      # a whole shared expert: added once
+                y = y + layers.apply_mlp(sh, xt, act).float()
+        axis.all_reduce(y)
+        y = y.to(x.dtype)
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(dim=0)                                      # (E,)
     ce = counts.float() / (T * K)
     aux = E * torch.sum(me * ce)
     return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# explicit expert-parallel MoE (all-to-all over 'model')
+# ---------------------------------------------------------------------------
+def local_capacity(n_tokens: int, spec: MoESpec) -> int:
+    """Slots per expert on one rank's tokens (GShard local groups): the
+    multiple of 8 at or above int(T·k·cf / E), at least 8."""
+    return max(8, -(-int(n_tokens * spec.top_k * spec.capacity_factor
+                         / spec.n_experts) // 8) * 8)
+
+
+def _local_dispatch_combine(p, xl, spec: MoESpec, act: str, axis):
+    """One rank's MoE body: route its tokens xl (Tl, D) with the local
+    capacity Cl, gather them into an (E, Cl, D) buffer, send each
+    rank's experts their rows (all-to-all over `axis`), run the rank's
+    E / n experts on the rows of every rank, send the outputs back (a
+    second all-to-all) and combine.  Returns (y (Tl, D), the rank's aux
+    value, the candidates dropped at Cl)."""
+    Tl, D = xl.shape
+    E, K = spec.n_experts, spec.top_k
+    nm = axis.size
+    E_loc = E // nm
+    Cl = local_capacity(Tl, spec)
+    dev = xl.device
+
+    logits = torch.matmul(xl.float(), p["router"]["w"].float())
+    probs, top_p, top_e = route(logits, K)
+    flat_e = top_e.reshape(-1)
+    order, counts, starts, pos, keep = dispatch(flat_e, E, Cl)
+
+    slots = torch.arange(Cl, device=dev)
+    slot_rank = starts[:, None] + slots[None, :]
+    slot_valid = slots[None, :] < counts[:, None]
+    cand = order[torch.clamp(slot_rank, max=Tl * K - 1)]
+    buf = xl[(cand // K).reshape(-1)].reshape(E, Cl, D)
+    buf = torch.where(slot_valid[..., None], buf, torch.zeros_like(buf))
+
+    # dispatch: (nm, E_loc, Cl, D) -> the rows of every rank for ours
+    buf = axis.all_to_all(buf.reshape(nm, E_loc, Cl, D))
+    buf = buf.transpose(0, 1).reshape(E_loc, nm * Cl, D)
+
+    h = (layers.activation(torch.bmm(buf, p["w_gate"]), act)
+         * torch.bmm(buf, p["w_up"]))
+    out = torch.bmm(h, p["w_down"])                     # (E_loc, nm*Cl, D)
+
+    # return trip
+    out = out.reshape(E_loc, nm, Cl, D).transpose(0, 1)
+    out = axis.all_to_all(out).reshape(E * Cl, D)
+
+    slot = torch.clamp(flat_e * Cl + torch.clamp(pos, max=Cl - 1),
+                       max=E * Cl - 1)
+    gathered = out[slot]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros_like(gathered))
+    y = (gathered.reshape(Tl, K, D) * top_p[..., None].to(xl.dtype)).sum(1)
+
+    me = probs.mean(dim=0)
+    ce = counts.float() / (Tl * K)
+    aux = E * torch.sum(me * ce)
+    return y, aux, (~keep).sum()
+
+
+# the candidates dropped at Cl by the latest apply_moe_ep calls, one 0-d
+# tensor a call (no host sync), the oldest falling out
+drops = collections.deque(maxlen=4096)
+
+
+def apply_moe_ep(p: dict, x: torch.Tensor, spec: MoESpec, act: str,
+                 sharder):
+    """Expert parallelism with explicit all-to-alls: x (B, S, D) holds
+    this rank's batch rows; the rank routes its block of the sequence
+    over 'model' (`_local_dispatch_combine`), adds the shared expert on
+    those tokens (its weights gathered whole), and the blocks are
+    all-gathered back to (B, S, D).  `p` holds the rank's E / n experts.
+    aux is averaged over 'model' and the batch axes.  Local-capacity
+    drop semantics: a token the unsharded function keeps may be dropped
+    here; each call appends its dropped candidates to `drops`."""
+    ax = sharder.model_axis
+    B, S, D = x.shape
+    Sl = S // ax.size
+    xl = x[:, ax.index * Sl:(ax.index + 1) * Sl].reshape(B * Sl, D)
+    y, aux, dropped = _local_dispatch_combine(p, xl, spec, act, ax)
+    drops.append(dropped)
+    if "shared" in p:
+        y = y + layers.apply_mlp(_whole_mlp(p["shared"], spec.shared_d_ff,
+                                            ax), xl, act)
+    aux = aux.reshape(1).clone()
+    ax.all_reduce(aux)
+    aux = aux / ax.size
+    bax = sharder.batch_axis
+    bax.all_reduce(aux)
+    aux = aux[0] / bax.size
+    y = ax.all_gather(y.reshape(B, Sl, D), 1)
+    return y, aux
+
+
+def _whole_mlp(p: dict, d_ff: int, axis) -> dict:
+    """A gated MLP's weights whole on every rank: the column blocks of
+    w_gate/w_up (and their scales) and the row blocks of w_down
+    all-gathered over `axis` where they are split."""
+    if layers.out_features(p["w_gate"]) == d_ff:
+        return p
+    out = {}
+    for name in ("w_gate", "w_up"):
+        out[name] = {k: axis.all_gather(v, v.dim() - 1)
+                     for k, v in p[name].items()}
+    out["w_down"] = {k: axis.all_gather(v, 0) if k in ("w", "wq") else v
+                     for k, v in p["w_down"].items()}
+    return out

@@ -40,6 +40,42 @@ attention, the SSD scan, the MoE dispatch and the matrix products
 reference leaves them to XLA.  The kernels have no backward: `loss_fn`
 runs with `KernelPolicy("ref")`, and a kernel given a tensor that
 requires grad raises.
+
+`LM(cfg, policy, sharder)` with a `parallel/sharding.Sharder` over a
+mesh runs SPMD, one copy per rank, on the rank's blocks of the
+parameters (`param_specs`, `init_local`) and of the cache
+(`cache_specs`), with the collectives the reference's GSPMD inserts
+called explicitly: the embedding vocab-parallel (rows outside the
+rank's slice masked, then an all-reduce), FSDP blocks all-gathered at
+use one layer at a time, the fused qkv column-parallel and all-gathered
+(a rank's columns of Hq + 2·Hk are not a head slice), the flash kernel
+on the rank's heads (or, where the heads do not divide 'model', on its
+block of query rows, k/v up to the block's last row), wo and the MLP's
+w_down row-parallel (fp32 partials all-reduced, rounded once), the
+prefill cache left sequence-sharded, decode's flash-decoding over it
+(`layers.attention_decode_sharded`, the reference's condition), the new
+k/v written by the rank that owns the slot, the MoE and Mamba mixers as
+their modules say, and vocab-sharded logits all-gathered (prefill's
+output is replicated; decode's token is the argmax of the gathered
+row).  The mesh serves (prefill and decode); `loss_fn` under a mesh
+is the next slice's.  `sharder=None` is the one-device model.  A
+sharded cell's layout (specs, batch split, cache axis) is computed once
+by `layout` when the cell is built and passed down; the LM keeps no
+per-call state.
+
+The mesh path keeps its own layer loops and attention bodies
+(`_prefill_sharded`, `_decode_sharded`, `_attn_*_sharded`) beside the
+one-device ones rather than running them over a one-rank axis, because
+the two do different arithmetic and carry different options: a
+row-parallel product sums fp32 partials and rounds once, where the
+one-device product is one bf16 GEMM whose results the earlier phases
+and tests pin against the reference, so a one-rank axis would change
+the one-device numerics; and the one-device loops carry the serving
+pool's options (bucketed `lengths` with per-row last tokens and ring
+assembly, `cache_len`, batch-given positions on the masked attention,
+per-slot caches with per-row write slots) that the cells refuse, while
+the mesh loops carry the per-layer FSDP gathers, the sequence-sharded
+cache blocks, the slot owner's write and the vocab-parallel ends.
 """
 from __future__ import annotations
 
@@ -52,6 +88,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
 from repro_torch.core.treeutil import tree_map
 from repro_torch.models import layers, mamba, moe
+from repro_torch.parallel import sharding as shlib
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 MOE_AUX_COEF = 0.01
@@ -68,9 +105,13 @@ class LM:
     serving engine passes `EngineConfig.kernels`) selects the kernel or
     the plain path of the prefill attention and the norms."""
 
-    def __init__(self, cfg: ModelConfig, policy=None):
+    def __init__(self, cfg: ModelConfig, policy=None, sharder=None):
         self.cfg = cfg
         self.policy = policy
+        # a sharder over no mesh is the one-device model
+        self.sh = (sharder if sharder is not None
+                   and sharder.mesh is not None else None)
+        self._p_specs = {}
         me = cfg.moe.moe_every if cfg.moe else 1
         self.P = math.lcm(cfg.period, me)
         if cfg.n_layers % self.P:
@@ -233,9 +274,12 @@ class LM:
                                       cfg.rope_theta)
 
     def _qkv(self, p_mix, x, positions, tables):
+        return self._split_qkv(layers.linear(p_mix["wqkv"], x), positions,
+                               tables)
+
+    def _split_qkv(self, qkv, positions, tables):
         cfg = self.cfg
-        B, S, _ = x.shape
-        qkv = layers.linear(p_mix["wqkv"], x)
+        B, S, _ = qkv.shape
         Hq = cfg.n_heads * cfg.head_dim
         Hk = cfg.n_kv_heads * cfg.head_dim
         q = qkv[..., :Hq].reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -279,34 +323,53 @@ class LM:
         return out, {"k": k, "v": v}
 
     def _sublayer(self, p, lp, x, positions, tables, cache_p, kpos_m,
-                  decode, lengths=None, given_pos=False):
+                  decode, lengths=None, given_pos=False, layout=None):
         """One sub-layer: (x, its new cache, its MoE aux value, None
-        without an MoE block)."""
+        without an MoE block).  `layout`: the sharded cell's (`layout`),
+        None on one device."""
         cfg = self.cfg
         aux = None
         h = layers.apply_norm(lp["norm1"], x, cfg.norm, policy=self.policy)
+        sh = self.sh
         if self._kind(p) == "attn":
-            if decode:
+            if decode and sh is None:
                 out, new_cache = self._attn_decode(lp["mixer"], h, positions,
                                                    tables, cache_p, kpos_m)
+            elif decode:
+                out, new_cache = self._attn_decode_sharded(
+                    lp["mixer"], h, positions, tables, cache_p, kpos_m,
+                    layout)
             else:
                 # causal: right-padding (bucketed prefill) cannot leak
                 # into real positions, so no mask is needed here
-                out, (k, v) = self._attn_full(lp["mixer"], h, positions,
-                                              tables, given_pos)
+                if sh is None:
+                    out, (k, v) = self._attn_full(lp["mixer"], h, positions,
+                                                  tables, given_pos)
+                else:
+                    out, (k, v) = self._attn_full_sharded(lp["mixer"], h,
+                                                          positions, tables)
                 new_cache = {"k": k, "v": v}
         else:
             out, new_cache = mamba.apply_mamba(lp["mixer"], h, cfg.ssm,
                                                cache_p, lengths=lengths,
-                                               policy=self.policy)
+                                               policy=self.policy,
+                                               sharder=sh)
         x = x + out
         if self._has_mlp(p):
             h = layers.apply_norm(lp["norm2"], x, cfg.norm,
                                   policy=self.policy)
             if self._is_moe(p):
-                y, aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act)
-            else:
+                if sh is None:
+                    y, aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act)
+                else:
+                    y, aux = moe.apply_moe(lp["mlp"], h, cfg.moe, cfg.act,
+                                           sharder=sh,
+                                           batch_local=layout["bl"])
+            elif sh is None:
                 y = layers.apply_mlp(lp["mlp"], h, cfg.act)
+            else:
+                y = layers.apply_mlp_sharded(lp["mlp"], h, cfg.act, cfg.d_ff,
+                                             sh.model_axis)
             x = x + y
         return x, new_cache, aux
 
@@ -432,6 +495,10 @@ class LM:
         overrides), each recomputed in the backward, so the fp32
         (B, S, Vp) logits never exist at once."""
         cfg = self.cfg
+        if self.sh is not None:
+            raise NotImplementedError(
+                "LM.loss_fn under a mesh: training over a mesh is the next "
+                "slice of the port (ROADMAP Queue 1, item 11)")
         x = self._embed(params, batch)
         B, S = x.shape[:2]
         positions = self._positions(batch, B, S, x.device)
@@ -459,7 +526,8 @@ class LM:
         return loss + zloss + MOE_AUX_COEF * aux, {
             "loss": loss, "aux": aux, "ntok": ntok}
 
-    def prefill(self, params, batch, lengths=None, cache_len=None):
+    def prefill(self, params, batch, lengths=None, cache_len=None, *,
+                layout=None):
         """Full-seq forward. Returns (last-token logits (B, Vp), cache).
 
         `lengths` (B,) enables the masked (bucketed) path: each row's
@@ -469,7 +537,15 @@ class LM:
         PER-ROW position metadata (kpos (B, Sc), offset (B,)) so rows
         drop straight into a per-slot serving pool.  `cache_len` overrides
         the assembled ring width (the pool's ring may be narrower than
-        the padded bucket)."""
+        the padded bucket).
+
+        Under a mesh `params` and the batch are this rank's blocks and
+        `layout` is the cell's (`layout`); the logits come back whole
+        (B, Vp) on every rank, the cache as the rank's blocks
+        (`cache_specs`)."""
+        if self.sh is not None:
+            return self._prefill_sharded(params, batch, lengths, cache_len,
+                                         layout)
         cfg = self.cfg
         x = self._embed(params, batch)
         B, S = x.shape[:2]
@@ -524,12 +600,15 @@ class LM:
         return {name: (tree_map(fn, t) if self._kind(int(name[1:])) == "attn"
                        else t) for name, t in lay.items()}
 
-    def decode_step(self, params, cache, batch):
+    def decode_step(self, params, cache, batch, *, layout=None):
         """One-token step. batch: tokens (B, 1) or embeds (B, 1, D).
 
         Returns (logits (B, Vp) f32, next_token (B,) int64, cache): the
         cache's KV and conv/SSM tensors are updated in place (see the module
-        docstring)."""
+        docstring).  Under a mesh, as `prefill` (`layout` the cell's);
+        logits and tokens come back whole on every rank."""
+        if self.sh is not None:
+            return self._decode_sharded(params, cache, batch, layout)
         cfg = self.cfg
         x = self._embed(params, batch)
         B = x.shape[0]
@@ -546,6 +625,331 @@ class LM:
         next_tok = torch.argmax(logits, dim=-1)
         return logits, next_tok, new_cache
 
+    # ------------------------------------------------------------------
+    # the mesh: this rank's blocks, explicit collectives (SPMD)
+    # ------------------------------------------------------------------
+    def param_specs(self, int8: bool = False) -> dict:
+        """The spec tree of the parameters (`sharding.param_shardings` of
+        `param_shapes`, or of their int8 serving image with `int8`)."""
+        if int8 not in self._p_specs:
+            shapes = self.param_shapes()
+            if int8:
+                shapes = layers.quantize_params_for_serving(shapes)
+            self._p_specs[int8] = shlib.param_shardings(self.cfg, shapes,
+                                                        self.sh.mesh)
+        return self._p_specs[int8]
+
+    def cache_specs(self, global_batch: int, seq_len: int) -> dict:
+        """The spec tree of the decode cache of a cell
+        (`sharding.cache_shardings` of `init_cache`'s global shapes)."""
+        meta = self.init_cache(global_batch, seq_len, device="meta")
+        return shlib.cache_shardings(self.cfg, meta, self.sh.mesh,
+                                     global_batch)
+
+    def init_local(self, generator: torch.Generator, *,
+                   int8: bool = False) -> dict:
+        """This rank's blocks of `init(generator)` (with `int8`, of its
+        `quantize_params_for_serving` image), bitwise: every leaf is
+        drawn whole from the same stream, in `init`'s order, quantized
+        whole where int8 (a block of a row-parallel `wq` keeps the
+        scales of its full rows), and only its block kept.  The stacked
+        layer leaves are drawn one repeat at a time, so a rank never
+        holds the whole tree, nor one whole stacked leaf."""
+        cfg, mesh = self.cfg, self.sh.mesh
+        device = generator.device
+        specs = self.param_specs(int8)
+        quant = layers.quantize_params_for_serving if int8 else (
+            lambda t: t)
+
+        def blocks(tree, spec):
+            return shlib.shard_tree(tree, spec, mesh)
+        params = {"final_norm": blocks(
+            layers.init_norm(cfg.d_model, cfg.norm, device=device),
+            specs["final_norm"])}
+        if cfg.embed_inputs or cfg.tie_embeddings:
+            std = 1.0 / math.sqrt(cfg.d_model)
+            w = layers.randn(generator, (self.Vp, cfg.d_model))
+            params["embed"] = blocks(
+                {"w": (w * std).to(device=device, dtype=self.dtype)},
+                specs["embed"])
+            del w
+        if not cfg.tie_embeddings:
+            head = layers.init_linear(generator, cfg.d_model, self.Vp,
+                                      dtype=self.dtype, device=device)
+            params["lm_head"] = blocks(quant({"lm_head": head})["lm_head"],
+                                       specs["lm_head"])
+            del head
+        stacked = {}
+        for p in range(self.P):
+            lspec = tree_map(lambda sp: sp[1:], specs["layers"][f"p{p}"])
+            out = None
+            for r in range(self.R):
+                sub = blocks(quant(self._init_sublayer(generator, device, p)),
+                             lspec)
+                if out is None:
+                    out = tree_map(lambda a: a.new_empty((self.R,) + a.shape),
+                                   sub)
+                tree_map(lambda dst, a: dst[r].copy_(a), out, sub)
+                del sub
+            stacked[f"p{p}"] = out
+        params["layers"] = stacked
+        return params
+
+    def layout(self, shape, *, int8: bool) -> dict:
+        """The layout of a sharded cell of `shape` (a `ShapeSpec`: the
+        global batch and the sequence length) on int8 serving weights or
+        not, computed once when the cell is built: the parameter specs,
+        whether the batch splits over the batch axes ("bl"), the cache
+        specs, the axis the cache's sequence blocks split over ("cax")
+        and whether decode runs flash-decoding (the reference's
+        condition: not the baseline, Sc divides 'model')."""
+        sh = self.sh
+        cs = self.cache_specs(shape.global_batch, shape.seq_len)
+        return {"specs": self.param_specs(int8),
+                "bl": sh.batch_split(shape.global_batch),
+                "seq_len": shape.seq_len, "cache": cs,
+                "cax": shlib.split_axis(sh.mesh, cs["kpos"][0]),
+                "flash_decode": (not sh.baseline and
+                                 self.cache_len(shape.seq_len) % sh.nm == 0)}
+
+    @staticmethod
+    def _need_layout(layout) -> dict:
+        if layout is None:
+            raise ValueError("an LM under a mesh takes the cell's layout= "
+                             "(LM.layout(shape, int8=...); build_cell "
+                             "passes it)")
+        return layout
+
+    def _whole_dims(self, tree, spec_tree):
+        """A parameter subtree with its FSDP blocks all-gathered (the
+        'model' blocks kept)."""
+        mesh = self.sh.mesh
+        return tree_map(lambda t, sp: shlib.gather_dims(
+            t, sp, mesh, keep=("model",)), tree, spec_tree)
+
+    def _layer_local(self, params, layout, p: int, r: int) -> dict:
+        """Layer (p, r)'s parameters: its FSDP blocks gathered at use."""
+        lspec = tree_map(lambda sp: sp[1:],
+                         layout["specs"]["layers"][f"p{p}"])
+        return self._whole_dims(_layer_params(params["layers"][f"p{p}"], r),
+                                lspec)
+
+    def _embed_sharded(self, params, batch, layout) -> torch.Tensor:
+        """Token embeddings from the vocab-parallel table: the rank's
+        rows of the vocabulary looked up, the others zero, summed over
+        'model' (exact: one nonzero term a row)."""
+        if not self.cfg.embed_inputs:
+            return self._embed(params, batch)
+        w = self._whole_dims(params["embed"], layout["specs"]["embed"])["w"]
+        tok = batch["tokens"].long()
+        if w.shape[0] == self.Vp:
+            return w[tok]
+        ax = self.sh.model_axis
+        n = w.shape[0]
+        loc = tok - ax.index * n
+        mine = (loc >= 0) & (loc < n)
+        x = w[torch.clamp(loc, 0, n - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        ax.all_reduce(x)
+        return x
+
+    def _logits_sharded(self, params, x, layout) -> torch.Tensor:
+        """(..., Vp) logits: the rank's vocab block, all-gathered over
+        'model'."""
+        specs = layout["specs"]
+        if self.cfg.tie_embeddings:
+            w = self._whole_dims(params["embed"], specs["embed"])["w"]
+            y, split = torch.matmul(x, w.t()), w.shape[0] < self.Vp
+        else:
+            head = self._whole_dims(params["lm_head"], specs["lm_head"])
+            y = layers.linear(head, x)
+            split = layers.out_features(head) < self.Vp
+        if split:
+            y = self.sh.model_axis.all_gather(y, y.dim() - 1)
+        return y
+
+    def _wo(self, p_wo, o: torch.Tensor) -> torch.Tensor:
+        """The attention output projection of o (..., Hq·D), whole on
+        every rank: row-parallel on the rank's block where wo's rows are
+        split."""
+        ax = self.sh.model_axis
+        if layers.in_features(p_wo) < o.shape[-1]:
+            return layers.linear_row(p_wo, layers.feature_block(o, ax), ax)
+        return layers.linear(p_wo, o)
+
+    def _attn_full_sharded(self, p_mix, x, positions, tables):
+        """Prefill attention on a rank: (out, (k, v)) with k, v whole
+        (B, S, K, Dh).  qkv column-parallel, all-gathered; the flash
+        kernel on the rank's heads where both head counts divide
+        'model', else on the rank's block of query rows (k/v up to the
+        block's last row: the kernel right-aligns q to the end of kv),
+        else on everything; wo row-parallel."""
+        cfg, ax = self.cfg, self.sh.model_axis
+        B, S, _ = x.shape
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        qkv = layers.linear_col(p_mix["wqkv"], x, (H + 2 * K) * D, ax)
+        q, k, v = self._split_qkv(qkv, positions, tables)
+        win, n, i = cfg.attn_window, ax.size, ax.index
+        if H % n == 0 and K % n == 0:
+            hq, hk = H // n, K // n
+            o = layers.attention_chunked(
+                q[:, :, i * hq:(i + 1) * hq], k[:, :, i * hk:(i + 1) * hk],
+                v[:, :, i * hk:(i + 1) * hk], window=win, policy=self.policy)
+            # wo's rows split with the heads: row-parallel on these
+            return layers.linear_row(p_mix["wo"], o.reshape(B, S, hq * D),
+                                     ax), (k, v)
+        if S % n == 0:
+            rows = S // n
+            hi = (i + 1) * rows
+            o = layers.attention_chunked(q[:, hi - rows:hi], k[:, :hi],
+                                         v[:, :hi], window=win,
+                                         policy=self.policy)
+            o = ax.all_gather(o, 1).reshape(B, S, H * D)
+        else:
+            o = layers.attention_chunked(q, k, v, window=win,
+                                         policy=self.policy)
+            o = o.reshape(B, S, H * D)
+        return self._wo(p_mix["wo"], o), (k, v)
+
+    def _attn_decode_sharded(self, p_mix, x, positions, tables, kv_cache,
+                             kpos_m, layout):
+        """Decode attention on a rank against its block of the cache
+        (B, Sc_l, K, Dh) and of kpos_m (Sc_l,).  Flash-decoding under the
+        reference's condition (not the baseline, Sc divides 'model'):
+        over the cache's own sequence axis, or over 'model' on the rank's
+        slice of a whole cache; otherwise the cache is gathered and the
+        one-device attention runs."""
+        cfg, sh = self.cfg, self.sh
+        ax = sh.model_axis
+        B = x.shape[0]
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        qkv = layers.linear_col(p_mix["wqkv"], x, (H + 2 * K) * D, ax)
+        q, k, v = self._split_qkv(qkv, positions, tables)
+        qpos = self._ipos(positions)[:, 0]
+        kc, vc, kp = kv_cache["k"], kv_cache["v"], kpos_m
+        cax = layout["cax"]
+        if layout["flash_decode"]:
+            if cax is None:         # a whole cache: this rank's slice
+                n = kc.shape[1] // ax.size
+                sl = slice(ax.index * n, (ax.index + 1) * n)
+                kc, vc, kp, cax = kc[:, sl], vc[:, sl], kp[sl], ax
+            out = layers.attention_decode_sharded(
+                q, kc, vc, qpos, kp, window=cfg.attn_window, k_new=k,
+                v_new=v, sharder=sh, axis=cax)
+        else:
+            if cax is not None:
+                kc, vc, kp = (cax.all_gather(kc, 1), cax.all_gather(vc, 1),
+                              cax.all_gather(kp, 0))
+            out = layers.attention_decode(q, kc, vc, qpos, kp,
+                                          window=cfg.attn_window,
+                                          k_new=k, v_new=v)
+        out = self._wo(p_mix["wo"], out.reshape(B, 1, H * D))
+        return out, {"k": k, "v": v}
+
+    def _gather_batch(self, t: torch.Tensor, layout) -> torch.Tensor:
+        """The whole batch of a per-row result split over the batch axes."""
+        return self.sh.batch_axis.all_gather(t, 0) if layout["bl"] else t
+
+    def _prefill_sharded(self, params, batch, lengths, cache_len, layout):
+        if lengths is not None or cache_len is not None \
+                or "positions" in batch:
+            raise NotImplementedError(
+                "LM.prefill under a mesh takes the cells' batches (tokens "
+                "or embeds, positions arange(S)): bucketed lengths, ring "
+                "widths and batch-given positions are one-device options")
+        cfg, mesh = self.cfg, self.sh.mesh
+        layout = self._need_layout(layout)
+        x = self._embed_sharded(params, batch, layout)
+        B, S = x.shape[:2]
+        if S != layout["seq_len"]:
+            raise ValueError(f"a prefill of {S} tokens in a cell of "
+                             f"{layout['seq_len']}")
+        dev = x.device
+        positions = self._positions(batch, B, S, dev)
+        tables = self._rope_tables(positions)
+        Sc = self.cache_len(S)
+        cspec = layout["cache"]["layers"]
+        new = {f"p{p}": [] for p in range(self.P)}
+        for r in range(self.R):
+            for p in range(self.P):
+                lp = self._layer_local(params, layout, p, r)
+                x, nc, _ = self._sublayer(p, lp, x, positions, tables, None,
+                                          None, False, layout=layout)
+                if self._kind(p) == "attn":
+                    # leave sequence-sharded, as Sharder.seq and
+                    # cache_shardings place the cache; batch as x's
+                    sp = cspec[f"p{p}"]["k"][1:]
+                    nc = {name: shlib.local_block(
+                        a[:, S - Sc:], (None,) + sp[1:], mesh).contiguous()
+                        for name, a in nc.items()}
+                new[f"p{p}"].append(nc)
+        xl = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm,
+                               policy=self.policy)
+        logits = self._gather_batch(
+            self._logits_sharded(params, xl, layout)[:, 0], layout)
+        kpos = torch.arange(S - Sc, S, dtype=torch.int32, device=dev)
+        cache = {"layers": {name: _stack(t) for name, t in new.items()},
+                 "kpos": shlib.local_block(kpos, layout["cache"]["kpos"],
+                                           mesh).clone(),
+                 "offset": torch.full((), S, dtype=torch.int32, device=dev)}
+        return logits, cache
+
+    def _decode_sharded(self, params, cache, batch, layout):
+        cfg = self.cfg
+        layout = self._need_layout(layout)
+        Sc = self.cache_len(layout["seq_len"])
+        if cache["offset"].dim() != 0:
+            raise NotImplementedError(
+                "LM.decode_step under a mesh takes the cells' cache (one "
+                "offset, kpos (Sc,)); per-slot caches are one-device")
+        x = self._embed_sharded(params, batch, layout)
+        B = x.shape[0]
+        offset = cache["offset"]
+        positions = self._positions(batch, B, 1, x.device, offset=offset)
+        tables = self._rope_tables(positions)
+        # the slot offset % Sc is written by the rank whose block holds
+        # it; every rank masks it in its copy of kpos if it holds it
+        kpos = cache["kpos"].clone()
+        cax = layout["cax"]
+        n_loc = kpos.shape[0]
+        lo = cax.index * n_loc if cax is not None else 0
+        slot = offset.long() % max(1, Sc) - lo
+        mine = (slot >= 0) & (slot < n_loc)
+        ls = torch.clamp(slot, 0, max(0, n_loc - 1))
+        kpos_m = kpos.clone()
+        if n_loc:
+            kpos[ls] = torch.where(mine, offset, kpos[ls])
+            kpos_m[ls] = torch.where(mine, torch.full_like(offset, -1),
+                                     kpos_m[ls])
+        new = {f"p{p}": [] for p in range(self.P)}
+        for r in range(self.R):
+            for p in range(self.P):
+                lay = cache["layers"][f"p{p}"]
+                cp = {name: a[r] for name, a in lay.items()}
+                lp = self._layer_local(params, layout, p, r)
+                x, nc, _ = self._sublayer(p, lp, x, positions, tables, cp,
+                                          kpos_m, True, layout=layout)
+                new[f"p{p}"].append(nc)
+        for p in range(self.P):
+            old = cache["layers"][f"p{p}"]
+            for name, dst in old.items():
+                if self._kind(p) != "attn":  # conv/SSM states: (B, ...)
+                    for r, nc in enumerate(new[f"p{p}"]):
+                        dst[r].copy_(nc[name])
+                    continue
+                upd = torch.stack([nc[name] for nc in new[f"p{p}"]])
+                if n_loc:
+                    dst[:, :, ls] = torch.where(mine, upd[:, :, 0].to(
+                        dst.dtype), dst[:, :, ls])
+        x = layers.apply_norm(params["final_norm"], x, cfg.norm,
+                              policy=self.policy)
+        logits = self._gather_batch(
+            self._logits_sharded(params, x, layout)[:, 0].float(), layout)
+        logits[:, cfg.vocab_size:] = -torch.inf
+        next_tok = torch.argmax(logits, dim=-1)
+        return logits, next_tok, {"layers": cache["layers"], "kpos": kpos,
+                                  "offset": offset + 1}
+
 
 def _stack(trees: list) -> dict:
     """A list of identical trees -> one tree of (R, ...) leaves.  The
@@ -561,3 +965,4 @@ def _layer_params(tree: dict, r: int) -> dict:
     """Layer r's parameters: every stacked leaf indexed on its R axis
     (int8 serving weights too: `wq` (R, din, dout), `wscale` (R, dout))."""
     return tree_map(lambda a: a[r], tree)
+

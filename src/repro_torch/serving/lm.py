@@ -58,8 +58,8 @@ class LmEngine(Engine):
         if config.mesh is not None:
             raise NotImplementedError(
                 "EngineConfig.mesh (model-parallel serving) is wired for "
-                "the ASR engine; LM serving over a mesh waits for the LM "
-                "mesh (ROADMAP item 11)")
+                "the ASR engine; LM serving shards through launch/steps.py "
+                "build_cell instead")
         self.device = resolve_device(device)
         super().__init__(config)
         self.program: LmProgram = config.program

@@ -13,15 +13,17 @@ import numpy as np
 TIMEOUT_S = 240          # a whole world's run; the collectives' own: 120
 
 
-def run(world: int, workdir, job: str, payload) -> list:
-    """Run `JOBS[job](payload)` on `world` spawned ranks; returns
-    their results in rank order.  Any rank's failure (or a hang past
+def run(world: int, workdir, job: str, payload, device="cpu") -> list:
+    """Run `JOBS[job](payload)` on `world` spawned ranks on `device`
+    ("cuda": all on the one card, gloo); returns their results in rank
+    order.  Any rank's failure (or a hang past
     TIMEOUT_S) fails the caller with the rank's traceback."""
     ctx = mp.get_context("spawn")
     workdir = str(workdir)
     init = os.path.join(workdir, "rendezvous")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, init, job, payload, workdir))
+                         args=(r, world, init, job, payload, workdir,
+                               device))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -51,13 +53,15 @@ def run(world: int, workdir, job: str, payload) -> list:
     return outs
 
 
-def _rank_main(rank, world, init, job, payload, workdir):
+def _rank_main(rank, world, init, job, payload, workdir, device="cpu"):
     import torch
     torch.set_num_threads(1)
+    from repro_torch.device import fp32_numerics
     from repro_torch.launch import mesh as meshlib
     try:
-        meshlib.init_ranks("cpu", init_method=f"file://{init}", rank=rank,
+        meshlib.init_ranks(device, init_method=f"file://{init}", rank=rank,
                            world_size=world, timeout_s=120)
+        fp32_numerics()
         res = (True, JOBS[job](payload))
     except BaseException:       # reported to the parent, which fails
         res = (False, traceback.format_exc())
@@ -80,7 +84,11 @@ def parse_mesh(spec: str):
 
 
 def _np(t):
-    return t.detach().cpu().numpy()
+    """A numpy copy (the decode step writes its cache in place); bf16
+    as fp32."""
+    import torch
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 # ---------------------------------------------------------------------------
@@ -192,3 +200,260 @@ def serve(payload):
 
 
 JOBS = {"layout": layout, "forward": forward, "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh's jobs
+# ---------------------------------------------------------------------------
+def _lm_mesh(spec: str):
+    """"RxC" -> a ('data', 'model') mesh over the world's first R*C ranks
+    (None on the others)."""
+    from repro_torch.launch import mesh as meshlib
+    r, c = (int(v) for v in spec.split("x"))
+    return meshlib.make_mesh((r, c), ("data", "model"), ranks=range(r * c))
+
+
+def _cfg(payload_cfg):
+    import dataclasses
+
+    from repro_torch.configs.base import MoESpec, ModelConfig, SSMSpec
+    kw = dict(payload_cfg)
+    if kw.get("moe"):
+        kw["moe"] = MoESpec(**kw["moe"])
+    if kw.get("ssm"):
+        kw["ssm"] = SSMSpec(**kw["ssm"])
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    return ModelConfig(**{k: v for k, v in kw.items() if k in names})
+
+
+def lm_cells(payload):
+    """`build_cell` prefill and one decode step of each case (arch, mesh,
+    dtype) whose mesh spans this world, on the given parameters' int8
+    serving image (each rank keeps its blocks, `shard_tree`): the whole
+    logits, the decode tokens and logits, this rank's cache blocks after
+    prefill and after the step, and the cache specs."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.treeutil import tree_map
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import steps
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as shlib
+    world = torch.distributed.get_world_size()
+    plain = KernelPolicy("ref")
+    out, meshes = {}, {}
+    for case in payload["cases"]:
+        spec = case["mesh"]
+        if case["world"] != world:
+            continue
+        if spec not in meshes:      # every rank of the world makes it
+            meshes[spec] = _lm_mesh(spec)
+        mesh = meshes[spec]
+        if mesh is None:            # a mesh of fewer ranks than the world
+            continue
+        cfg = _cfg(case["cfg"])
+        B, S = case["tokens"].shape
+        pre = ShapeSpec("p", S, B, "prefill")
+        dec = ShapeSpec("d", S, B, "decode")
+        fn_p, (p_loc, b_loc) = steps.build_cell(cfg, pre, mesh, policy=plain)
+        fn_d, (_, c_loc, d_loc) = steps.build_cell(cfg, dec, mesh,
+                                                   policy=plain)
+        lm = steps.build_lm(cfg, mesh, plain)
+        full = layers.quantize_params_for_serving(tree_map(
+            lambda a, d: torch.from_numpy(a).to(getattr(torch, d)),
+            case["params"], case["dtypes"]))
+        params = shlib.shard_tree(full, lm.param_specs(True), mesh)
+        tok = torch.from_numpy(case["tokens"])
+        nxt = torch.from_numpy(case["next"])[:, None]
+        b_spec = shlib.batch_shardings({"t": tok}, mesh)["t"]
+        logits, cache = fn_p(params, {"tokens": shlib.local_block(
+            tok, b_spec, mesh)})
+        after_prefill = tree_map(_np, cache)
+        d_batch = {"tokens": shlib.local_block(nxt, b_spec, mesh)}
+        tk, cache2 = fn_d(params, cache, d_batch)
+        lm2 = steps.build_lm(cfg, mesh, plain)
+        _, cache3 = fn_p(params, {"tokens": shlib.local_block(
+            tok, b_spec, mesh)})
+        lg, tk2, _ = lm2.decode_step(params, cache3, d_batch,
+                                     layout=lm2.layout(dec, int8=True))
+        out[case["name"]] = {
+            "logits": _np(logits), "dec_logits": _np(lg), "dec_tok": _np(tk),
+            "dec_tok2": _np(tk2), "cache_prefill": after_prefill,
+            "cache_decode": tree_map(_np, cache2),
+            "cache_specs": lm.cache_specs(B, S), "coords": mesh.coords,
+            "shapes": (_shapes(params) == _shapes(p_loc)
+                       and _shapes(cache) == _shapes(c_loc)
+                       and tuple(d_loc["tokens"].shape)
+                       == tuple(d_batch["tokens"].shape))}
+    return out
+
+
+def moe_ep(payload):
+    """`moe.apply_moe_ep` (through `apply_moe`'s dispatch) on each case
+    whose mesh spans this world: this rank's rows of y, aux, the
+    candidates dropped at the local capacity, the capacity."""
+    import torch
+
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.core.treeutil import params_from_numpy
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shlib
+    world = torch.distributed.get_world_size()
+    out = {}
+    for case in payload["cases"]:
+        r, c = (int(v) for v in case["mesh"].split("x"))
+        if r * c != world:
+            continue
+        mesh = _lm_mesh(case["mesh"])
+        sh = shlib.Sharder(mesh)
+        spec = MoESpec(**case["spec"])
+        full = params_from_numpy(case["params"])
+        # the parameter rules' blocks: experts over 'model' where they
+        # divide it, else each expert's d_ff (tensor parallel within)
+        if spec.n_experts % mesh.shape["model"] == 0:
+            specs = dict.fromkeys(("w_gate", "w_up", "w_down"),
+                                  ("model", None, None))
+        else:
+            specs = {"w_gate": (None, None, "model"),
+                     "w_up": (None, None, "model"),
+                     "w_down": (None, "model", None)}
+        p = {k: shlib.local_block(full[k], sp, mesh)
+             for k, sp in specs.items()}
+        p["router"] = full["router"]
+        x = torch.from_numpy(case["x"])
+        xl = shlib.local_block(x, ("data", None, None), mesh)
+        moe.drops.clear()
+        y, aux = moe.apply_moe(p, xl, spec, "silu", sharder=sh)
+        out[case["name"]] = {"y": _np(y), "aux": float(aux),
+                             "drops": [int(d) for d in moe.drops],
+                             "coords": mesh.coords}
+    return out
+
+
+def decode_attn(payload):
+    """`layers.attention_decode_sharded` on this rank's batch rows (over
+    'data') and sequence block (over 'model') of each case."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.parallel import sharding as shlib
+    world = torch.distributed.get_world_size()
+    out = {}
+    for case in payload["cases"]:
+        r, c = (int(v) for v in case["mesh"].split("x"))
+        if r * c != world:
+            continue
+        mesh = _lm_mesh(case["mesh"])
+        sh = shlib.Sharder(mesh)
+        t = {k: torch.from_numpy(v) for k, v in case["inputs"].items()}
+
+        def rows(a):
+            return shlib.local_block(a, ("data",) + (None,) * (a.dim() - 1),
+                                     mesh)
+        kc, vc = (shlib.local_block(t[k], ("data", "model", None, None),
+                                    mesh) for k in ("k", "v"))
+        y = layers.attention_decode_sharded(
+            rows(t["q"]), kc, vc, rows(t["qpos"]),
+            shlib.local_block(t["kpos"], ("model",), mesh),
+            window=case["window"], k_new=rows(t["k_new"]),
+            v_new=rows(t["v_new"]), sharder=sh)
+        out[case["name"]] = {"y": _np(y), "coords": mesh.coords}
+    return out
+
+
+def _shapes(tree) -> dict:
+    """{path: shape} of a tree's leaves."""
+    from repro_torch.core.treeutil import leaves_with_paths
+    return {path: tuple(t.shape) for path, t in leaves_with_paths(tree)}
+
+
+def lm_kernels(payload):
+    """On the card: each case's prefill and one decode step through
+    build_cell with the kernels (KernelPolicy("auto")) and with the
+    plain versions, on the rank's blocks of one seeded init: the whole
+    logits of both paths and the kernel path's launches per cell."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shlib
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, arch, spec, dtype in payload["cases"]:
+        mesh = _lm_mesh(spec)
+        cfg = dataclasses.replace(get_config(arch).tiny(), dtype=dtype)
+        B, S = payload["batch"], payload["seq"]
+        tok = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+        nxt = tok[:, :1].clone()
+        b_spec = shlib.batch_shardings({"t": tok}, mesh)["t"]
+        res = {}
+        for path, policy in (("kernel", KernelPolicy("auto")),
+                             ("plain", KernelPolicy("ref"))):
+            lm = steps.build_lm(cfg, mesh, policy)
+            params = lm.init_local(torch.Generator(device=dev).manual_seed(0),
+                                   int8=True)
+            fn_p, _ = steps.build_cell(cfg, ShapeSpec("p", S, B, "prefill"),
+                                       mesh, policy=policy)
+            fn_d, _ = steps.build_cell(cfg, ShapeSpec("d", S, B, "decode"),
+                                       mesh, policy=policy)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            logits, cache = fn_p(params, {"tokens": shlib.local_block(
+                tok, b_spec, mesh)})
+            torch.cuda.synchronize()
+            n_pre = ops.launch_counts()
+            ops.reset_launch_counts()
+            tk, _ = fn_d(params, cache, {"tokens": shlib.local_block(
+                nxt, b_spec, mesh)})
+            torch.cuda.synchronize()
+            res[path] = {"logits": _np(logits), "tok": _np(tk),
+                         "prefill_launches": n_pre,
+                         "decode_launches": ops.launch_counts()}
+        out[name] = res
+    return out
+
+
+def collectives(_payload):
+    """The LM's `MeshAxis` collectives on a ('data', 'model') mesh of the
+    world (2 ranks: 1x2; 4: 2x2), each rank putting in tensors of its
+    rank number: all-gather, all-to-all and the MAX
+    all-reduce over 'model', an all-gather over ('data', 'model')."""
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+    world = torch.distributed.get_world_size()
+    mesh = _lm_mesh("1x2" if world == 2 else "2x2")
+    me = torch.distributed.get_rank()
+    ax = mesh.axis("model")
+    t = torch.full((2, 3), float(me)) + torch.arange(3.0)
+    out = {"gather": ax.all_gather(t, 1),
+           "to_all": ax.all_to_all(torch.arange(4.0).reshape(2, 2) + 10 * me),
+           "coords": mesh.coords}
+    m = t.clone()
+    ax.all_reduce_max(m)
+    out["max"] = m
+    out["both"] = mesh.axis(("data", "model")).all_gather(
+        torch.tensor([float(me)]), 0)
+    try:
+        meshlib.make_production_mesh()
+    except ValueError as e:
+        out["production"] = str(e)
+    return {k: (_np(v) if hasattr(v, "numpy") else v) for k, v in out.items()}
+
+
+def lm_mesh(payload):
+    """The LM mesh jobs in one world: {job: its results}."""
+    return {"collectives": collectives(None),
+            "lm_cells": lm_cells(payload["lm_cells"]),
+            "moe_ep": moe_ep(payload["moe_ep"]),
+            "decode_attn": decode_attn(payload["decode_attn"])}
+
+
+JOBS.update(lm_mesh=lm_mesh, lm_kernels=lm_kernels)

@@ -208,12 +208,20 @@ def test_init_moe_matches_reference_shapes():
 
 
 def test_expert_parallel_is_not_ported():
+    """Expert parallelism is ported now (`apply_moe_ep`, held to the
+    reference's on gloo ranks in tests/test_torch_lm_mesh.py); what is
+    left of this check: a `Sharder` over no mesh is the one-device
+    function, as in the reference (no expert-parallel path without a
+    mesh)."""
+    from repro_torch.parallel.sharding import Sharder
     _, tspec = _specs()
     jspec, _ = _specs()
     _, tp = _params(jspec)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmoe.apply_moe(tp, torch.zeros(1, 2, D), tspec, "silu",
-                       sharder=object())
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 8, D)
+                         .astype(np.float32))
+    y0, a0 = tmoe.apply_moe(tp, x, tspec, "silu")
+    y1, a1 = tmoe.apply_moe(tp, x, tspec, "silu", sharder=Sharder(None))
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
 
 
 def test_spec_copies_agree():

@@ -166,3 +166,53 @@ def test_lm_training_entry_points_have_port_counterparts():
     assert transformer.Z_LOSS_COEF == 1e-4
     assert transformer.MOE_AUX_COEF == 0.01
     assert callable(steps.make_train_step) and callable(train.main)
+
+
+# the port's names for public names of the reference's mesh modules
+MESH_RENAMED = {"place_tree": "shard_tree"}
+# the reference `Sharder`'s layout methods are GSPMD sharding constraints
+# (an activation's layout, left to the compiler); the port's ranks
+# compute on their blocks and decide their splits from the blocks'
+# shapes and the specs, so these have no counterpart
+GSPMD_LAYOUTS = {f"Sharder.{m}" for m in (
+    "act", "seq", "attn_q", "attn_kv_chunks", "kv", "heads", "inner",
+    "expert", "tokens", "logits")}
+
+
+@pytest.mark.parametrize("module", [
+    "parallel/sharding", "launch/steps", "launch/mesh"])
+def test_mesh_modules_have_port_counterparts(module):
+    """Every public function, class and method of the reference's LM and
+    serving mesh modules has a counterpart of the same name (or the
+    port's name in MESH_RENAMED) in the port's module of the same path."""
+    import importlib
+    port = importlib.import_module("repro_torch." + module.replace("/", "."))
+    want = _top_level_public(ROOT / "src" / "repro" / f"{module}.py")
+    assert want
+    missing = []
+    for name in sorted(want - GSPMD_LAYOUTS):
+        obj = port
+        for part in MESH_RENAMED.get(name, name).split("."):
+            obj = getattr(obj, part, None)
+        if obj is None:
+            missing.append(name)
+    assert not missing, (module, missing)
+
+
+def test_sharded_model_functions_have_port_counterparts():
+    """The sharded functions of `repro.models.{moe,layers}`: every
+    public function whose name or signature speaks of the mesh."""
+    from repro_torch.models import layers, moe
+    for mod, port in (("moe", moe), ("layers", layers)):
+        tree = ast.parse((ROOT / "src" / "repro" / "models"
+                          / f"{mod}.py").read_text())
+        sharded = {n.name for n in tree.body
+                   if isinstance(n, ast.FunctionDef)
+                   and not n.name.startswith("_")
+                   and ("sharder" in {a.arg for a in n.args.args
+                                      + n.args.kwonlyargs}
+                        or n.name.endswith(("_ep", "_sharded")))}
+        assert sharded, mod
+        missing = sorted(f for f in sharded
+                         if not callable(getattr(port, f, None)))
+        assert not missing, (mod, missing)
