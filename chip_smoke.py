@@ -5,8 +5,9 @@ beam-threshold prune, the network front-end, training (CTC training
 of the full-width TDS model, the LM trainer at full width), the rest
 of the LM stack (M-RoPE and frontend embeddings, the LM's bf16 LayerNorm,
 int8 LM serving weights), the sharded ASR serving step (a mesh of
-`torch.distributed` ranks, here sharing the one card) and the sharded
-LM serving cells (`launch/steps.build_cell` on such a mesh).
+`torch.distributed` ranks, here sharing the one card), the sharded
+LM serving cells (`launch/steps.build_cell` on such a mesh) and the
+network server on such a mesh (`--serve --mesh`).
 
     python3 chip_smoke.py [--before DIR]
 
@@ -281,6 +282,46 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                Times, collectives and bytes per cell, peak memory per
                rank printed ("not a multi-card figure").  At most
                LM_MESH_PHASE_LIMIT_S.
+ 24. serve mesh — the network server on the mesh: MESH_WORLD ranks
+               spawned on the card as in phase 22; rank 0 serves an
+               `EngineServer` leading a command channel
+               (`launch.mesh.make_channel`), the other ranks replay its
+               stream (`serving.server.follow`).  (a) Phase 5's system
+               at 4 slots and a queue of 4, fp32 at meshes 2 and 2x2 and
+               int8 at 2x2: rank 0 tells this process its port through
+               a file; this process runs phase 16's warm-up and measured
+               wave (8 streams 20 ms apart, 80 ms pushes with a poll
+               after each) and then writes a stop file.  Every stream's
+               words, tokens and steps equal phase 5's in-process
+               result, scores within MESH_SCORE_ATOL (int8: within
+               INT8_SCORE_RTOL of |score|; its control, the 2x2 fp32
+               wave held to phase 5's int8 results, must miss that
+               limit); every rank ends
+               with rank 0's step count, per-slot steps and state
+               digest, and replayed every message; on every rank the
+               launches of each kernel (counts set to 0 just before the
+               case, read just after) equal the steps it took times the
+               per-step counts (1 logmel, 18 tds_conv, 15 layernorm, w
+               hypothesis_unit, 29 int8_matmul an int8 step).  (b) On
+               the demo system at 2x2, clients run by rank 0: an
+               ``asr_step`` raise matched on one session faults that
+               stream alone, the other three equal the clean in-process
+               run; a stalled client is reaped by SERVE_MESH_DEADLINE_S
+               on rank 0's clock, the same sid faulted on every rank; a
+               ``pump`` stall with the watchdog gives /healthz 503, then
+               200 after one restart, every rank's fault log holds the
+               quarantine, a fresh stream equals the clean run; a drain
+               under load returns every result.  (c) `python -m
+               torch.distributed.run --standalone --nproc-per-node 2 -m
+               repro_torch.launch.serve --serve --mesh 2 --port 0`
+               answers /asr, /lm and /metrics; SIGTERM to each rank (as
+               torchrun forwards it) drains it and torchrun exits 0,
+               which it does only when every rank did.  First-result and
+               finalize p50 / p99, realtime over the wire beside phase
+               16's, command messages and bytes a stream and the
+               keep-alives are printed as "N ranks sharing one card,
+               gloo host-staged collectives: not a multi-card figure".
+               At most SERVE_MESH_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -321,6 +362,7 @@ from repro_torch.data.pipeline import (DataConfig, SyntheticASR,  # noqa: E402
                                        SyntheticLM)
 from repro_torch.device import fp32_numerics  # noqa: E402
 from repro_torch.core.scheduler import ASRPU  # noqa: E402
+from repro_torch.core.stepplan import make_step_plan  # noqa: E402
 from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  beam_prune as kbp, flash_attention as kfa,
                                  hypothesis_unit as khu, int8_matmul as kim,
@@ -342,7 +384,7 @@ from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
 from repro_torch.serving.server import (AsrClient,  # noqa: E402
                                         EngineServer,
                                         fetch_healthz, fetch_metrics,
-                                        lm_generate)
+                                        follow, lm_generate)
 
 OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
@@ -516,6 +558,23 @@ LM_MESH_SURE = 2.0
 LM_MESH_TIMEOUT_S = 300.0       # each collective's (ranks wait at barriers)
 LM_MESH_PHASE_LIMIT_S = 450.0
 LM_MESH_DIR = ROOT / "build" / "chip_smoke" / "lm_mesh"
+# phase 24: the network server on the mesh (`--serve --mesh`), MESH_WORLD
+# ranks sharing the card: phase 16's wave at each (mesh, int8) case, the
+# faults on the demo system at SERVE_MESH_DEMO, the torchrun launcher
+SERVE_MESH_CASES = (("2", False), ("2x2", False), ("2x2", True))
+# int8 over the wire is held to phase 5's int8 as phase 5 holds its int8
+# kernel path to the plain one: words, tokens and steps equal, scores
+# within INT8_SCORE_RTOL of |score|, not MESH_SCORE_ATOL.  At full width
+# a step's activations one ulp apart (the 'model' all-reduce's order;
+# over the wire, another batching of the windows) quantize to
+# neighbouring int8 values.  The limit sits between two readings on an
+# H100 (PERF.md §6): the int8 wave, at most ~3e-3 of |score|, and
+# the control, the same mesh's fp32 wave held to phase 5's int8 results,
+# which must miss it (its largest gap ~2.8e-2 of |score|).
+SERVE_MESH_DEMO = "2x2"
+SERVE_MESH_DEADLINE_S = 4.0
+SERVE_MESH_PHASE_LIMIT_S = 150.0
+SERVE_MESH_DIR = ROOT / "build" / "chip_smoke" / "serve_mesh"
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -4648,12 +4707,623 @@ def lm_mesh_phase(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# 24. the network server on the mesh: rank 0 serves and leads, the other
+# ranks replay its command stream; ranks sharing the card
+# ---------------------------------------------------------------------------
+def mesh_rank_state(eng) -> dict:
+    """What every rank of a mesh's engine must hold alike at the end."""
+    return {"n_steps": eng.n_steps, "slot_steps": eng._slot_steps.tolist(),
+            "digest": eng._digest(), "fault_log": list(eng._fault_log),
+            "steps": list(eng.step_shapes)}
+
+
+async def serve_until(server, stop: pathlib.Path, port: pathlib.Path):
+    """(rank 0) Write the started server's port to `port`; serve until
+    `stop` exists."""
+    tmp = port.with_suffix(".tmp")
+    tmp.write_text(str(server.port))
+    tmp.replace(port)
+    while not stop.exists():
+        await asyncio.sleep(0.02)
+
+
+def lead_server(eng, channel, script, ctx=None, **kw) -> dict:
+    """(rank 0) An EngineServer over `eng` leading `channel`: runs
+    `script(server, ctx)` against it, then drains it (its stop message
+    ends the followers' replay)."""
+    async def go():
+        server = EngineServer(asr_engine=eng, channel=channel, **kw)
+        await server.start()
+        try:
+            res = await script(server, ctx) or {}
+        finally:
+            await server.aclose(drain=True, timeout=NET_WAIT_S)
+        if server.fatal is not None:
+            raise RuntimeError(f"rank 0's server: {server.fatal}")
+        res.update(stream=dict(server._leader.stats),
+                   restarts=server._restarts["asr"])
+        return res
+    return asyncio.run(go())
+
+
+async def sm_raise(server, ctx):
+    """An asr_step raise matched on NET_POISON_SID: four clients opened
+    in order (sids 0-3) stream at once."""
+    h, p = server.host, server.port
+    t0 = time.perf_counter()
+    clients = [await AsrClient.open(h, p) for _ in ctx["utts"]]
+    finals = await asyncio.gather(*[
+        drive_stream(c, a, ctx["chunk"], t0)
+        for c, a in zip(clients, ctx["utts"])])
+    return {"finals": [f["final"] for f in finals],
+            "healthz": (await fetch_healthz(h, p))[0]}
+
+
+async def sm_deadline(server, ctx):
+    """A client that pushes one chunk and stalls beside one that streams
+    a whole utterance: the stalled session is reaped after
+    SERVE_MESH_DEADLINE_S (rank 0's clock), its next push sees the
+    fault; the other stream is untouched."""
+    h, p = server.host, server.port
+    stalled = await AsrClient.open(h, p)
+    await stalled.push(ctx["utts"][0][:ctx["chunk"]])
+    t0 = time.perf_counter()
+    streamed = await net_stream(h, p, ctx["utts"][1], ctx["chunk"])
+
+    async def reaped():
+        m = await fetch_metrics(h, p)
+        return m["asr"]["sessions"]["deadline_evicted"] >= 1
+    await wait_for(reaped, "the stalled session's reap")
+    reap_s = time.perf_counter() - t0
+    err = await stalled.push(ctx["utts"][0][:ctx["chunk"]])
+    await stalled.aclose()
+    return {"streamed": streamed["final"], "error": err, "reap_s": reap_s}
+
+
+async def sm_watchdog(server, ctx):
+    """A warm stream, a session in flight, then a `pump` stall with the
+    supervisor held until the heartbeat ages past the watchdog: /healthz
+    503; the restart (whose quarantine goes through the new worker's
+    stream), the zombie released, /healthz 200; a fresh stream."""
+    h, p = server.host, server.port
+    old = server._asr_worker
+    warm = await net_stream(h, p, ctx["utts"][0], ctx["chunk"])
+    inflight = await AsrClient.open(h, p)
+    await inflight.push(ctx["utts"][1][:ctx["chunk"]])
+    server._supervisor.cancel()
+    try:
+        await server._supervisor
+    except asyncio.CancelledError:
+        pass
+    ctx["arm"]["on"] = True
+
+    async def aged():
+        return old.heartbeat_age() > NET_WATCHDOG_S
+    await wait_for(aged, "the stalled worker's heartbeat age")
+    ctx["arm"]["on"] = False
+    wedged, _ = await fetch_healthz(h, p)
+    server._supervisor = asyncio.get_running_loop().create_task(
+        server._supervise())
+
+    async def replaced():
+        return server._asr_worker is not old
+    await wait_for(replaced, "the restart")
+    ctx["policy"].release()
+
+    async def healthy():
+        st, pl = await fetch_healthz(h, p)
+        return (st, pl) if st == 200 else None
+    status, payload = await wait_for(healthy, "/healthz 200 again")
+    await inflight.aclose()
+    fresh = await net_stream(h, p, ctx["utts"][2], ctx["chunk"])
+    return {"warm": warm["final"], "fresh": fresh["final"],
+            "wedged_healthz": wedged, "healthz": status,
+            "restarts": payload["engines"]["asr"]["restarts"]}
+
+
+async def sm_drain(server, ctx):
+    """aclose(drain=True) with every stream mid-flight."""
+    h, p = server.host, server.port
+    opened = [asyncio.Event() for _ in ctx["utts"]]
+    tasks = [asyncio.create_task(net_stream(h, p, a, ctx["chunk"],
+                                            opened=opened[i]))
+             for i, a in enumerate(ctx["utts"])]
+    for ev in opened:
+        await ev.wait()
+    await server.aclose(drain=True, timeout=60.0)
+    return {"finals": [r["final"] for r in await asyncio.gather(*tasks)]}
+
+
+def sm_demo_engine(name, dev, demo, mesh):
+    """The demo system's engine of one fault case, and its script's
+    context."""
+    ctx = {}
+    kw = {}
+    if name == "raise":
+        kw["faults"] = FaultPolicy([FaultSpec(
+            "asr_step", count=None, message="poisoned session",
+            match=lambda c: NET_POISON_SID in c.get("sids", ()))])
+    elif name == "deadline":
+        kw["session_deadline"] = SERVE_MESH_DEADLINE_S
+    elif name == "watchdog":
+        arm = ctx["arm"] = {"on": False}
+        ctx["policy"] = kw["faults"] = FaultPolicy(
+            [FaultSpec("pump", action="stall", count=1,
+                       match=lambda c: arm["on"])], stall_timeout=60.0)
+        kw["worker_watchdog"] = NET_WATCHDOG_S
+    eng, _ = asr_demo_engine(4, KernelPolicy("kernel"), device=dev,
+                             system=demo, mesh=mesh, **kw)
+    ctx.update(utts=[SyntheticASR(demo[1]).utterance(u)["audio"]
+                     for u in range(4)],
+               chunk=eng.plan.samples_per_step)
+    return eng, ctx
+
+
+SM_SCRIPTS = {"raise": sm_raise, "deadline": sm_deadline,
+              "watchdog": sm_watchdog, "drain": sm_drain}
+
+
+def serve_mesh_rank(rank, world, init, out_dir):
+    """One rank of phase 24 (a spawned process).  (a) For each case of
+    SERVE_MESH_CASES over the world's first ranks (the rest wait at a
+    barrier): rank 0 serves phase 5's system with an EngineServer of
+    NET_SLOTS slots and a queue of NET_MAX_QUEUE leading the case's
+    command channel, tells the parent its port through a file and
+    serves until the parent's stop file; the others replay its stream.
+    The launch counts are set to 0 just before and read just after.
+    (b) The fault cases on the demo system at SERVE_MESH_DEMO, their
+    clients run by rank 0.  Writes (ok, results or traceback)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)
+    res = None
+    out_dir = pathlib.Path(out_dir)
+    try:
+        dev = meshlib.init_ranks(None, init_method=init, rank=rank,
+                                 world_size=world, timeout_s=MESH_TIMEOUT_S)
+        fp32_numerics()
+        _build.lib()
+        system = full_width_system(dev)
+        tds_cfg, _, lex, lm, params, dec_cfg = system
+        out = {}
+        for k, (spec, int8) in enumerate(SERVE_MESH_CASES):
+            mesh, n = mesh_of(spec, world)
+            channel = meshlib.make_channel(range(n), timeout_s=MESH_TIMEOUT_S)
+            if mesh is not None:
+                prog = AsrProgram(tds_cfg, lex, lm, dec_cfg=dec_cfg,
+                                  use_int8=int8)
+                eng = AsrEngine(EngineConfig(prog, n_slots=NET_SLOTS,
+                                             max_queue=NET_MAX_QUEUE,
+                                             mesh=mesh), params, device=dev)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                if rank == 0:
+                    case = lead_server(eng, channel, lambda server, _: (
+                        serve_until(server, out_dir / f"wave{k}.stop",
+                                    out_dir / f"wave{k}.port")))
+                else:
+                    case = {"follow": follow(eng, channel)}
+                torch.cuda.synchronize()
+                case.update(mesh_rank_state(eng), counts=ops.launch_counts(),
+                            case_s=time.perf_counter() - t0)
+                out[f"{spec} {'int8' if int8 else 'fp32'}"] = case
+                del eng
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        del system, params
+        torch.cuda.empty_cache()
+        demo = asr_demo_system()
+        mesh, n = mesh_of(SERVE_MESH_DEMO, world)
+        for name, script in SM_SCRIPTS.items():
+            channel = meshlib.make_channel(range(n), timeout_s=MESH_TIMEOUT_S)
+            if mesh is not None:
+                eng, ctx = sm_demo_engine(name, dev, demo, mesh)
+                if rank == 0:
+                    case = lead_server(eng, channel, script, ctx,
+                                       watch_interval=0.05)
+                else:
+                    case = {"follow": follow(eng, channel)}
+                case.update(mesh_rank_state(eng))
+                out[f"demo {name}"] = case
+            torch.distributed.barrier()
+        res = (True, out)
+    except BaseException:          # reported to the parent, which fails
+        import traceback
+        res = (False, traceback.format_exc())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        with open(out_dir / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(res, f)
+
+
+def mesh_wire_miss(got, want, int8=False):
+    """Why a stream's final payload misses an in-process result, or None:
+    words, tokens and steps must be equal, scores within MESH_SCORE_ATOL
+    (int8: within INT8_SCORE_RTOL of |score|, see SERVE_MESH_CASES)."""
+    if got.get("error"):
+        return f"the stream ended in an error: {got}"
+    w = as_wire(want)
+    limit = INT8_SCORE_RTOL * abs(w["score"]) if int8 else MESH_SCORE_ATOL
+    if any(got[k] != w[k] for k in ("words", "tokens", "steps")) or \
+            not abs(got["score"] - w["score"]) < limit:
+        return f"over the wire {got}, in process {w} (score limit " \
+               f"{limit:.3e})"
+    return None
+
+
+def check_mesh_wire(tag, got, want, int8=False):
+    """`mesh_wire_miss` as a check: fails the run on a miss."""
+    miss = mesh_wire_miss(got, want, int8)
+    if miss:
+        fail(f"{tag}: {miss}")
+
+
+def serve_mesh_wave(port: int, utts, chunk: int) -> dict:
+    """(the parent) Phase 16's measured wave against rank 0's server: a
+    warm-up wave of NET_SLOTS streams, then the utterances' streams
+    NET_STAGGER_S apart, pushing `chunk` samples with a poll after each;
+    the command stream's counts read from /metrics around the wave."""
+    h = "127.0.0.1"
+
+    async def go():
+        await asyncio.gather(*[net_stream(h, port, utts[i], chunk,
+                                          NET_STAGGER_S * i)
+                               for i in range(NET_SLOTS)])
+        before = (await fetch_metrics(h, port))["asr"]["command_stream"]
+        t0 = time.perf_counter()
+        wave = await asyncio.gather(*[
+            net_stream(h, port, u, chunk, NET_STAGGER_S * i)
+            for i, u in enumerate(utts)])
+        wall = time.perf_counter() - t0
+        after = await fetch_metrics(h, port)
+        return wave, wall, before, after
+    wave, wall, before, after = asyncio.run(go())
+    stream = after["asr"]["command_stream"]
+    audio_s = sum(len(u) for u in utts) / 16000.0
+    return {"wave": wave, "wall_s": wall, "audio_s": audio_s,
+            "wire_x_realtime": audio_s / wall,
+            "first_result_ms": {f"p{q}": pct_ms(
+                [r["first_result_s"] for r in wave], q) for q in (50, 99)},
+            "finalize_ms": {f"p{q}": pct_ms(
+                [r["finalize_s"] for r in wave], q) for q in (50, 99)},
+            "wave_messages": stream["messages"] - before["messages"],
+            "wave_bytes": stream["bytes"] - before["bytes"],
+            "wave_commands": stream["commands"] - before["commands"],
+            "wave_send_s": stream["send_s"] - before["send_s"],
+            "queue_max_depth": after["asr"]["queue"]["max_depth"]}
+
+
+def rank_pids(pid: int) -> list:
+    """The pids whose parent is `pid` (from /proc): torchrun's ranks."""
+    out = []
+    for d in pathlib.Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d.name))
+    return out
+
+
+def serve_mesh_launcher() -> dict:
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    repro_torch.launch.serve --serve --mesh 2 --port 0` on the card (2
+    ranks sharing it): one /asr stream, one LM generation and /metrics
+    through rank 0's printed address; then SIGTERM to each rank, as
+    torchrun forwards it: rank 0 drains, its stop message ends rank 1's
+    replay, and torchrun exits 0, which it does only when every rank
+    did."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+           "--serve", "--mesh", "2", "--port", "0", "--streams", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving ASR"):
+                break
+        if not lines or not lines[-1].startswith("serving ASR"):
+            fail(f"the --serve --mesh launcher printed no address: "
+                 f"{''.join(lines)}")
+        up_s = time.perf_counter() - t0
+        addr = lines[-1].split("http://")[1].split()[0]
+        host, port = addr.rsplit(":", 1)
+        audio = SyntheticASR(asr_demo_system()[1]).utterance(0)["audio"]
+
+        async def go():
+            r = await net_stream(host, int(port), audio, 1280)
+            gen = await lm_generate(host, int(port), [1, 2, 3, 4])
+            return r, gen, await fetch_metrics(host, int(port))
+        r, gen, metrics = asyncio.run(go())
+        pids = rank_pids(proc.pid)
+        if len(pids) != 2:
+            fail(f"the --serve --mesh launcher runs ranks {pids}, not 2")
+        for pid in pids:
+            os.kill(pid, signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=NET_LAUNCHER_WAIT_S)
+    except BaseException:
+        if proc.poll() is None:
+            proc.kill()
+        rest, _ = proc.communicate()
+        print(f"[serve mesh launcher] its output:\n{''.join(lines)}{rest}",
+              file=sys.stderr, flush=True)
+        raise
+    text = "".join(lines) + rest
+    final = r["final"]
+    if final.get("error") or not np.isfinite(final["score"]) or \
+            final["steps"] < 1:
+        fail(f"the --serve --mesh launcher's ASR stream gave {final}")
+    if not gen.get("done") or not gen.get("tokens"):
+        fail(f"the --serve --mesh launcher's LM request gave {gen}")
+    if set(metrics) != {"asr", "lm"} or \
+            metrics["asr"]["command_stream"]["messages"] < 1:
+        fail(f"the --serve --mesh launcher's /metrics gave {metrics}")
+    if "drained; server stopped" not in text or \
+            "[rank 1] stopped by rank 0" not in text or proc.returncode:
+        fail(f"the --serve --mesh launcher did not drain cleanly (torchrun "
+             f"rc {proc.returncode}):\n{text}")
+    return {"up_s": up_s, "wall_s": time.perf_counter() - t0,
+            "asr_steps": final["steps"], "lm_tokens": len(gen["tokens"]),
+            "messages": metrics["asr"]["command_stream"]["messages"],
+            "rc": proc.returncode}
+
+
+def rel_score_gaps(wave, want) -> list:
+    """Each stream's final score gap over the in-process |score|."""
+    return [float(f"{abs(r['final']['score'] - w['score']) / abs(w['score']):.3e}")
+            for r, w in zip(wave, want)]
+
+
+def serve_mesh_checks(outs, waves, results) -> dict:
+    """Phase 24's checks on the ranks' results: per wave case every
+    stream equals phase 5's in-process result, every rank ends in rank
+    0's state with launches = its steps x the per-step counts; the fault
+    cases as their scripts say, with every rank's fault log rank 0's."""
+    n_fc = tds.kernel_census(TDS_CONFIG)["fc"]
+    counts = {}
+    cases = {}
+    for (spec, int8), wave in zip(SERVE_MESH_CASES, waves):
+        key = f"{spec} {'int8' if int8 else 'fp32'}"
+        want = results[int8]
+        mine = [o[key] for o in outs if key in o]
+        lead = mine[0]
+        for i, (r, w) in enumerate(zip(wave["wave"], want)):
+            check_mesh_wire(f"serve mesh {key} utt {i}", r["final"], w, int8)
+        if int8:
+            # the control: the same mesh's fp32 wave, held to the int8
+            # limit against phase 5's int8 results, must miss it
+            fp32 = waves[SERVE_MESH_CASES.index((spec, False))]["wave"]
+            misses = [mesh_wire_miss(r["final"], w, True)
+                      for r, w in zip(fp32, want)]
+            print(f"[serve mesh {key}] score gaps over |score|, utt 0-"
+                  f"{len(want) - 1}: over the wire "
+                  f"{rel_score_gaps(wave['wave'], want)}; control, the "
+                  f"{spec} fp32 wave: {rel_score_gaps(fp32, want)} (limit "
+                  f"{INT8_SCORE_RTOL:.0e}; misses at utt "
+                  f"{[i for i, m in enumerate(misses) if m]})", flush=True)
+            if not any(misses):
+                fail(f"serve mesh {key}: the control, the fp32 wave over "
+                     f"the wire, met the int8 check against phase 5's int8 "
+                     f"results: the check cannot tell the programs apart")
+        for r, o in enumerate(mine):
+            for k in ("n_steps", "slot_steps", "digest", "fault_log"):
+                if o[k] != lead[k]:
+                    fail(f"serve mesh {key}: rank {r}'s {k} {o[k]} != rank "
+                         f"0's {lead[k]}")
+            if r and o["follow"]["messages"] != lead["stream"]["messages"]:
+                fail(f"serve mesh {key}: rank {r} replayed "
+                     f"{o['follow']['messages']} messages of "
+                     f"{lead['stream']['messages']}")
+            n = len(o["steps"])
+            expect = {name: 0 for name in o["counts"]}
+            expect.update({"logmel": n, "tds_conv": 18 * n,
+                           "layernorm": 15 * n,
+                           "hypothesis_unit": sum(w for _, _, w in o["steps"]),
+                           "int8_matmul": n_fc * n if int8 else 0})
+            if o["counts"] != expect or not n:
+                fail(f"serve mesh {key} rank {r}: launches {o['counts']} "
+                     f"!= expected {expect}")
+            for name, c in o["counts"].items():
+                counts[name] = counts.get(name, 0) + c
+        cases[key] = dict({k: v for k, v in wave.items() if k != "wave"},
+                          score_gaps=[abs(r["final"]["score"] - w["score"])
+                                      for r, w in zip(wave["wave"], want)],
+                          ranks=len(mine), n_steps=lead["n_steps"],
+                          stream=lead["stream"], case_s=lead["case_s"],
+                          counts_by_rank=[o["counts"] for o in mine])
+    demo = {}
+    for name in SM_SCRIPTS:
+        key = f"demo {name}"
+        mine = [o[key] for o in outs if key in o]
+        lead = mine[0]
+        for r, o in enumerate(mine[1:], 1):
+            if o["fault_log"] != lead["fault_log"] or \
+                    o["digest"] != lead["digest"]:
+                fail(f"serve mesh {key}: rank {r}'s fault log "
+                     f"{o['fault_log']} / state {o['digest']} != rank 0's "
+                     f"{lead['fault_log']} / {lead['digest']}")
+        demo[name] = lead
+    return {"cases": cases, "demo": demo, "counts": counts}
+
+
+def rank_failures(work: pathlib.Path) -> list:
+    """The tracebacks of the spawned ranks that have failed so far."""
+    out = []
+    for path in sorted(work.glob("rank*.pkl")):
+        ok, val = pickle.loads(path.read_bytes())
+        if not ok:
+            out.append(f"{path.stem}: {val}")
+    return out
+
+
+def serve_mesh_phase(dev, smi, utts, full_results, full_results8,
+                     net) -> dict:
+    """Phase 24 (see the module docstring): MESH_WORLD ranks spawned on
+    the card (gloo over CUDA tensors for the step, host tensors for the
+    command channel; a file:// rendezvous under build/chip_smoke/), the
+    kernel library built before they start.  Within
+    SERVE_MESH_PHASE_LIMIT_S.  `net`: phase 16's result, None when the
+    phase runs alone (--serve-mesh-only)."""
+    import multiprocessing as mp
+    t_phase = time.perf_counter()
+    demo = asr_demo_system()
+    clean = demo_results(dev, demo, [SyntheticASR(demo[1]).utterance(u)[
+        "audio"] for u in range(4)], KernelPolicy("kernel"))
+    work = SERVE_MESH_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    init = f"file://{work / 'rendezvous'}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=serve_mesh_rank,
+                         args=(r, MESH_WORLD, init, str(work)))
+             for r in range(MESH_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = t_phase + SERVE_MESH_PHASE_LIMIT_S
+    chunk = make_step_plan(TDS_CONFIG, FEATURE_CONFIG, 80.0,
+                           DECODER_CONFIG.beam_size).samples_per_step
+    waves = []
+    try:
+        for k, (spec, int8) in enumerate(SERVE_MESH_CASES):
+            port = work / f"wave{k}.port"
+            while not port.exists():
+                failed = rank_failures(work)
+                if failed or any(p.exitcode not in (None, 0)
+                                 for p in procs) or \
+                        time.perf_counter() > deadline:
+                    fail(f"serve mesh: rank 0 served no case {spec} (exit "
+                         f"codes {[p.exitcode for p in procs]}):\n"
+                         + "\n".join(failed))
+                time.sleep(0.05)
+            waves.append(serve_mesh_wave(int(port.read_text()), utts, chunk))
+            (work / f"wave{k}.stop").write_text("")
+        while any(p.is_alive() for p in procs) and \
+                time.perf_counter() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        time.sleep(0.5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    outs = []
+    for r, p in enumerate(procs):
+        path = work / f"rank{r}.pkl"
+        if not path.exists():
+            fail(f"serve mesh: rank {r} wrote no result (exit code "
+                 f"{p.exitcode}; killed at the phase's limit of "
+                 f"{SERVE_MESH_PHASE_LIMIT_S} s if still running)")
+        ok, val = pickle.loads(path.read_bytes())
+        if not ok:
+            fail(f"serve mesh: rank {r} failed:\n{val}")
+        outs.append(val)
+    ranks_s = time.perf_counter() - t_phase
+    res = serve_mesh_checks(outs, waves, {False: full_results,
+                                          True: full_results8})
+    net16 = "not run" if net is None else f"{net['wire_x_realtime']:.3f}x"
+    for key, c in res["cases"].items():
+        label = shared_card_label(c["ranks"], smi)
+        print(f"[serve mesh {key}] 8 full-width streams over the wire, "
+              f"every one equal to phase 5's (scores at most "
+              f"{max(c['score_gaps']):.3e} apart); {c['n_steps']} steps on every "
+              f"rank, launches equal to steps x the per-step counts on "
+              f"every rank: {c['counts_by_rank'][0]}; {label}: first-result "
+              f"p50 {c['first_result_ms']['p50']:.3f} ms, p99 "
+              f"{c['first_result_ms']['p99']:.3f} ms; finalize p50 "
+              f"{c['finalize_ms']['p50']:.3f} ms, p99 "
+              f"{c['finalize_ms']['p99']:.3f} ms; "
+              f"{c['wire_x_realtime']:.3f}x realtime over the wire "
+              f"({c['audio_s']:.2f} s of audio in {c['wall_s']:.3f} s; "
+              f"phase 16, one rank: {net16}); command "
+              f"stream: {c['wave_messages']} messages, {c['wave_commands']} "
+              f"commands, {c['wave_bytes']} bytes over the wave "
+              f"({c['wave_messages'] / len(utts):.2f} messages, "
+              f"{c['wave_bytes'] / len(utts):.0f} bytes a stream; rank 0 "
+              f"{c['wave_send_s'] * 1e3 / max(c['wave_messages'], 1):.3f} ms "
+              f"a message in its sends), {c['stream']['keepalives']} "
+              f"keep-alives in the case", flush=True)
+    d = res["demo"]
+    bad = d["raise"]["finals"][NET_POISON_SID]
+    if not (bad.get("faulted") and "poisoned session" in bad.get("error", "")):
+        fail(f"serve mesh raise: the poisoned stream ended with {bad}")
+    for i, r in enumerate(d["raise"]["finals"]):
+        if i != NET_POISON_SID:
+            check_mesh_wire(f"serve mesh raise: utt {i}", r, clean[i])
+    if d["raise"]["healthz"] != 200 or \
+            [e["sid"] for e in d["raise"]["fault_log"]] != [NET_POISON_SID]:
+        fail(f"serve mesh raise: /healthz {d['raise']['healthz']}, fault "
+             f"log {d['raise']['fault_log']}")
+    dl = d["deadline"]
+    if not (dl["error"].get("faulted")
+            and "session_deadline" in dl["error"].get("error", "")) or \
+            [(e["sid"], e["deadline"]) for e in dl["fault_log"]] != [(0, True)]:
+        fail(f"serve mesh deadline: {dl['error']}, fault log "
+             f"{dl['fault_log']}")
+    check_mesh_wire("serve mesh deadline: the streaming client",
+                    dl["streamed"], clean[1])
+    wd = d["watchdog"]
+    if wd["wedged_healthz"] != 503 or wd["healthz"] != 200 or \
+            wd["restarts"] != 1 or [e["reason"].split(":")[0]
+                                    for e in wd["fault_log"]] != [
+                                        "pool quarantined"]:
+        fail(f"serve mesh watchdog: /healthz {wd['wedged_healthz']} then "
+             f"{wd['healthz']}, {wd['restarts']} restarts, fault log "
+             f"{wd['fault_log']}")
+    check_mesh_wire("serve mesh watchdog: warm stream", wd["warm"], clean[0])
+    check_mesh_wire("serve mesh watchdog: fresh stream", wd["fresh"],
+                    clean[2])
+    for i, r in enumerate(d["drain"]["finals"]):
+        check_mesh_wire(f"serve mesh drain: utt {i}", r, clean[i])
+    print(f"[serve mesh faults] on the demo system at {SERVE_MESH_DEMO}: an "
+          f"asr_step raise on sid {NET_POISON_SID} faulted that stream "
+          f"alone; a stalled client was reaped after "
+          f"{dl['reap_s']:.3f} s (deadline {SERVE_MESH_DEADLINE_S} s, rank "
+          f"0's clock); a pump stall gave /healthz 503, then 200 after 1 "
+          f"restart; drain under load returned {len(d['drain']['finals'])} "
+          f"results; every rank's fault log equals rank 0's: "
+          + "; ".join(f"{n}: {d[n]['fault_log']}" for n in SM_SCRIPTS),
+          flush=True)
+    launcher = serve_mesh_launcher()
+    print(f"[serve mesh launcher] torchrun --nproc-per-node 2 ... --serve "
+          f"--mesh 2 up in {launcher['up_s']:.2f} s; /asr "
+          f"{launcher['asr_steps']} steps, /lm {launcher['lm_tokens']} "
+          f"tokens, {launcher['messages']} command messages; SIGTERM to "
+          f"each rank drained it, torchrun rc {launcher['rc']} "
+          f"({launcher['wall_s']:.2f} s)", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[serve mesh] phase 24 took {phase_s:.2f} s (ranks {ranks_s:.2f} "
+          f"s; limit {SERVE_MESH_PHASE_LIMIT_S:.0f} s); launches over every "
+          f"rank and case {res['counts']}", flush=True)
+    if phase_s > SERVE_MESH_PHASE_LIMIT_S:
+        fail(f"serve mesh phase took {phase_s:.1f} s, more than "
+             f"{SERVE_MESH_PHASE_LIMIT_S} s")
+    return {"cases": res["cases"], "counts": res["counts"],
+            "faults": {n: {k: v for k, v in d[n].items()
+                           if k not in ("finals",)} for n in SM_SCRIPTS},
+            "launcher": launcher, "phase_s": phase_s, "card": smi}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: also time its "
                          "int8_matmul and hypothesis_unit kernels")
+    ap.add_argument("--serve-mesh-only", action="store_true",
+                    help="build, serve phase 5's system in process, then "
+                         "run phase 24 alone (to compare the mesh server "
+                         "of two trees in one call); prints no ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -4683,6 +5353,17 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"[build] {line.strip()}", flush=True)
 
+    if args.serve_mesh_only:
+        system = full_width_system(dev)
+        utts = full_width_utterances(system[1])
+        results = [full_phase(dev, system, utts, use_int8=int8)[3]
+                   for int8 in (False, True)]
+        del system
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_mesh_phase(dev, smi, utts, *results, None)
+        return
+
     # 2. kernel checks
     errs = check_kernels(dev)
 
@@ -4704,8 +5385,8 @@ def main() -> None:
     counts, steps, lp_err, full_results, warm_s = full_phase(dev, system,
                                                             utts)
     torch.cuda.synchronize()
-    counts8, steps8, lp_err8, _, _ = full_phase(dev, system, utts,
-                                                use_int8=True)
+    counts8, steps8, lp_err8, full_results8, _ = full_phase(
+        dev, system, utts, use_int8=True)
     torch.cuda.synchronize()
     # the rows of an utterance's first step (beams filling up: many live,
     # long segments) and of its third (the beams' steady width)
@@ -4890,6 +5571,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh = lm_mesh_phase(dev, smi)
+    # 24. the network server on the mesh: --serve --mesh, rank 0 leading
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_mesh = serve_mesh_phase(dev, smi, utts, full_results,
+                                  full_results8, network)
 
     kernels = []
     for name in KERNELS:
@@ -4900,7 +5586,8 @@ def main() -> None:
                    "network": network["counts"][name],
                    "trained asr fp32": asr_train["decode_fp32"]["counts"][name],
                    "trained asr int8": asr_train["decode_int8"]["counts"][name],
-                   "asr mesh (all ranks)": mesh["counts"][name]}
+                   "asr mesh (all ranks)": mesh["counts"][name],
+                   "serve mesh (all ranks)": serve_mesh["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -5017,7 +5704,7 @@ def main() -> None:
         "network": network, "asr_train": asr_train, "lm_train": lm_train,
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
                 AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
-        "lm_mesh": lm_mesh},
+        "lm_mesh": lm_mesh, "serve_mesh": serve_mesh},
         indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
@@ -5031,7 +5718,8 @@ def main() -> None:
           + "; ".join(f"{path}: {c}" for path, c in lm3_paths.items())
           + f"; the sharded ASR step (every rank, every mesh): "
           f"{mesh['counts']}; the sharded LM cells (every rank, every "
-          f"case): {lm_mesh['counts']}", flush=True)
+          f"case): {lm_mesh['counts']}; the mesh server (every rank, every "
+          f"case): {serve_mesh['counts']}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

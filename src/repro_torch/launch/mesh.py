@@ -23,12 +23,16 @@ of torch.distributed or of the cards.
   make_local_mesh(model)     the reference's (world / model, model) mesh
   make_production_mesh(...)  the reference's (16, 16) / (2, 16, 16) meshes
   choose_backend(...)        nccl or gloo, the one place that decides
+  make_channel(ranks, ...)   a `CommandChannel`: rank 0's ordered messages
+                             to the other ranks of a mesh (the network
+                             server's command stream)
 """
 from __future__ import annotations
 
 import datetime
 import itertools
 import os
+import pickle
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -41,6 +45,9 @@ from repro_torch.device import rank_device
 # how long a collective (and the rendezvous) may wait for the other ranks
 # before it raises: ranks that diverge fail the run instead of hanging it
 DEFAULT_TIMEOUT_S = 300.0
+# a command channel's message buffer: a message up to this size is one
+# broadcast, a longer one two
+CHANNEL_HEAD_BYTES = 16384
 
 
 class _Done:
@@ -283,3 +290,89 @@ def make_local_mesh(model: int = 1) -> Mesh:
         raise ValueError(f"make_local_mesh: {n} ranks do not split into "
                          f"'model' axes of {model}")
     return make_mesh((n // model, model), ("data", "model"))
+
+
+class CommandChannel:
+    """An ordered stream of picklable messages from the first rank of a
+    group (the source) to the others, over a process group of its own:
+    its `timeout_s` bounds how long a receiver waits for the next
+    message, apart from the bounded timeout of the collectives a
+    serving step makes.  A message is `(seq, obj)` pickled; `recv`
+    checks the sequence number.  It travels in one broadcast of a
+    `CHANNEL_HEAD_BYTES` buffer (its length, then its bytes), and a
+    second for the rest of a longer one: `dist.broadcast_object_list`
+    makes two for every message, and cut the mesh server's realtime
+    factor at mesh 2 by 1.7-2.5x on ranks sharing an H100 (PERF.md
+    §6).
+    Every rank of the group calls `send` (the source) or `recv` (the
+    others) alike, in order, from one thread."""
+
+    def __init__(self, ranks: tuple, group, timeout_s: float):
+        self.ranks = ranks
+        self.group = group
+        self.timeout_s = timeout_s
+        self.src = ranks[0]
+        self.rank = dist.get_rank()
+        self.is_source = self.rank == self.src
+        self.seq = 0                  # the last message sent or received
+
+    def send(self, obj) -> int:
+        """(the source) Send `obj` as the next message; returns its
+        pickled bytes."""
+        if not self.is_source:
+            raise RuntimeError(f"command channel: rank {self.rank} is not "
+                               f"its source (rank {self.src})")
+        data = pickle.dumps((self.seq + 1, obj))
+        self._broadcast(data)
+        self.seq += 1
+        return len(data)
+
+    def recv(self):
+        """(the other ranks) The next message; raises when its sequence
+        number is not the one after the last."""
+        seq, obj = pickle.loads(self._broadcast(None))
+        if seq != self.seq + 1:
+            raise RuntimeError(f"command channel: message {seq} after "
+                               f"{self.seq}: the stream lost its order")
+        self.seq = seq
+        return obj
+
+    def _broadcast(self, data: Optional[bytes]) -> bytes:
+        """The source's `data` on every rank of the group (the others
+        pass None)."""
+        head = np.zeros(CHANNEL_HEAD_BYTES, np.uint8)
+        room = CHANNEL_HEAD_BYTES - 8
+        if data is not None:
+            head[:8] = np.frombuffer(len(data).to_bytes(8, "little"), np.uint8)
+            k = min(len(data), room)
+            head[8:8 + k] = np.frombuffer(data[:k], np.uint8)
+        dist.broadcast(torch.from_numpy(head), src=self.src, group=self.group)
+        n = int.from_bytes(head[:8].tobytes(), "little")
+        if n <= room:
+            return head[8:8 + n].tobytes()
+        rest = (np.frombuffer(data[room:], np.uint8).copy() if data is not None
+                else np.empty(n - room, np.uint8))
+        dist.broadcast(torch.from_numpy(rest), src=self.src, group=self.group)
+        return head[8:].tobytes() + rest.tobytes()
+
+
+def make_channel(ranks: Optional[Sequence[int]] = None,
+                 timeout_s: float = DEFAULT_TIMEOUT_S
+                 ) -> Optional[CommandChannel]:
+    """A `CommandChannel` from the first of `ranks` (default: every rank
+    of the world) to the rest, on a new gloo group whose collectives
+    wait at most `timeout_s` (host tensors: the messages are host
+    data).  Every rank of the world must call it alike, for
+    `dist.new_group` is collective over the world; a rank outside
+    `ranks` gets None."""
+    if ranks is None:
+        ranks = range(world_size())
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) < 2 or not dist.is_initialized():
+        raise ValueError(f"make_channel: a channel needs an initialized "
+                         f"world and two ranks or more, got {ranks}")
+    group = dist.new_group(list(ranks), backend="gloo",
+                           timeout=datetime.timedelta(seconds=timeout_s))
+    if dist.get_rank() not in ranks:
+        return None
+    return CommandChannel(ranks, group, timeout_s)

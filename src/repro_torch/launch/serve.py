@@ -12,7 +12,9 @@
   * --serve    : the network front-end (`serving.server.EngineServer`):
                  the asr engine over --streams slots and the tiny LM of
                  --arch over --slots slots, served over HTTP/1.1 until
-                 SIGTERM/SIGINT, which drains in-flight sessions.
+                 SIGTERM/SIGINT, which drains in-flight sessions; with
+                 --mesh, the asr engine sharded over torchrun's ranks
+                 (rank 0 serves and leads, the others follow).
 Runs on the GPU unless --device names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode asr --utterances 3
@@ -24,6 +26,8 @@ Runs on the GPU unless --device names another.
       --port 0 --max-queue 4 --watchdog 30
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --mode asr --streams 4 --mesh 2x2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --serve --streams 4 --mesh 2x2 --port 0 --watchdog 30
 
 `--mesh N` runs the ASR step model-parallel over N ranks, one process
 each (torchrun): every TDS FC/head weight is split over the ranks on
@@ -33,6 +37,18 @@ products are all-reduced.  `--mesh RxC` makes the mesh 2D ('data',
 shard decodes n_slots/R slots, with no 'data' collectives), weights over
 the C-way 'model' axis.  `--overlap-psum` chunks each all-reduce so it
 runs under the next chunk's product.  Only rank 0 prints.
+
+`--serve --mesh` serves the sharded ASR engine over the network: rank 0
+binds the server, with the tiny LM engine unsharded on its own card, and
+leads every engine decision (admissions, readouts, session deadlines,
+watchdog restarts); every other rank builds the same sharded engine and
+replays rank 0's command stream (`serving.server.follow`).  torchrun
+forwards SIGTERM to every rank: rank 0 drains, its stop message ends the
+others' replay, and every rank leaves the world and exits 0.  A failure
+that only some ranks see cannot be mended in SPMD: a follower that loses
+rank 0 or falls out of step exits non-zero naming the message and the
+command, and rank 0 stops serving and exits non-zero when its stream
+breaks.
 """
 from __future__ import annotations
 
@@ -42,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.device import rank_device
 from repro_torch.kernels.policy import MODES, KernelPolicy
 from repro_torch.launch import mesh as meshlib
 from repro_torch.serving import (AsrEngine, AsrProgram, EngineConfig,
@@ -239,12 +256,77 @@ def serve_network(args):
     engine and the tiny LM engine of `args.arch`, and serve until
     interrupted.  Each engine's step loop runs on its own EngineWorker
     thread (see repro_torch.serving.server).  On a card the kernel
-    library is built before the server starts, so that a first step's
-    build never counts against the heartbeat watchdog.
+    library is built before the server starts (on a mesh by rank 0,
+    before the others load it), so that a first step's build never
+    counts against the heartbeat watchdog.
 
     SIGTERM/SIGINT trigger a graceful drain: the listener stops
     accepting, in-flight sessions run to their final result (bounded by
-    --drain-timeout), then the workers stop."""
+    --drain-timeout), then the workers stop.  With `--mesh` see the
+    module docstring: ranks other than 0 only follow."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+
+    mesh = serve_mesh(args.mesh, args.device)
+    multi = mesh is not None and mesh.size > 1
+    if multi and rank_device(args.device).type == "cuda":
+        if meshlib.is_rank0():
+            _build.lib()
+        dist.barrier()
+    asr_engine, _ = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
+                                    device=args.device,
+                                    max_queue=args.max_queue,
+                                    session_deadline=args.session_deadline,
+                                    use_int8=args.int8,
+                                    worker_watchdog=args.watchdog,
+                                    mesh=mesh,
+                                    overlap_psum=args.overlap_psum)
+    channel = meshlib.make_channel() if multi else None
+    if multi and not meshlib.is_rank0():
+        return _follow_network(asr_engine, channel)
+    server = _serve_network(args, asr_engine, mesh, channel)
+    if multi:
+        if server.fatal is None:
+            dist.barrier()
+        dist.destroy_process_group()
+    if server.fatal is not None:
+        raise SystemExit(f"[rank 0] {server.fatal}")
+
+
+def _follow_network(asr_engine, channel) -> None:
+    """A rank other than 0 under `--serve --mesh`: replay rank 0's
+    command stream until its stop message.  SIGTERM and SIGINT (torchrun
+    forwards them to every rank) only say so: rank 0's drain decides
+    when the stream ends."""
+    import signal
+
+    import torch.distributed as dist
+
+    from repro_torch.serving.server import FollowerFailed, follow
+
+    rank = dist.get_rank()
+
+    def note(sig, _frame):
+        print(f"[rank {rank}] {signal.Signals(sig).name}: following rank "
+              f"0's command stream until its stop message", flush=True)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, note)
+    try:
+        stats = follow(asr_engine, channel)
+    except FollowerFailed as exc:
+        raise SystemExit(f"[rank {rank}] {exc}")
+    print(f"[rank {rank}] stopped by rank 0: {stats['messages']} "
+          f"messages, {stats['commands']} commands, "
+          f"{stats['keepalives']} keep-alives replayed", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _serve_network(args, asr_engine, mesh, channel):
+    """Rank 0 (or the only rank): the server over the ASR engine and
+    the tiny, unsharded LM engine, until SIGTERM/SIGINT; returns the
+    closed server."""
     import asyncio
     import signal
 
@@ -253,12 +335,6 @@ def serve_network(args):
     from repro_torch.models import LM
     from repro_torch.serving.server import EngineServer
 
-    asr_engine, _ = asr_demo_engine(args.streams, KernelPolicy(args.kernels),
-                                    device=args.device,
-                                    max_queue=args.max_queue,
-                                    session_deadline=args.session_deadline,
-                                    use_int8=args.int8,
-                                    worker_watchdog=args.watchdog)
     lm_cfg = get_config(args.arch).tiny()
     lm_program = LmProgram(lm_cfg, cache_len=args.prompt_len + args.max_new,
                            max_new=args.max_new)
@@ -272,11 +348,14 @@ def serve_network(args):
         device=args.device)
     if asr_engine.device.type == "cuda":
         _build.lib()
+    server = EngineServer(asr_engine=asr_engine, lm_engine=lm_engine,
+                          host=args.host, port=args.port,
+                          asr_idle_timeout=args.idle_timeout,
+                          channel=channel)
+    sharded = ("" if mesh is None else
+               f", mesh {dict(mesh.shape)} over {mesh.size} ranks")
 
     async def run():
-        server = EngineServer(asr_engine=asr_engine, lm_engine=lm_engine,
-                              host=args.host, port=args.port,
-                              asr_idle_timeout=args.idle_timeout)
         await server.start()
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
@@ -285,8 +364,8 @@ def serve_network(args):
                 loop.add_signal_handler(sig, stop.set)
             except (NotImplementedError, RuntimeError):
                 pass             # platform without loop signal handlers
-        print(f"serving ASR ({args.streams} slots) + LM ({args.slots} "
-              f"slots) on http://{server.host}:{server.port} "
+        print(f"serving ASR ({args.streams} slots{sharded}) + LM "
+              f"({args.slots} slots) on http://{server.host}:{server.port} "
               f"(max_queue={args.max_queue}, watchdog={args.watchdog}, "
               f"session_deadline={args.session_deadline}); POST /asr, "
               f"POST /lm, GET /metrics, GET /healthz", flush=True)
@@ -308,6 +387,7 @@ def serve_network(args):
         asyncio.run(run())
     except KeyboardInterrupt:
         pass
+    return server
 
 
 def main(argv=None):
@@ -341,11 +421,11 @@ def main(argv=None):
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain versions on the CPU)")
     ap.add_argument("--mesh", type=str, default="1", metavar="N|RxC",
-                    help="--mode asr parallel spec over torchrun's ranks: "
-                         "N splits every TDS FC/head weight over N ranks "
-                         "('model' axis); RxC also splits the slot pool "
-                         "over an R-way 'data' axis (C-way 'model'); 1 = "
-                         "the single-device engine")
+                    help="--mode asr and --serve parallel spec over "
+                         "torchrun's ranks: N splits every TDS FC/head "
+                         "weight over N ranks ('model' axis); RxC also "
+                         "splits the slot pool over an R-way 'data' axis "
+                         "(C-way 'model'); 1 = the single-device engine")
     ap.add_argument("--overlap-psum", action="store_true",
                     help="sharded ASR step: chunk each model-axis "
                          "all-reduce so it runs under the next chunk's "
@@ -378,9 +458,7 @@ def main(argv=None):
                     help="--serve: bound on the SIGTERM graceful drain "
                          "(seconds; in-flight sessions finishing)")
     args = ap.parse_args(argv)
-    if args.mesh not in ("1", "0"):
-        if args.serve:
-            ap.error("--serve does not take --mesh yet (ROADMAP item 11)")
+    if args.mesh not in ("1", "0") and not args.serve:
         if args.mode == "lm":
             ap.error("--mesh is ASR-only (LmEngine rejects a mesh; "
                      "sharded LM serving goes through launch/steps.py "

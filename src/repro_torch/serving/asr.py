@@ -31,7 +31,10 @@ shard-aligned batch, every shard the same local bucket, and each rank
 steps its own rows and writes back only its real ones.  A readout of a
 slot held by another data shard reaches every rank by an object
 broadcast over the 'data' axis, so `serve()` returns the same list on
-every rank.
+every rank.  No host decision reads a rank's own clock, id or thread:
+session deadlines are rank 0's (`_reap_deadlines` broadcasts the sids
+its clock finds overdue over the whole mesh; the network server's rank 0
+sends them in its command stream instead, `serving.server`).
 
 Commit discipline: a step builds new pool tensors and assigns them only
 after the whole step succeeded, so a step that raises leaves pool state,
@@ -101,6 +104,9 @@ class AsrEngine(Engine):
         self._data_axis = (mesh.axis("data") if mesh is not None
                            and "data" in mesh.axis_names else None)
         self._n_data = self._data_axis.size if self._data_axis else 1
+        # every rank of a multi-rank mesh: where rank 0's decisions go
+        self._whole = (mesh.axis(tuple(mesh.axis_names))
+                       if mesh is not None and mesh.size > 1 else None)
         self._slots_per_shard = self.n_slots // self._n_data
         # the first global slot this rank's pool rows hold
         self._slot0 = (self._data_axis.index * self._slots_per_shard
@@ -474,7 +480,34 @@ class AsrEngine(Engine):
         return self._data_axis.broadcast_object(
             res, slot // self._slots_per_shard)
 
+    def _reap_deadlines(self) -> bool:
+        """Reap the overdue sessions.  Under a mesh of several ranks
+        rank 0's clock decides, and its sids reach every rank by an
+        object broadcast over the whole mesh (every rank pumps in
+        lockstep), so the ranks evict the same sessions."""
+        if self._whole is None or self.session_deadline is None:
+            return super()._reap_deadlines()
+        return self._reap(self._whole.broadcast_object(self._overdue(), 0))
+
+    def _digest(self) -> tuple:
+        return super()._digest() + (
+            tuple(self._slot_steps.tolist()),
+            tuple(b.shape[0] for b in self._slot_bufs))
+
     # ---- session mechanics -------------------------------------------
+    def _readout(self, session: Session) -> dict:
+        """Current best hypothesis WITHOUT driving the engine (the
+        in-process `Session.poll` would run `_advance` to quiescence).
+        Under a 'data' axis a live readout is a broadcast over it, which
+        every rank must make alike."""
+        if session.done:
+            return copy_result(session.result)
+        if session.admitted:
+            res = self.slot_best(session.slot)
+            res["steps"] = int(self._slot_steps[session.slot])
+            return copy_result(res)
+        return self._empty_result()
+
     def _push(self, session: Session, chunk) -> None:
         chunk = np.asarray(chunk, np.float32)
         # reject poison input BEFORE buffering

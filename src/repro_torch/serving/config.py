@@ -220,15 +220,24 @@ class EngineConfig:
 
     `session_deadline` — wall-clock seconds a session may live from
     `open()` before the pump reaps it (`DeadlineExceeded`).  None = no
-    deadline.
+    deadline.  Under a mesh of several ranks rank 0's clock alone
+    decides (`AsrEngine._reap_deadlines`; over the network, rank 0's
+    command stream).
 
     `worker_watchdog` — seconds an `EngineWorker`'s heartbeat may age
     before the server's supervisor declares the worker wedged, fails its
     in-flight futures, rebuilds the pool and restarts the thread.  None
     disables the wedge detection (a dead thread is still restarted).
+    Under a mesh only rank 0 runs workers; its restart quarantines the
+    pool on every rank through the command stream.
 
     `faults` — an armed `repro_torch.serving.faults.FaultPolicy`
-    consulted at the engines' injection sites; None skips every check."""
+    consulted at the engines' injection sites; None skips every check.
+    Under a mesh of several ranks every rank holds the same policy and
+    counters, so a ``raise`` fires alike everywhere; a ``stall`` or
+    ``die`` at ``asr_step`` is refused (it would wedge or kill one rank
+    between the others' all-reduces), while ``pump`` specs act on rank
+    0's worker loop alone, outside every collective."""
     program: Program
     n_slots: int = 1
     kernels: KernelPolicy = field(default_factory=KernelPolicy)
@@ -271,15 +280,18 @@ class EngineConfig:
                         f"n_slots={self.n_slots} must divide evenly over "
                         f"the 'data' mesh axis (size {nd}): each data "
                         f"shard owns n_slots/n_data pool slots")
-            clocks = [k for k in ("session_deadline", "worker_watchdog")
-                      if getattr(self, k) is not None]
-            if clocks and self.mesh.size > 1:
+            wedges = [f"{s.action!r}" for s in getattr(self.faults,
+                                                        "specs", ())
+                      if s.site == "asr_step"
+                      and s.action in ("stall", "die")]
+            if wedges and self.mesh.size > 1:
                 raise ValueError(
-                    f"{' and '.join(clocks)} read the wall clock, which "
-                    f"differs between ranks, so the ranks' schedules would "
-                    f"diverge: not served under a mesh of "
-                    f"{self.mesh.size} ranks (ROADMAP item 11, "
-                    f"'--serve --mesh')")
+                    f"a {' and '.join(wedges)} fault at 'asr_step' is not "
+                    f"served under a mesh of {self.mesh.size} ranks: it "
+                    f"would wedge or kill one rank between the other "
+                    f"ranks' all-reduces, outside rank 0's ordered "
+                    f"command stream ('raise' there, and 'stall' or 'die' "
+                    f"at 'pump', are served)")
 
 
 def make_engine(config: EngineConfig, params, device=None):

@@ -28,7 +28,18 @@ Subclasses implement the slot mechanics:
                                  trajectories are schedule-independent
   _ready_to_close(session, slot) session's slot work is exhausted
   _finalize_slot(slot) -> dict   result payload for a closing session
-  _poll_active(session) -> dict  live (non-final) output for a session
+  _readout(session) -> dict      live output for a session, without
+                                 driving the pump (the server's poll)
+
+Named commands: everything the network front-end changes in an engine
+goes through `Engine.execute(op, session, data)` with `op` one of
+`COMMANDS` (open, push, poll, finish, one pump round, reap(sids),
+fail_all(reason)), never through a free thunk.  Under a serving mesh
+that is what makes the server's decisions replayable: rank 0 sends each
+command to the other ranks in the order it runs them, and every rank
+applies them to its own copy of the engine (`serving.server.follow`).
+Deadlines are the one decision that reads a clock: `_overdue()` reads
+it, `_reap(sids)` acts on its answer, so rank 0 alone can decide them.
 """
 from __future__ import annotations
 
@@ -41,6 +52,22 @@ import numpy as np
 from repro_torch.serving.metrics import EngineMetrics
 
 
+# the named commands of `Engine.execute`
+COMMANDS = ("open", "push", "poll", "finish", "pump", "reap", "fail_all")
+
+
+def check_owner(engine, what: str) -> None:
+    """Raise unless the calling thread may act on `engine`: any thread
+    when no `EngineWorker` owns it, else only the owner thread."""
+    owner = getattr(engine, "_owner_thread", None)
+    if owner is not None and threading.current_thread() is not owner:
+        raise RuntimeError(
+            f"{type(engine).__name__}.{what} called from "
+            f"thread {threading.current_thread().name!r}, but the "
+            f"engine is owned by worker thread {owner.name!r}: "
+            "submit a command through the EngineWorker instead")
+
+
 def worker_only(method):
     """Marks an engine method that mutates pool state (the admit ->
     step -> harvest pump and reset): when the engine is owned by an
@@ -50,13 +77,7 @@ def worker_only(method):
     thread and is unaffected."""
     @functools.wraps(method)
     def wrapper(self, *args, **kwargs):
-        owner = getattr(self, "_owner_thread", None)
-        if owner is not None and threading.current_thread() is not owner:
-            raise RuntimeError(
-                f"{type(self).__name__}.{method.__name__} called from "
-                f"thread {threading.current_thread().name!r}, but the "
-                f"engine is owned by worker thread {owner.name!r}: "
-                "submit a thunk through the EngineWorker instead")
+        check_owner(self, method.__name__)
         return method(self, *args, **kwargs)
     wrapper._worker_only = True
     return wrapper
@@ -265,6 +286,51 @@ class Engine:
     def _poll(self, session: Session) -> dict:
         raise NotImplementedError
 
+    def execute(self, op: str, session: Optional[Session] = None,
+                data=None):
+        """Apply the named command `op` (one of `COMMANDS`):
+
+          open              -> the new Session (AdmissionRejected when full)
+          push(session, data)   buffer an input chunk
+          poll(session)     -> its live readout; does not drive the pump
+          finish(session)      end of input (`finish(wait=False)`)
+          pump              -> one pump round without deadline reaps (bool)
+          reap(data = sids) -> fault those of the sids still live (bool)
+          fail_all(data = cause or its text): quarantine the pool
+
+        Its outcome depends only on the engine's host state and the
+        arguments, so the same commands in the same order leave every
+        copy of an engine in the same state."""
+        if op == "open":
+            return self.open()
+        if op == "push":
+            return session.push(data)
+        if op == "poll":
+            return self._readout(session)
+        if op == "finish":
+            return session.finish(wait=False)
+        if op == "pump":
+            return self._pump_once(by_clock=False)
+        if op == "reap":
+            return self._reap(data)
+        if op == "fail_all":
+            return self._fail_all(data if isinstance(data, BaseException)
+                                  else RuntimeError(data))
+        raise ValueError(f"unknown engine command {op!r}")
+
+    def _readout(self, session: Session) -> dict:
+        """A session's current output WITHOUT driving the engine (the
+        network poll: the worker's pump loop owns stepping)."""
+        raise NotImplementedError
+
+    def _digest(self) -> tuple:
+        """The host state every copy of a mesh's engine must hold alike
+        after the same commands: sid counter, steps, faults, the queue's
+        and the slots' sessions."""
+        return (self._next_sid, self.n_steps, len(self._fault_log),
+                tuple(s.sid for s in self._queue),
+                tuple(-1 if o is None else o.sid for o in self._owner))
+
     # ---- the serve loop ----------------------------------------------
     @worker_only
     def _advance(self) -> None:
@@ -273,7 +339,7 @@ class Engine:
             pass
 
     @worker_only
-    def _pump_once(self) -> bool:
+    def _pump_once(self, by_clock: bool = True) -> bool:
         """One quarantined admit -> step -> harvest round (the unit both
         `_advance` and the network `EngineWorker` loop drive).
 
@@ -287,7 +353,11 @@ class Engine:
         session or one bad round never kills the serve loop.
         `BaseException`s (worker shutdown, injected `WorkerKilled`) pass
         through — those model thread death, which only the worker
-        supervisor may handle."""
+        supervisor may handle.
+
+        The round ends with the deadline reaps by this engine's clock,
+        unless `by_clock` is False: under a mesh, rank 0's clock decides
+        them and they arrive as a separate `reap` command."""
         try:
             did = self._admit()
             did |= self._step()
@@ -295,7 +365,8 @@ class Engine:
         except Exception as exc:
             self._fail_all(exc)
             did = False
-        return self._reap_deadlines() or did
+        reaped = self._reap_deadlines() if by_clock else False
+        return reaped or did
 
     @worker_only
     def _fault_session(self, sess: Session, exc: SessionFaulted,
@@ -332,8 +403,7 @@ class Engine:
         rebuild the pool from scratch.  Per-slot release is skipped —
         the failure may have corrupted arbitrary pool state, so nothing
         short of `_reset_pool` is safe to trust afterwards."""
-        for sess in list(self._queue) + [o for o in self._owner
-                                         if o is not None]:
+        for sess in self._live():
             self._fault_session(
                 sess, SessionFaulted(sess.sid,
                                      f"pool quarantined: {cause}",
@@ -344,25 +414,40 @@ class Engine:
         self.n_steps = 0
         self._reset_pool()
 
-    @worker_only
+    def _live(self) -> List[Session]:
+        """Queued sessions, then those holding slots, in slot order."""
+        return list(self._queue) + [o for o in self._owner
+                                    if o is not None]
+
+    def _overdue(self) -> List[int]:
+        """Sids of the live sessions older than
+        `EngineConfig.session_deadline` (open -> now, on the metrics
+        clock so tests inject time), in `_live` order."""
+        deadline = self.session_deadline
+        if deadline is None:
+            return []
+        now = self.metrics._clock()
+        return [s.sid for s in self._live()
+                if s._t_open is not None and now - s._t_open > deadline]
+
     def _reap_deadlines(self) -> bool:
-        """Evict sessions older than `EngineConfig.session_deadline`
-        (open -> now, on the metrics clock so tests inject time).  Runs
+        """Evict the sessions this engine's clock finds overdue.  Runs
         every pump round; a stuck client or a session starved behind a
         pathological queue frees its slot/queue entry instead of
         holding it forever."""
-        deadline = self.session_deadline
-        if deadline is None:
-            return False
-        now = self.metrics._clock()
+        return self._reap(self._overdue())
+
+    @worker_only
+    def _reap(self, sids) -> bool:
+        """Fault each session of `sids` still queued or holding a slot
+        with `DeadlineExceeded`; True when one was."""
+        want = set(sids)
         did = False
-        for sess in list(self._queue) + [o for o in self._owner
-                                         if o is not None]:
-            if (sess._t_open is not None
-                    and now - sess._t_open > deadline):
+        for sess in self._live():
+            if sess.sid in want:
                 self._fault_session(sess, DeadlineExceeded(
                     sess.sid,
-                    f"exceeded session_deadline={deadline}s"))
+                    f"exceeded session_deadline={self.session_deadline}s"))
                 did = True
         return did
 

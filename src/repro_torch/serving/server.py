@@ -43,6 +43,36 @@ driven only from its `EngineWorker` thread.  PyTorch's current device is
 per thread, so the worker binds its thread to the engine's card before
 its first pump; the event loop never touches a tensor (everything a
 worker hands back is host data: numpy arrays, lists, numbers).
+
+Commands: the handlers change an engine only through the named commands
+of `serving.engine.COMMANDS` (`EngineWorker.command` / `run`: open,
+push, poll, finish; the supervisor's fail_all).  Thunks
+(`EngineWorker.submit`) only read engine state or register done-watchers.
+
+Mesh (`EngineServer(channel=...)`): an ASR engine sharded over a mesh of
+ranks (`EngineConfig.mesh`) is served by rank 0 alone, which runs the
+server, its workers and the supervisor and leads every engine decision;
+every other rank runs `follow`, replaying rank 0's command stream
+(`launch.mesh.CommandChannel`) on its own copy of the engine.  Each
+iteration of rank 0's worker that has work sends ONE message, before it
+runs it: the commands on live sessions in order, a pump round, and the
+sids rank 0's clock finds past their deadline (`Engine._overdue`; no
+other rank reads a clock).  So every rank applies the same commands to
+the same state in the same order and makes the same collectives (the
+step's all-reduces, the 'data'-axis readouts).  Each message carries a
+sequence number and rank 0's outcome of the previous one (each
+command's result kind and the engine's state digest), which the
+followers check against their own.  An iteration that changed nothing
+sends nothing; a quiet stream gets a keep-alive every
+`Leader.keepalive_s`, well inside the channel's timeout, so an idle
+server never ends the run.  A worker restart quarantines the pool
+through the new worker's stream, so every rank quarantines at the same
+point; a restart waits for the iteration in flight, and a fenced
+(zombie) thread never sends.  `/metrics` and `/healthz` are rank 0's.
+Failures that only some ranks see cannot be mended in SPMD: a follower
+that loses rank 0, falls out of step or fails a replay raises
+`FollowerFailed` (its launcher exits non-zero), and a rank 0 whose
+stream breaks stops serving (`EngineServer.fatal`).
 """
 from __future__ import annotations
 
@@ -60,8 +90,9 @@ import numpy as np
 
 import torch
 
-from repro_torch.serving.engine import (AdmissionRejected, Engine,
-                                        SessionFaulted, copy_result)
+from repro_torch.serving.engine import (COMMANDS, AdmissionRejected, Engine,
+                                        SessionFaulted, check_owner,
+                                        copy_result)
 from repro_torch.serving.faults import WorkerKilled
 
 
@@ -176,14 +207,185 @@ class WorkerDied(RuntimeError):
     thread."""
 
 
+class _Command:
+    """A named engine command (`engine.COMMANDS`) queued on a worker;
+    `session` is the handle it acts on (None for open and fail_all)."""
+    __slots__ = ("op", "session", "data")
+
+    def __init__(self, op: str, session=None, data=None):
+        if op not in COMMANDS:
+            raise ValueError(f"unknown engine command {op!r}")
+        self.op, self.session, self.data = op, session, data
+
+    def __call__(self, engine: Engine):
+        return engine.execute(self.op, self.session, self.data)
+
+    def ended(self) -> bool:
+        """Whether it acts on a session that has ended (done, faulted or
+        detached): such a command reads only the handle and changes no
+        engine state."""
+        s = self.session
+        return s is not None and (s.done or s.fault is not None
+                                  or s.detached)
+
+    def wire(self) -> tuple:
+        """(op, sid, data) as the other ranks replay it (a cause as its
+        text)."""
+        data = (str(self.data) if isinstance(self.data, BaseException)
+                else self.data)
+        return (self.op, None if self.session is None else self.session.sid,
+                data)
+
+
+class Leader:
+    """Rank 0's end of a mesh's command stream: the `CommandChannel` its
+    other ranks replay (`follow`), kept across worker restarts.  `lock`
+    is held by a worker's iteration while it sends and runs a message,
+    so a supervisor restart (which takes it too) never lands inside one,
+    and a thread fenced out by the restart never sends.  `check` is the
+    outcome of the last message, sent with the next.  A stream quiet for
+    `keepalive_s` (a quarter of the channel's timeout) gets a keep-alive
+    from the next idle iteration.  `failure` holds the error that broke
+    the stream; `stats` counts command messages, their commands and
+    bytes, keep-alives, and the seconds spent sending them all."""
+
+    def __init__(self, engine: Engine, channel):
+        self.engine = engine
+        self.channel = channel
+        self.keepalive_s = channel.timeout_s / 4
+        self.lock = threading.Lock()
+        self.check = None
+        self.failure: Optional[BaseException] = None
+        self.stopped = False
+        self._last = time.monotonic()
+        self.stats = {"messages": 0, "commands": 0, "bytes": 0,
+                      "keepalives": 0, "send_s": 0.0}
+
+    def send(self, cmds: list) -> None:
+        """(lock held) One message of `cmds`, each (op, sid, data)."""
+        self.stats["bytes"] += self._send("cmds", cmds)
+        self.stats["messages"] += 1
+        self.stats["commands"] += len(cmds)
+
+    def keepalive_if_quiet(self) -> None:
+        """(lock held) A keep-alive when nothing went out for
+        `keepalive_s`."""
+        if time.monotonic() - self._last >= self.keepalive_s:
+            self._send("alive")
+            self.stats["keepalives"] += 1
+
+    def stop(self) -> bool:
+        """Send the stop message (the followers return), once; a thread
+        fenced out of the engine sends nothing.  True once stopped."""
+        with self.lock:
+            owner = self.engine._owner_thread
+            if (not self.stopped and self.failure is None
+                    and owner in (None, threading.current_thread())):
+                self._send("stop")
+                self.stopped = True
+            return self.stopped
+
+    def _send(self, kind: str, cmds=()) -> int:
+        if self.stopped:
+            raise RuntimeError("the mesh's command stream was stopped")
+        t0 = time.monotonic()
+        try:
+            n = self.channel.send((kind, list(cmds), self.check))
+        except Exception as exc:
+            self.failure = exc
+            raise
+        self._last = time.monotonic()
+        self.stats["send_s"] += self._last - t0
+        return n
+
+
+class FollowerFailed(RuntimeError):
+    """A rank replaying rank 0's command stream lost it or fell out of
+    step with it: rank 0 is gone, the stream broke its order, a command
+    named a session this rank does not hold, a command's outcome or the
+    engine's state differs from rank 0's, or the replay raised.  The
+    message names the rank, the message's sequence number and its
+    commands."""
+
+
+def follow(engine: Engine, channel) -> dict:
+    """Replay rank 0's command stream on this rank's copy of `engine`
+    (every rank but the channel's source runs this while rank 0 serves)
+    until rank 0's stop message; returns counts of messages, commands
+    and keep-alives.
+
+    Each message's commands run in order on the sessions this rank holds
+    by sid (a session leaves the map once it has ended: rank 0 sends no
+    command for it after that).  A command's own error (a full queue, a
+    rejected chunk) is its outcome, as on rank 0; the next message
+    carries rank 0's outcomes and state digest, which must equal this
+    rank's.  Anything else raises `FollowerFailed`."""
+    rank = channel.rank
+    sessions: dict = {}
+    mine, last, errors = None, [], []
+    stats = {"messages": 0, "commands": 0, "keepalives": 0}
+    while True:
+        try:
+            kind, cmds, check = channel.recv()
+        except Exception as exc:
+            raise FollowerFailed(
+                f"rank {rank}: lost rank 0's command stream after message "
+                f"{channel.seq}: {exc!r}") from exc
+        seq = channel.seq
+        if check != mine:
+            raise FollowerFailed(
+                f"rank {rank}: message {seq - 1} {last} left this rank at "
+                f"{mine}, rank 0 at {check}"
+                + (f"; this rank's errors: {errors}" if errors else ""))
+        if kind == "stop":
+            return stats
+        if kind == "alive":
+            stats["keepalives"] += 1
+            continue
+        if kind != "cmds":
+            raise FollowerFailed(f"rank {rank}: message {seq} of unknown "
+                                 f"kind {kind!r}")
+        outcomes, errors = [], []
+        last = [(op, sid) for op, sid, _ in cmds]
+        for op, sid, data in cmds:
+            if sid is not None and sid not in sessions:
+                raise FollowerFailed(
+                    f"rank {rank}: message {seq}: {op} names session {sid}, "
+                    f"which this rank does not hold")
+            try:
+                out = engine.execute(op, sessions.get(sid), data)
+            except Exception as exc:
+                if op in ("pump", "reap"):
+                    raise FollowerFailed(
+                        f"rank {rank}: message {seq}: {op} raised "
+                        f"{exc!r}") from exc
+                outcomes.append(type(exc).__name__)
+                errors.append(f"{op}({sid}): {exc!r}")
+                continue
+            if op in ("pump", "reap"):
+                outcomes.append(bool(out))
+                continue
+            outcomes.append("ok")
+            if op == "open":
+                sessions[out.sid] = out
+        mine = (tuple(outcomes), engine._digest())
+        for sid in [sid for sid, x in sessions.items()
+                    if x.done or x.fault is not None or x.detached]:
+            del sessions[sid]
+        stats["messages"] += 1
+        stats["commands"] += len(cmds)
+
+
 class EngineWorker:
     """Dedicated thread owning ONE engine: the only code that ever calls
-    into the engine.  Submitted commands (thunks taking the engine) run
-    between pump iterations of admit -> step -> harvest, and registered
-    done-watchers resolve as soon as their session's result is
-    harvested — so `Session.finish(wait=False)` plus a watcher replaces
-    the in-process blocking `finish()` without the network side ever
-    driving the step loop.
+    into the engine.  Submitted commands (`command`: the engine's named
+    commands; `submit`: thunks that only read) run between pump
+    iterations of admit -> step -> harvest, and registered done-watchers
+    resolve as soon as their session's result is harvested — so a
+    finish command plus a watcher replaces the in-process blocking
+    `finish()` without the network side ever driving the step loop.
+    With a `leader` (rank 0 of a mesh) every iteration goes out on the
+    mesh's command stream first (`_lead`).
 
     Liveness contract: `heartbeat` is bumped once per loop iteration;
     `EngineServer._supervise` reads `heartbeat_age()` + `is_alive()` to
@@ -193,8 +395,9 @@ class EngineWorker:
     `submit` fast-fails once the worker is known dead."""
 
     def __init__(self, engine: Engine, name: str = "engine-worker",
-                 idle_wait: float = 0.02):
+                 idle_wait: float = 0.02, leader: Optional[Leader] = None):
         self.engine = engine
+        self.leader = leader
         self._idle_wait = idle_wait
         self._cmds: queue.SimpleQueue = queue.SimpleQueue()
         self._watchers: List[Tuple[object, concurrent.futures.Future]] = []
@@ -238,6 +441,15 @@ class EngineWorker:
 
     async def call(self, fn: Callable[[Engine], object]):
         return await asyncio.wrap_future(self.submit(fn))
+
+    def command(self, op: str, session=None,
+                data=None) -> concurrent.futures.Future:
+        """Submit the engine's named command `op` (`engine.COMMANDS`) on
+        `session` with `data`."""
+        return self.submit(_Command(op, session, data))
+
+    async def run(self, op: str, session=None, data=None):
+        return await asyncio.wrap_future(self.command(op, session, data))
 
     def watch_done(self, session) -> concurrent.futures.Future:
         """Future resolving with a defensive copy of `session.result`
@@ -306,28 +518,105 @@ class EngineWorker:
                 torch.cuda.set_device(device)
             busy = False
             while not self._stopping.is_set():
-                try:
-                    item = self._cmds.get(
-                        timeout=0.001 if busy else self._idle_wait)
-                except queue.Empty:
-                    item = None
-                while item is not None:
-                    self._exec(*item)
-                    try:
-                        item = self._cmds.get_nowait()
-                    except queue.Empty:
-                        item = None
-                busy = self._pump()
+                busy = (self._iterate(busy) if self.leader is None
+                        else self._lead(busy))
                 self._resolve_watchers()
                 self.heartbeat = time.monotonic()
+            self._drain_on_stop()
+            if self.leader is not None:
+                self.leader.stop()
         except BaseException as exc:
             # the pump itself died (per-session faults are contained
             # inside Engine._pump_once; what reaches here is thread
-            # death — e.g. an injected WorkerKilled).  Fail in-flight
-            # work on the way out so nobody blocks on this thread.
+            # death — e.g. an injected WorkerKilled, or a broken mesh
+            # command stream).  Fail in-flight work on the way out so
+            # nobody blocks on this thread.
             self._crash(exc)
-            return
-        self._drain_on_stop()
+
+    def _iterate(self, busy: bool) -> bool:
+        """One iteration: the queued items in order, then a pump round."""
+        try:
+            item = self._cmds.get(timeout=0.001 if busy else self._idle_wait)
+        except queue.Empty:
+            item = None
+        while item is not None:
+            self._exec(*item)
+            try:
+                item = self._cmds.get_nowait()
+            except queue.Empty:
+                item = None
+        return self._pump()
+
+    def _lead(self, busy: bool) -> bool:
+        """One iteration of rank 0's worker on a mesh.  The pump's fault
+        check comes first (rank 0's alone, outside the stream); then,
+        under the leader's lock and the ownership fence, the queued
+        commands on live sessions, a pump round and the sids rank 0's
+        clock finds overdue go out as ONE message before rank 0 runs
+        them, so the other ranks make the same collectives beside it.
+        Thunks and commands on ended sessions run here alone.  With no
+        such command, no overdue sid and a last pump round that did
+        nothing, the state cannot change: nothing is sent (a keep-alive
+        when the stream has been quiet), nothing pumped."""
+        faults = getattr(self.engine, "_faults", None)
+        if faults is not None:
+            faults.check("pump", worker=self._thread.name)
+        items = self._take(0.001 if busy else self._idle_wait)
+        try:
+            return self._lead_items(items, busy)
+        except BaseException as exc:
+            # the stream broke or the thread was fenced out: the items it
+            # claimed will never run
+            lost = WorkerDied(f"engine worker {self._thread.name!r} lost "
+                              f"its command stream: {exc!r}")
+            for _, fut in items:
+                if not fut.done():
+                    fut.set_exception(lost)
+            raise
+
+    def _lead_items(self, items: list, busy: bool) -> bool:
+        eng, leader = self.engine, self.leader
+        with leader.lock:
+            check_owner(eng, "execute")
+            sent = [isinstance(fn, _Command) and not fn.ended()
+                    for fn, _ in items]
+            reap = eng._overdue()
+            if not (any(sent) or reap or busy):
+                for fn, fut in items:
+                    self._call(fn, fut)
+                leader.keepalive_if_quiet()
+                return False
+            leader.send([fn.wire() for (fn, _), out in zip(items, sent)
+                         if out] + [("pump", None, None)]
+                        + ([("reap", None, reap)] if reap else []))
+            outcomes = []
+            for (fn, fut), out in zip(items, sent):
+                exc = self._call(fn, fut)
+                if out:
+                    outcomes.append("ok" if exc is None
+                                    else type(exc).__name__)
+            busy = bool(eng.execute("pump"))
+            outcomes.append(busy)
+            if reap:
+                outcomes.append(bool(eng.execute("reap", data=reap)))
+                busy = True
+            leader.check = (tuple(outcomes), eng._digest())
+        return busy
+
+    def _take(self, timeout: float) -> list:
+        """The queued (item, future) pairs, waiting up to `timeout` for
+        the first; each future is claimed (set running), and one its
+        caller already cancelled is dropped, so every item taken runs."""
+        items = []
+        try:
+            item = self._cmds.get(timeout=timeout)
+            while True:
+                if item[1].set_running_or_notify_cancel():
+                    items.append(item)
+                item = self._cmds.get_nowait()
+        except queue.Empty:
+            pass
+        return items
 
     def _crash(self, cause: BaseException) -> None:
         self._death = WorkerDied(
@@ -337,8 +626,13 @@ class EngineWorker:
         self._fail_pending(self._death)
 
     def _exec(self, fn, fut: concurrent.futures.Future) -> None:
-        if not fut.set_running_or_notify_cancel():
-            return
+        if fut.set_running_or_notify_cancel():
+            self._call(fn, fut)
+
+    def _call(self, fn, fut: concurrent.futures.Future
+              ) -> Optional[BaseException]:
+        """Run a claimed item; returns the error it resolved its future
+        with, if any."""
         try:
             fut.set_result(fn(self.engine))
         except WorkerKilled as exc:
@@ -350,6 +644,8 @@ class EngineWorker:
             raise
         except BaseException as exc:          # typed errors cross the bridge
             fut.set_exception(exc)
+            return exc
+        return None
 
     def _pump(self) -> bool:
         faults = getattr(self.engine, "_faults", None)
@@ -377,23 +673,6 @@ class EngineWorker:
         self._fail_pending(RuntimeError("engine worker stopped"))
 
 
-def _asr_readout(session) -> dict:
-    """Current best hypothesis WITHOUT driving the engine (the worker's
-    pump loop owns stepping; the in-process `Session.poll` would run
-    `_advance` to quiescence inside a network request)."""
-    eng = session._engine
-    if session.done:
-        return copy_result(session.result)
-    if session.admitted:
-        # same contract as AsrEngine._poll: slot_best hands back
-        # zero-copy (read-only) views over engine-owned buffers, so the
-        # payload must be copied before it leaves the engine
-        res = eng.slot_best(session.slot)
-        res["steps"] = int(eng._slot_steps[session.slot])
-        return copy_result(res)
-    return eng._empty_result()
-
-
 # ---- the server -------------------------------------------------------
 
 class EngineServer:
@@ -413,15 +692,46 @@ class EngineServer:
 
     `asr_idle_timeout` bounds how long `/asr` waits for the next
     command chunk: a silent client gets an in-stream error chunk and
-    its slot freed instead of holding the pool hostage."""
+    its slot freed instead of holding the pool hostage.
+
+    `channel` (rank 0 of a mesh; `launch.mesh.make_channel` over the
+    ASR engine's mesh ranks) makes the ASR worker lead the mesh (see the
+    module docstring); an ASR engine on a mesh of several ranks needs
+    it, and its `worker_watchdog` must stay under half the channel's
+    timeout (a wedged worker sends no keep-alive).  If the stream
+    breaks, the server stops listening and `fatal` says why."""
 
     def __init__(self, asr_engine: Optional[Engine] = None,
                  lm_engine: Optional[Engine] = None,
                  host: str = "127.0.0.1", port: int = 0,
                  asr_idle_timeout: Optional[float] = None,
-                 watch_interval: float = 0.1):
+                 watch_interval: float = 0.1, channel=None):
         if asr_engine is None and lm_engine is None:
             raise ValueError("EngineServer needs at least one engine")
+        mesh = getattr(getattr(asr_engine, "config", None), "mesh", None)
+        ranks = (() if mesh is None or mesh.size < 2
+                 else mesh.axis(tuple(mesh.axis_names)).ranks)
+        if ranks and (channel is None or channel.ranks != ranks
+                      or not channel.is_source):
+            raise ValueError(
+                f"an ASR engine on a mesh of ranks {ranks} is served by "
+                f"the first of them with a command channel over them "
+                f"(launch.mesh.make_channel), which the others follow; "
+                f"got {None if channel is None else channel.ranks}")
+        if channel is not None and not ranks:
+            raise ValueError("a command channel leads an ASR engine on a "
+                             "mesh of several ranks; this one has none")
+        watchdog = getattr(getattr(asr_engine, "config", None),
+                           "worker_watchdog", None)
+        if ranks and watchdog is not None and \
+                watchdog >= channel.timeout_s / 2:
+            raise ValueError(
+                f"worker_watchdog={watchdog}s must stay under half the "
+                f"command channel's timeout ({channel.timeout_s}s): the "
+                f"other ranks wait on a wedged worker until its restart")
+        self._leader = (Leader(asr_engine, channel) if channel is not None
+                        else None)
+        self.fatal: Optional[str] = None
         self._asr_engine = asr_engine
         self._lm_engine = lm_engine
         self.host = host
@@ -445,7 +755,8 @@ class EngineServer:
 
     async def start(self) -> "EngineServer":
         if self._asr_engine is not None:
-            self._asr_worker = EngineWorker(self._asr_engine, "asr-worker")
+            self._asr_worker = EngineWorker(self._asr_engine, "asr-worker",
+                                            leader=self._leader)
         if self._lm_engine is not None:
             self._lm_worker = EngineWorker(self._lm_engine, "lm-worker")
         self._server = await asyncio.start_server(self._handle, self.host,
@@ -459,11 +770,19 @@ class EngineServer:
         """Detect dead/wedged workers and restart them.  A dead thread
         (`is_alive()` False outside a clean close) restarts
         immediately; a wedged one only when its heartbeat outages the
-        engine's `worker_watchdog` (None = wedge detection off)."""
+        engine's `worker_watchdog` (None = wedge detection off).  A
+        broken mesh command stream is fatal: no restart can bring the
+        ranks back into step, so the server stops listening."""
         while not self._closing:
             await asyncio.sleep(self._watch_interval)
             for role, worker in list(self._workers()):
                 if self._closing:
+                    return
+                if worker.leader is not None and \
+                        worker.leader.failure is not None:
+                    self.fatal = (f"the mesh's command stream broke: "
+                                  f"{worker.leader.failure!r}")
+                    self._server.close()
                     return
                 watchdog = getattr(worker.engine.config,
                                    "worker_watchdog", None)
@@ -483,17 +802,28 @@ class EngineServer:
         construction takes the ownership claim — a wedged old thread
         that wakes later is fenced out by worker_only), and quarantine
         the pool through the NEW worker so in-flight sessions resolve
-        with a typed fault instead of hanging."""
-        eng = old.engine
-        exc = WorkerDied(f"{role} engine worker {old.name!r} {why}")
-        old.abandon(exc)
-        eng._owner_thread = None      # reclaim from the lost thread
-        self._restarts[role] += 1
-        new = EngineWorker(
-            eng, f"{role}-worker-r{self._restarts[role]}")
-        new.submit(lambda e: e._fail_all(exc))
-        setattr(self, f"_{role}_worker", new)
-        eng.metrics.on_worker_restart()
+        with a typed fault instead of hanging (on a mesh: through its
+        command stream, so every rank quarantines at the same point).  A
+        leading worker inside an iteration holds the leader's lock: the
+        restart waits for the next supervision tick."""
+        leader = old.leader
+        if leader is not None and not leader.lock.acquire(blocking=False):
+            return
+        try:
+            eng = old.engine
+            exc = WorkerDied(f"{role} engine worker {old.name!r} {why}")
+            old.abandon(exc)
+            eng._owner_thread = None      # reclaim from the lost thread
+            self._restarts[role] += 1
+            new = EngineWorker(
+                eng, f"{role}-worker-r{self._restarts[role]}",
+                leader=leader)
+            new.command("fail_all", data=exc)
+            setattr(self, f"_{role}_worker", new)
+            eng.metrics.on_worker_restart()
+        finally:
+            if leader is not None:
+                leader.lock.release()
 
     # -- shutdown --
     async def aclose(self, drain: bool = False,
@@ -519,6 +849,14 @@ class EngineServer:
             self._supervisor = None
         for _, worker in self._workers():
             worker.close()
+        # a worker that exits cleanly stops the mesh's stream itself; one
+        # that died did not
+        if self._leader is not None and not self._leader.stop() \
+                and self.fatal is None:
+            self.fatal = ("the mesh's command stream could not be "
+                          "stopped: " + (repr(self._leader.failure)
+                                         if self._leader.failure
+                                         else "the ASR worker is wedged"))
 
     async def _drain(self, timeout: Optional[float]) -> None:
         deadline = (None if timeout is None
@@ -594,7 +932,7 @@ class EngineServer:
             await _respond_json(writer, 404, {"error": "no ASR engine"})
             return
         try:
-            sess = await worker.call(lambda eng: eng.open())
+            sess = await worker.run("open")
         except AdmissionRejected as exc:
             await _respond_json(writer, 503, {
                 "error": "admission_rejected",
@@ -637,15 +975,13 @@ class EngineServer:
                     op = cmd.get("op")
                     if op == "push":
                         audio = np.asarray(cmd["audio"], np.float32)
-                        await worker.call(lambda eng: sess.push(audio))
+                        await worker.run("push", sess, audio)
                         out = {"ok": True}
                     elif op == "poll":
-                        out = jsonable(await worker.call(
-                            lambda eng: _asr_readout(sess)))
+                        out = jsonable(await worker.run("poll", sess))
                     elif op == "finish":
                         watcher = worker.watch_done(sess)
-                        await worker.call(
-                            lambda eng: sess.finish(wait=False))
+                        await worker.run("finish", sess)
                         out = jsonable(await asyncio.wrap_future(watcher))
                         final = True
                     else:
@@ -673,7 +1009,7 @@ class EngineServer:
                 # disconnect mid-stream: free the slot/queue entry (a
                 # failed submit on a dead worker resolves the future
                 # with WorkerDied; nothing awaits it)
-                worker.submit(lambda eng: sess.finish(wait=False))
+                worker.command("finish", sess)
 
     async def _handle_lm(self, reader: asyncio.StreamReader,
                          writer: asyncio.StreamWriter,
@@ -689,7 +1025,7 @@ class EngineServer:
             await _respond_json(writer, 400, {"error": str(exc)})
             return
         try:
-            sess = await worker.call(lambda eng: eng.open())
+            sess = await worker.run("open")
         except AdmissionRejected as exc:
             await _respond_json(writer, 503, {
                 "error": "admission_rejected",
@@ -698,8 +1034,8 @@ class EngineServer:
             return
         try:
             watcher = worker.watch_done(sess)
-            await worker.call(lambda eng: sess.push(prompt))
-            await worker.call(lambda eng: sess.finish(wait=False))
+            await worker.run("push", sess, prompt)
+            await worker.run("finish", sess)
             res = await asyncio.wrap_future(watcher)
         except (SessionFaulted, WorkerDied) as exc:
             # engine-side failure (quarantined session / lost worker),
@@ -710,7 +1046,7 @@ class EngineServer:
         except Exception as exc:
             await _respond_json(writer, 400, {"error": str(exc)})
             if sess.fault is None:
-                worker.submit(lambda eng: sess.finish(wait=False))
+                worker.command("finish", sess)
             return
         await _respond_json(writer, 200, res)
 
@@ -751,6 +1087,8 @@ class EngineServer:
             except WorkerDied:
                 # dead worker isn't mutating anything: read directly
                 out[role] = worker.engine.metrics.snapshot()
+            if worker.leader is not None:
+                out[role]["command_stream"] = dict(worker.leader.stats)
         await _respond_json(writer, 200, out)
 
 

@@ -457,3 +457,323 @@ def lm_mesh(payload):
 
 
 JOBS.update(lm_mesh=lm_mesh, lm_kernels=lm_kernels)
+
+
+# ---------------------------------------------------------------------------
+# the network server on a mesh: rank 0 serves and leads, the others follow
+# ---------------------------------------------------------------------------
+SERVE_WATCHDOG_S = 2.0
+SERVE_WAIT_S = 30.0           # the longest a scenario's condition waits
+KEEPALIVE_CHANNEL_S = 3.0     # the keep-alive scenario's channel timeout
+KEEPALIVE_IDLE_S = 2 * KEEPALIVE_CHANNEL_S + 0.5
+POISON_SID = 1
+# (name, mesh, n_slots, channel timeout): every rank runs them in order
+SERVE_SCENARIOS = (("channel", "2x2", 2, 120.0),
+                   ("wave 2", "2", 2, 120.0),
+                   ("wave 2x2", "2x2", 2, 120.0),
+                   ("deadline", "2x2", 2, 120.0),
+                   ("watchdog", "2x2", 4, 120.0),
+                   ("raise", "2x2", 4, 120.0),
+                   ("keepalive", "2", 2, KEEPALIVE_CHANNEL_S),
+                   ("in-process deadline", "2", 2, 120.0))
+
+
+async def _until(pred, what):
+    """Await `pred()` (a coroutine function) until it returns something
+    true; raise after SERVE_WAIT_S."""
+    import asyncio
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + SERVE_WAIT_S
+    while loop.time() < deadline:
+        res = await pred()
+        if res:
+            return res
+        await asyncio.sleep(0.02)
+    raise TimeoutError(f"{what} not reached within {SERVE_WAIT_S} s")
+
+
+async def _client_stream(host, port, audio, stagger=0.0, chunk=3000):
+    """Open after `stagger`, then `_drive`."""
+    import asyncio
+
+    from repro_torch.serving.server import AsrClient
+    await asyncio.sleep(stagger)
+    return await _drive(await AsrClient.open(host, port), audio, chunk)
+
+
+async def _drive(client, audio, chunk=3000):
+    """Push `chunk` samples at a time with a poll after each, then
+    finish; an in-stream error ends the stream and is its result."""
+    for off in range(0, len(audio), chunk):
+        for op in (lambda: client.push(audio[off:off + chunk]),
+                   client.poll):
+            res = await op()
+            if res.get("error"):
+                await client.aclose()
+                return res
+    return await client.finish()
+
+
+async def _sessions(host, port, key):
+    from repro_torch.serving.server import fetch_metrics
+    return (await fetch_metrics(host, port))["asr"]["sessions"][key]
+
+
+async def _parked(server):
+    """Stop the supervisor, so that a wedged worker stays in place until
+    `_unpark`."""
+    server._supervisor.cancel()
+    try:
+        await server._supervisor
+    except BaseException:
+        pass
+
+
+def _unpark(server):
+    import asyncio
+    server._supervisor = asyncio.get_running_loop().create_task(
+        server._supervise())
+
+
+async def _wave(server, ctx):
+    import asyncio
+    h, p = server.host, server.port
+    return {"finals": await asyncio.gather(*[
+        _client_stream(h, p, a, 0.01 * i)
+        for i, a in enumerate(ctx["utts"][:3])])}
+
+
+async def _deadline(server, ctx):
+    """Three sessions over 2 slots, opened at t = 100, 104 and 106 (the
+    third queued), deadline 10 s: the clock moves to 111, 115 and 117,
+    each move awaited until /metrics counts the reap; each reaped
+    client then sees its fault; a fresh stream serves."""
+    from repro_torch.serving.server import AsrClient
+    h, p = server.host, server.port
+    utts, clk = ctx["utts"], ctx["clock"]
+    a = await AsrClient.open(h, p)
+    await a.push(utts[0][:2000])
+    clk[0] = 104.0
+    b = await AsrClient.open(h, p)
+    await b.push(utts[1][:2000])
+    clk[0] = 106.0
+    c = await AsrClient.open(h, p)
+    for n, t in enumerate((111.0, 115.0, 117.0), 1):
+        clk[0] = t
+
+        async def reaped(n=n):
+            return await _sessions(h, p, "deadline_evicted") >= n
+        await _until(reaped, f"reap {n}")
+    errors = []
+    for client in (a, b, c):
+        errors.append(await client.push(utts[0][:400]))
+        await client.aclose()
+    return {"errors": errors,
+            "fresh": await _client_stream(h, p, utts[3])}
+
+
+async def _watchdog(server, ctx):
+    """A warm stream; a session in flight; a `pump` stall with the
+    supervisor parked until the heartbeat ages past the watchdog
+    (/healthz 503), then the restart (/healthz 200), the zombie released;
+    the in-flight session's next command sees the quarantine; a fresh
+    stream serves."""
+    from repro_torch.serving.server import AsrClient, fetch_healthz
+    h, p = server.host, server.port
+    utts, arm = ctx["utts"], ctx["arm"]
+    old = server._asr_worker
+    warm = await _client_stream(h, p, utts[0])
+    inflight = await AsrClient.open(h, p)
+    await inflight.push(utts[1][:3000])
+    await _parked(server)
+    arm["on"] = True
+
+    async def aged():
+        return old.heartbeat_age() > SERVE_WATCHDOG_S
+    await _until(aged, "the stalled worker's heartbeat age")
+    arm["on"] = False
+    wedged, _ = await fetch_healthz(h, p)
+    _unpark(server)
+
+    async def replaced():
+        return server._asr_worker is not old
+    await _until(replaced, "the restart")
+    ctx["policy"].release()
+
+    async def healthy():
+        st, pl = await fetch_healthz(h, p)
+        return (st, pl) if st == 200 else None
+    status, payload = await _until(healthy, "/healthz 200")
+    quarantined = await inflight.push(utts[1][3000:6000])
+    await inflight.aclose()
+    return {"warm": warm, "wedged_healthz": wedged, "healthz": status,
+            "restarts": payload["engines"]["asr"]["restarts"],
+            "quarantined": quarantined,
+            "fresh": await _client_stream(h, p, utts[2])}
+
+
+async def _raise(server, ctx):
+    """Four clients opened in order (sids 0-3) stream at once; an
+    `asr_step` raise matched on sid POISON_SID."""
+    import asyncio
+
+    from repro_torch.serving.server import AsrClient, fetch_healthz
+    h, p = server.host, server.port
+    clients = [await AsrClient.open(h, p) for _ in range(4)]
+    finals = await asyncio.gather(*[_drive(c, a) for c, a in
+                                    zip(clients, ctx["utts"])])
+    return {"finals": finals,
+            "healthz": (await fetch_healthz(h, p))[0]}
+
+
+async def _keepalive(server, ctx):
+    """Idle for twice the channel's timeout, then a stream."""
+    import asyncio
+    before = dict(server._leader.stats)
+    await asyncio.sleep(KEEPALIVE_IDLE_S)
+    idle = dict(server._leader.stats)
+    return {"before": before, "idle": idle,
+            "final": await _client_stream(server.host, server.port,
+                                          ctx["utts"][0])}
+
+
+def _lead(eng, channel, script, ctx):
+    import asyncio
+
+    from repro_torch.serving.server import EngineServer
+
+    async def go():
+        server = EngineServer(asr_engine=eng, channel=channel,
+                              watch_interval=0.05)
+        await server.start()
+        try:
+            res = await script(server, ctx)
+        finally:
+            await server.aclose(drain=True, timeout=SERVE_WAIT_S)
+        res.update(stream=dict(server._leader.stats),
+                   restarts=server._restarts["asr"], fatal=server.fatal)
+        return res
+    return asyncio.run(go())
+
+
+class _RunawayClock:
+    """A clock 1000 s later at every reading: by it, every session is
+    overdue as soon as it is looked at."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 1000.0
+        return self.t
+
+
+def _in_process_deadline(eng, rank, ctx):
+    """Every rank serves in process under a deadline of 10 s, each
+    reading its own clock: rank 0's says 100, then 105, then 111; the
+    others' run away (everything overdue, by their own reading).  Only
+    rank 0's reading may decide."""
+    from repro_torch.serving.engine import DeadlineExceeded
+    from repro_torch.serving.metrics import EngineMetrics
+    clk = [100.0]
+    eng.metrics = EngineMetrics(clock=(lambda: clk[0]) if rank == 0
+                                else _RunawayClock())
+    a = eng.open().push(ctx["utts"][0][:2000])
+    if rank == 0:
+        clk[0] = 105.0
+    steps = a.poll()["steps"]
+    if rank == 0:
+        clk[0] = 111.0
+    try:
+        a.poll()
+        reaped = None
+    except DeadlineExceeded as exc:
+        reaped = exc.sid
+    return {"steps_before": steps, "reaped": reaped,
+            "fresh": eng.open().push(ctx["utts"][1]).finish()}
+
+
+def _serve_engine(name, mesh, n_slots, rank, payload):
+    """This rank's engine of a scenario, and the script's context."""
+    from repro_torch.serving import (AsrEngine, AsrProgram, EngineConfig,
+                                     FaultPolicy, FaultSpec)
+    from repro_torch.serving.metrics import EngineMetrics
+    tds_cfg, feat, lex, lm, dcfg, params = payload["system"]
+    ctx = {"utts": payload["utts"]}
+    kw = {}
+    if name == "deadline":
+        kw["session_deadline"] = 10.0
+    elif name == "watchdog":
+        ctx["arm"] = {"on": False}
+        arm = ctx["arm"]
+        ctx["policy"] = FaultPolicy(
+            [FaultSpec("pump", action="stall", count=1,
+                       match=lambda c: arm["on"])], stall_timeout=60.0)
+        kw.update(faults=ctx["policy"], worker_watchdog=SERVE_WATCHDOG_S)
+    elif name == "raise":
+        kw["faults"] = FaultPolicy([FaultSpec(
+            "asr_step", count=None, message="poisoned session",
+            match=lambda c: POISON_SID in c.get("sids", ()))])
+    elif name == "in-process deadline":
+        kw["session_deadline"] = 10.0
+    program = AsrProgram(tds_cfg, lex, lm, feat, dcfg)
+    eng = AsrEngine(EngineConfig(program, n_slots=n_slots, mesh=mesh, **kw),
+                    params, device="cpu")
+    if name == "deadline":
+        # rank 0's clock is the script's; any other rank's runs away, so
+        # that by its own reading every session would be overdue
+        ctx["clock"] = [100.0]
+        clk = ctx["clock"]
+        eng.metrics = EngineMetrics(clock=(lambda: clk[0]) if rank == 0
+                                    else _RunawayClock())
+    return eng, ctx
+
+
+def serve_mesh(payload):
+    """Each scenario of SERVE_SCENARIOS on its mesh of the world's first
+    ranks (the rest wait at a barrier): rank 0 serves the scenario's
+    engine with an EngineServer leading a command channel and runs its
+    client script in process; the others `follow`.  Returns
+    {scenario: rank 0's script results or the follower's counts, plus
+    the engine's fault log, digest and step counts}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.serving.server import follow
+    rank = dist.get_rank()
+    scripts = {"wave 2": _wave, "wave 2x2": _wave, "deadline": _deadline,
+               "watchdog": _watchdog, "raise": _raise,
+               "keepalive": _keepalive}
+    out = {}
+    for name, spec, n_slots, timeout in SERVE_SCENARIOS:
+        mesh = parse_mesh(spec)
+        n = int(np.prod([int(v) for v in spec.split("x")]))
+        channel = meshlib.make_channel(range(n), timeout_s=timeout)
+        if mesh is not None and name == "channel":
+            # pickled to exactly the head buffer's room, and one byte more
+            room = meshlib.CHANNEL_HEAD_BYTES - 8
+            over = len(pickle.dumps((1, b"x" * 1000))) - 1000
+            msgs = [b"x" * 100_000, {"small": 1}, None,
+                    b"y" * (room - over), b"z" * (room - over + 1)]
+            if rank == 0:
+                out[name] = [channel.send(m) for m in msgs]
+                out["channel sent"] = msgs
+            else:
+                out[name] = [channel.recv() for _ in msgs]
+        elif mesh is not None:
+            eng, ctx = _serve_engine(name, mesh, n_slots, rank, payload)
+            if name == "in-process deadline":
+                res = _in_process_deadline(eng, rank, ctx)
+            elif rank == 0:
+                res = _lead(eng, channel, scripts[name], ctx)
+            else:
+                res = {"follow": follow(eng, channel)}
+            res.update(fault_log=list(eng._fault_log), digest=eng._digest(),
+                       n_steps=eng.n_steps,
+                       slot_steps=eng._slot_steps.tolist())
+            out[name] = res
+        dist.barrier()
+    return out
+
+
+JOBS["serve_mesh"] = serve_mesh

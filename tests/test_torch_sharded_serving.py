@@ -274,13 +274,17 @@ def test_engine_config_mesh_validation_matches_reference(system, names,
 
 @pytest.mark.parametrize("knob", ["session_deadline", "worker_watchdog"])
 def test_wall_clock_knobs_are_refused_under_a_multi_rank_mesh(system, knob):
+    """The two wall-clock knobs were refused under a mesh of several ranks
+    until rank 0 alone came to decide them (its deadline reaps and
+    watchdog restarts reach the other ranks through its command stream,
+    tests/test_torch_serve_mesh.py): no longer refused, on a 2x1 mesh as
+    on a one-rank mesh."""
     prog = AsrProgram(system[0], system[2], system[3], dec_cfg=system[5])
-    with pytest.raises(ValueError, match="ROADMAP item 11"):
-        EngineConfig(prog, n_slots=2, mesh=_stub(("data", "model"), (2, 1)),
-                     **{knob: 5.0})
+    two = _stub(("data", "model"), (2, 1))
     one = meshlib.make_mesh((1, 1), ("data", "model"))
-    assert getattr(EngineConfig(prog, n_slots=2, mesh=one, **{knob: 5.0}),
-                   knob) == 5.0
+    for mesh in (two, one):
+        assert getattr(EngineConfig(prog, n_slots=2, mesh=mesh,
+                                    **{knob: 5.0}), knob) == 5.0
 
 
 def test_lm_engine_rejects_a_mesh():
@@ -307,10 +311,18 @@ def test_serve_mesh_specs_and_errors(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--mode", "lm", "--mesh", "2"],
                                   ["--serve", "--mesh", "2x2"]])
-def test_launcher_refuses_a_mesh_outside_asr(argv, capsys):
-    with pytest.raises(SystemExit):
+def test_launcher_refuses_a_mesh_outside_asr(argv, capsys, monkeypatch):
+    """`--mode lm --mesh` is refused for good (LmEngine takes no mesh, as
+    the reference's).  `--serve --mesh 2x2` is served now, but in a
+    one-rank world `serve_mesh` exits naming the launch it needs instead
+    of serving unsharded."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit) as exc:
         tserve.main(argv + ["--device", "cpu"])
-    assert "--mesh" in capsys.readouterr().err
+    if argv[0] == "--serve":
+        assert "torchrun --nproc-per-node 4" in str(exc.value)
+    else:
+        assert "--mesh" in capsys.readouterr().err
 
 
 def _utt_lines(text):
