@@ -6,13 +6,16 @@ of the full-width TDS model, the LM trainer at full width), the rest
 of the LM stack (M-RoPE and frontend embeddings, the LM's bf16 LayerNorm,
 int8 LM serving weights), the sharded ASR serving step (a mesh of
 `torch.distributed` ranks, here sharing the one card), the sharded
-LM serving cells (`launch/steps.build_cell` on such a mesh) and the
-network server on such a mesh (`--serve --mesh`).
+LM serving cells (`launch/steps.build_cell` on such a mesh), the
+network server on such a mesh (`--serve --mesh`) and LM training on
+such a mesh (`launch/train.py --mesh`).
 
-    python3 chip_smoke.py [--before DIR]
+    python3 chip_smoke.py [--before DIR] [--only-phase 24|25]
 
 `--before DIR` (a checkout of the parent commit) also times DIR's
-logmel and beam_prune kernels beside this checkout's.
+logmel and beam_prune kernels beside this checkout's.  `--only-phase
+N` builds, then runs phase N alone (24 after serving phase 5's system
+for its references) and prints no ok line.
 
 Phases, in order; any failure exits non-zero (no phase is caught):
   1. build   — nvcc builds the eight Hopper kernels from the seven sources
@@ -322,6 +325,34 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                keep-alives are printed as "N ranks sharing one card,
                gloo host-staged collectives: not a multi-card figure".
                At most SERVE_MESH_PHASE_LIMIT_S.
+ 25. train mesh — training on the mesh, ranks spawned on the card as in
+               phase 22 (gloo), the plain paths (no kernel has a
+               backward; the phase must launch none).  (a) `launch.train
+               .main` on full-width h2o-danube-1.8b (bf16, fp32 AdamW
+               moments), TRAIN_MESH_STEPS steps at (TRAIN_MESH_BATCH,
+               TRAIN_MESH_SEQ), at --mesh local --model-parallel 2 on a
+               world of 2 ranks (1x2) and of 4 (2x2), against the
+               one-device launcher on the same batches in this process:
+               every rank's losses equal, each step's within
+               TRAIN_MESH_LOSS_RTOL of the one device's; the control, the
+               one-device launcher at half the learning rate, must miss
+               that limit.  (b) At TRAIN_MESH_LAYERS layers in fp32
+               (every width kept; h2o-danube at 1x2 and 2x2, mamba2-1.3b
+               at 1x2): `LM.loss_fn` under the mesh, its gradients
+               completed and gathered whole on rank 0, each leaf within
+               TRAIN_MESH_GRAD_RTOL of its max |g| of the one-device
+               port's on the card, the clip's gradient norm within the
+               same; the control, one replicated leaf's gradient doubled,
+               must miss it.  The floor: rank 0 also computes the
+               one-device gradients in fp64 (`Fp64Mode`), and the
+               mesh's worst gap to them must lie within
+               TRAIN_MESH_FLOOR_RATIO of the one device's fp32 worst
+               gap (the doubled leaf must miss that too).
+               Synchronized step times, the collectives a step by kind
+               with their bytes, and each rank's peak memory are printed
+               as "N ranks sharing one card, gloo host-staged
+               collectives: not a multi-card figure".  At
+               most TRAIN_MESH_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -575,6 +606,34 @@ SERVE_MESH_DEMO = "2x2"
 SERVE_MESH_DEADLINE_S = 4.0
 SERVE_MESH_PHASE_LIMIT_S = 150.0
 SERVE_MESH_DIR = ROOT / "build" / "chip_smoke" / "serve_mesh"
+# phase 25: training on the mesh.  (a) the launcher (`launch.train.main
+# --mesh local --model-parallel 2`) on full-width LM_ARCH (bf16, fp32
+# AdamW moments) for TRAIN_MESH_STEPS steps at (TRAIN_MESH_BATCH,
+# TRAIN_MESH_SEQ) on each mesh of TRAIN_MESH_MESHES, every rank on the
+# one card, against the one-device launcher on the same steps' batches:
+# each step's loss within TRAIN_MESH_LOSS_RTOL of the one-device run's
+# (bf16: the mesh's row-parallel products round fp32 partials once, the
+# one device's bf16 products each); its control, the one-device
+# launcher at half the learning rate, must miss that limit at the second
+# step.  (b) the numerics at TRAIN_MESH_LAYERS layers in fp32 (every
+# width kept) at (TRAIN_MESH_BATCH, TRAIN_MESH_NUM_SEQ): every leaf's
+# gradient, completed and gathered whole, within TRAIN_MESH_GRAD_RTOL of
+# its max |g| of the one-device port's on the card (rank 0 computes it),
+# the clip's gradient norm within the same, relative; the control, one
+# replicated leaf's gradient doubled, must miss it
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 4, 1024, 2
+TRAIN_MESH_MESHES = ("1x2", "2x2")
+TRAIN_MESH_NUMERICS = {"1x2": (LM_ARCH, MAMBA_ARCH), "2x2": (LM_ARCH,)}
+TRAIN_MESH_LAYERS, TRAIN_MESH_NUM_SEQ = 4, 256
+TRAIN_MESH_GRAD_RTOL = 1e-4
+# and the floor: each fp32 gradient's gap to the one-device fp64
+# gradient (worst leaf); the mesh's within TRAIN_MESH_FLOOR_RATIO of the
+# one device's (read 0.59-1.34; mamba2-1.3b 9.476e-5 against 7.049e-5)
+TRAIN_MESH_FLOOR_RATIO = 2.0
+TRAIN_MESH_LOSS_RTOL = 2e-3
+TRAIN_MESH_TIMEOUT_S = 300.0
+TRAIN_MESH_PHASE_LIMIT_S = 300.0
+TRAIN_MESH_DIR = ROOT / "build" / "chip_smoke" / "train_mesh"
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -5172,7 +5231,7 @@ def serve_mesh_phase(dev, smi, utts, full_results, full_results8,
     command channel; a file:// rendezvous under build/chip_smoke/), the
     kernel library built before they start.  Within
     SERVE_MESH_PHASE_LIMIT_S.  `net`: phase 16's result, None when the
-    phase runs alone (--serve-mesh-only)."""
+    phase runs alone (--only-phase 24)."""
     import multiprocessing as mp
     t_phase = time.perf_counter()
     demo = asr_demo_system()
@@ -5314,16 +5373,396 @@ def serve_mesh_phase(dev, smi, utts, full_results, full_results8,
             "launcher": launcher, "phase_s": phase_s, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# 25. training on the mesh: launch.train --mesh on ranks sharing the card,
+# and the gradients at 4 layers in fp32 against the one-device port's
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def timed_train_steps(times: list):
+    """Wrap the step `launch.train` builds so that each call is timed to
+    a synchronize (the launcher's own loop does not wait for the card)."""
+    orig = train.make_train_step
+
+    def make(*args, **kwargs):
+        step = orig(*args, **kwargs)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    train.make_train_step = make
+    try:
+        yield times
+    finally:
+        train.make_train_step = orig
+
+
+def train_mesh_args(steps_n: int = TRAIN_MESH_STEPS, lr: float = 3e-4):
+    return ["--arch", LM_ARCH, "--batch", str(TRAIN_MESH_BATCH), "--seq",
+            str(TRAIN_MESH_SEQ), "--steps", str(steps_n), "--lr", str(lr),
+            "--log-every", "1"]
+
+
+class Fp64Mode(torch.overrides.TorchFunctionMode):
+    """Every fp32 that the program asks for becomes fp64: `Tensor.float()`
+    gives fp64, and torch.float32 in any argument (`.to(...)`,
+    `dtype=`, `promote_types`) becomes torch.float64.  On fp64
+    parameters the fp32 program then runs in fp64: phase 25's floor.
+    `seen` maps the dtype of each floating tensor that an op returned
+    to the first such op, so a caller can check that nothing ran
+    narrower."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    @staticmethod
+    def _wide(v):
+        if v is torch.float32:
+            return torch.float64
+        if isinstance(v, (tuple, list)):
+            return type(v)(Fp64Mode._wide(u) for u in v)
+        return v
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.Tensor.float:
+            out = args[0].double()
+        else:
+            out = func(*self._wide(tuple(args)),
+                       **{k: self._wide(v) for k, v in kwargs.items()})
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                self.seen.setdefault(t.dtype, getattr(func, "__name__",
+                                                      str(func)))
+        return out
+
+
+def fp64_grads(lm, params, batch):
+    """(loss, gradients) of `lm.loss_fn` on `params` made fp64, its
+    forward in `Fp64Mode` with nothing recomputed (`torch.utils
+    .checkpoint` replaced by a plain call: the mode is off while
+    `autograd.grad` runs, so a recompute would run in fp32; the
+    backward runs on the saved fp64 tensors); fails if any op returned
+    a floating tensor narrower than fp64."""
+    from repro_torch.models import transformer
+    p64 = tree_map(lambda t: t.double(), params)
+    mode = Fp64Mode()
+    saved = transformer.checkpoint
+    transformer.checkpoint = lambda fn, *a, use_reentrant=False: fn(*a)
+    try:
+        with mode:
+            (loss, _), grads = value_and_grad(
+                lambda p: lm.loss_fn(p, batch), p64, has_aux=True)
+    finally:
+        transformer.checkpoint = saved
+    if set(mode.seen) != {torch.float64}:
+        fail(f"train mesh: the fp64 floor ran ops in {mode.seen}")
+    return float(loss), grads
+
+
+def card_grad_gaps(got, want) -> dict:
+    """`grad_gaps` of two gradient trees both on the card."""
+    w = dict(leaves_with_paths(want))
+    return {"/".join(map(str, path)): float(
+        (g.float() - w[path].float()).abs().max()
+        / max(float(w[path].abs().max()), 1e-30))
+        for path, g in leaves_with_paths(got)}
+
+
+def train_mesh_grads(dev, arch: str, mesh, rank: int) -> dict:
+    """(b) of phase 25 for one (arch, mesh) on this rank: `LM.loss_fn`
+    under the mesh at TRAIN_MESH_LAYERS layers in fp32 on the rank's
+    blocks (`init_local`, seed SEED) and rows of one SyntheticLM batch,
+    its gradients completed (`sharding.complete_grads`) and gathered
+    whole, the clip's norm from the blocks (`adamw._global_sq`); rank 0
+    then computes the one-device loss and gradients on the whole tree
+    and compares (the others wait at a barrier)."""
+    cfg = replace(get_config(arch), n_layers=TRAIN_MESH_LAYERS,
+                  dtype="float32")
+    lm = steps.build_lm(cfg, mesh, PLAIN)
+    specs = lm.param_specs(False)
+    o_specs = steps.opt_specs(lm, adamw.AdamWConfig())
+    shape = ShapeSpec("train", TRAIN_MESH_NUM_SEQ, TRAIN_MESH_BATCH, "train")
+    layout = lm.layout(shape, int8=False)
+    whole_b = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, TRAIN_MESH_NUM_SEQ,
+                   TRAIN_MESH_BATCH)).batch(0).items()}
+    bspec = shlib.batch_shardings(whole_b, mesh)
+    batch = {k: shlib.local_block(v, bspec[k], mesh).contiguous()
+             for k, v in whole_b.items()}
+    params = lm.init_local(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, met), grads = value_and_grad(
+        lambda p: lm.loss_fn(p, batch, layout=layout), params, has_aux=True)
+    grads = shlib.complete_grads(grads, specs, mesh, layout["bl"])
+    paths = [path for path, _ in leaves_with_paths(params)]
+    gnorm = float(torch.sqrt(adamw._global_sq(grads, paths, o_specs, mesh)))
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    whole = tree_map(lambda t, sp: shlib.gather_dims(t, sp, mesh), grads,
+                     specs)
+    del params, grads
+    out = {"loss": float(loss), "ntok": int(met["ntok"]), "gnorm": gnorm,
+           "grad_ms": grad_ms}
+    if rank == 0:
+        one = LM(cfg, PLAIN)
+        p1 = one.init(torch.Generator(device=dev).manual_seed(SEED))
+        (l1, _), g1 = value_and_grad(lambda p: one.loss_fn(p, whole_b), p1,
+                                     has_aux=True)
+        # the floor: the one device's and the mesh's fp32 gradients, each
+        # against the same program in fp64
+        l64, g64 = fp64_grads(one, p1, whole_b)
+        del p1
+        floor = card_grad_gaps(g1, g64)
+        mesh64 = card_grad_gaps(whole, g64)
+        gaps = card_grad_gaps(whole, g1)
+        g1n = float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for _, g in leaves_with_paths(g1))))
+        doubled = dict(whole, final_norm={
+            k: 2 * v for k, v in whole["final_norm"].items()})
+        control = card_grad_gaps(doubled, g1)["final_norm/scale"]
+        control64 = card_grad_gaps(doubled, g64)["final_norm/scale"]
+        worst = max(gaps, key=gaps.get)
+        out.update(loss_one=float(l1), gnorm_one=g1n,
+                   gnorm_rel=abs(gnorm - g1n) / g1n, grad_worst=gaps[worst],
+                   grad_worst_leaf=worst,
+                   grad_median=float(np.median(list(gaps.values()))),
+                   control=control, leaves=len(gaps), loss_fp64=l64,
+                   one_fp64=max(floor.values()),
+                   one_fp64_leaf=max(floor, key=floor.get),
+                   mesh_fp64=max(mesh64.values()),
+                   mesh_fp64_leaf=max(mesh64, key=mesh64.get),
+                   floor_at_worst=floor[worst], mesh_fp64_at_worst=mesh64[
+                       worst], control_fp64=control64)
+        del g1, g64
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def train_mesh_rank(rank, world, init, out_dir, spec):
+    """One rank of phase 25's world of `world` ranks (a spawned process)
+    on the card: (a) `launch.train.main` on the mesh `spec` at full
+    width (its losses, each step's synchronized time, the collectives by
+    kind and bytes, the peak memory), then (b) each arch of
+    TRAIN_MESH_NUMERICS[spec].  Writes (ok, results or traceback)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)
+    res = None
+    try:
+        dev = meshlib.init_ranks(None, init_method=init, rank=rank,
+                                 world_size=world,
+                                 timeout_s=TRAIN_MESH_TIMEOUT_S)
+        fp32_numerics()
+        out = {"device": str(dev)}
+        model = int(spec.split("x")[1])
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with timed_train_steps([]) as times, \
+                counting_lm_collectives() as coll:
+            losses = train.main(train_mesh_args() + [
+                "--mesh", "local", "--model-parallel", str(model)])
+        out["launcher"] = {
+            "losses": losses, "step_ms": list(times),
+            "wall_s": time.perf_counter() - t0,
+            "collectives": {k: (n / TRAIN_MESH_STEPS, b / TRAIN_MESH_STEPS)
+                            for k, (n, b) in coll.items()},
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = meshlib.make_local_mesh(model=model)
+        for arch in TRAIN_MESH_NUMERICS[spec]:
+            out[arch] = train_mesh_grads(dev, arch, mesh, rank)
+        out["launches"] = ops.launch_counts()
+        res = (True, out)
+    except BaseException:          # reported to the parent, which fails
+        import traceback
+        res = (False, traceback.format_exc())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+def train_mesh_world(spec: str, deadline: float) -> list:
+    """Spawn the ranks of mesh `spec` on the card and return their results
+    in rank order; fails on any rank's error or at the deadline."""
+    import multiprocessing as mp
+    r, m = (int(v) for v in spec.split("x"))
+    world = r * m
+    work = TRAIN_MESH_DIR / spec
+    work.mkdir(parents=True)
+    init = f"file://{work / 'rendezvous'}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=train_mesh_rank,
+                         args=(k, world, init, str(work), spec))
+             for k in range(world)]
+    for p in procs:
+        p.start()
+    while any(p.is_alive() for p in procs) and time.perf_counter() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    time.sleep(1.0)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    outs = []
+    for k, p in enumerate(procs):
+        path = work / f"rank{k}.pkl"
+        if not path.exists():
+            fail(f"train mesh {spec}: rank {k} wrote no result (exit code "
+                 f"{p.exitcode}; killed at the phase's limit of "
+                 f"{TRAIN_MESH_PHASE_LIMIT_S} s if still running)")
+        ok, val = pickle.loads(path.read_bytes())
+        if not ok:
+            fail(f"train mesh {spec}: rank {k} failed:\n{val}")
+        outs.append(val)
+    return outs
+
+
+def train_mesh_phase(dev, smi) -> dict:
+    """Phase 25 (see TRAIN_MESH_*): the one-device launcher and its
+    control in this process, then a world of ranks on the card for each
+    mesh of TRAIN_MESH_MESHES; every check made here on the ranks'
+    results; within TRAIN_MESH_PHASE_LIMIT_S."""
+    t_phase = time.perf_counter()
+    deadline = t_phase + TRAIN_MESH_PHASE_LIMIT_S
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    TRAIN_MESH_DIR.mkdir(parents=True)
+    one = {}
+    for tag, lr in (("one device", 3e-4), ("control (lr / 2)", 1.5e-4)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        t0 = time.perf_counter()
+        with timed_train_steps(times):
+            losses = train.main(train_mesh_args(lr=lr) + ["--device",
+                                                          str(dev)])
+        one[tag] = {"losses": losses, "step_ms": times,
+                    "wall_s": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train mesh] {LM_ARCH} full width, {tag}: losses {losses}; "
+              f"steps {[round(t, 1) for t in times]} ms (synchronized); "
+              f"peak {one[tag]['peak_gb']:.2f} GB", flush=True)
+    base = one["one device"]["losses"]
+    control = max(abs(a - b) / abs(b) for a, b in zip(
+        one["control (lr / 2)"]["losses"][1:], base[1:]))
+    if not control > TRAIN_MESH_LOSS_RTOL:
+        fail(f"train mesh: the control (half the learning rate) moves the "
+             f"second loss by {control:.3e} of it, within the limit "
+             f"{TRAIN_MESH_LOSS_RTOL}: the limit cannot tell a wrong update")
+    meshes, launches = {}, {}
+    for spec in TRAIN_MESH_MESHES:
+        outs = train_mesh_world(spec, deadline)
+        label = shared_card_label(len(outs), smi)
+        for r, o in enumerate(outs):
+            launches = {k: launches.get(k, 0) + v
+                        for k, v in o["launches"].items()}
+            if o["launcher"]["losses"] != outs[0]["launcher"]["losses"]:
+                fail(f"train mesh {spec}: rank {r}'s losses "
+                     f"{o['launcher']['losses']} != rank 0's")
+        la = outs[0]["launcher"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(la["losses"], base))
+        print(f"[train mesh {spec}] {LM_ARCH} full width through "
+              f"launch.train --mesh local: losses {la['losses']} against "
+              f"the one device's {base}: max relative gap {gap:.3e} (limit "
+              f"{TRAIN_MESH_LOSS_RTOL}; control {control:.3e}); steps "
+              f"{[round(t, 1) for t in la['step_ms']]} ms (synchronized, "
+              f"one device "
+              f"{[round(t, 1) for t in one['one device']['step_ms']]} ms); "
+              f"collectives a step on rank 0 (calls, bytes put in) "
+              f"{la['collectives']}; peak memory per rank "
+              f"{[round(o['launcher']['peak_gb'], 2) for o in outs]} GB "
+              f"({label})", flush=True)
+        if not (len(la["losses"]) == TRAIN_MESH_STEPS and gap
+                <= TRAIN_MESH_LOSS_RTOL and np.isfinite(la["losses"]).all()):
+            fail(f"train mesh {spec}: losses {la['losses']} against the one "
+                 f"device's {base} (limit {TRAIN_MESH_LOSS_RTOL})")
+        num = {}
+        for arch in TRAIN_MESH_NUMERICS[spec]:
+            g = outs[0][arch]
+            num[arch] = g
+            print(f"[train mesh {spec}] {arch} at {TRAIN_MESH_LAYERS} layers "
+                  f"fp32, (B, S) = ({TRAIN_MESH_BATCH}, "
+                  f"{TRAIN_MESH_NUM_SEQ}): loss {g['loss']:.6f} (one device "
+                  f"{g['loss_one']:.6f}); gradients over {g['leaves']} "
+                  f"leaves, gathered whole: worst max|err| / max|g| "
+                  f"{g['grad_worst']:.3e} at {g['grad_worst_leaf']}, median "
+                  f"{g['grad_median']:.3e} (limit {TRAIN_MESH_GRAD_RTOL}); "
+                  f"the clip's norm {g['gnorm']:.6f} vs {g['gnorm_one']:.6f} "
+                  f"(relative {g['gnorm_rel']:.3e}); control (final_norm's "
+                  f"gradient doubled) {g['control']:.3e}; loss and gradients "
+                  f"{g['grad_ms']:.1f} ms on the mesh ({label})", flush=True)
+            print(f"[train mesh {spec}] {arch} floor, each fp32 gradient "
+                  f"against the one device's fp64 (loss "
+                  f"{g['loss_fp64']:.9f}): the one device's worst "
+                  f"{g['one_fp64']:.3e} at {g['one_fp64_leaf']}, the "
+                  f"mesh's worst {g['mesh_fp64']:.3e} at "
+                  f"{g['mesh_fp64_leaf']}; at {g['grad_worst_leaf']} the "
+                  f"one device {g['floor_at_worst']:.3e}, the mesh "
+                  f"{g['mesh_fp64_at_worst']:.3e}; the mesh's worst within "
+                  f"{TRAIN_MESH_FLOOR_RATIO}x the one device's; control "
+                  f"(final_norm's gradient doubled) {g['control_fp64']:.3e}",
+                  flush=True)
+            if not (g["grad_worst"] <= TRAIN_MESH_GRAD_RTOL
+                    and g["gnorm_rel"] <= TRAIN_MESH_GRAD_RTOL
+                    and abs(g["loss"] - g["loss_one"]) <= LM_LOSS_RTOL
+                    * abs(g["loss_one"])):
+                fail(f"train mesh {spec} {arch}: the mesh's loss or "
+                     f"gradients are off: {g}")
+            if not g["control"] > TRAIN_MESH_GRAD_RTOL:
+                fail(f"train mesh {spec} {arch}: the doubled leaf's control "
+                     f"passes the check ({g['control']:.3e})")
+            if not g["mesh_fp64"] <= TRAIN_MESH_FLOOR_RATIO * g["one_fp64"]:
+                fail(f"train mesh {spec} {arch}: the mesh's gradients sit "
+                     f"{g['mesh_fp64']:.3e} of max |g| from fp64, more than "
+                     f"{TRAIN_MESH_FLOOR_RATIO}x the one device's "
+                     f"{g['one_fp64']:.3e}: not the fp32 floor")
+            if not g["control_fp64"] > TRAIN_MESH_FLOOR_RATIO * g["one_fp64"]:
+                fail(f"train mesh {spec} {arch}: the doubled leaf's control "
+                     f"passes the floor check ({g['control_fp64']:.3e})")
+        meshes[spec] = {"label": label, "launcher": [o["launcher"]
+                                                     for o in outs],
+                        "numerics": num}
+    if any(launches.values()):
+        fail(f"train mesh: the phase launched kernels {launches}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[train mesh] phase 25 took {phase_s:.2f} s (limit "
+          f"{TRAIN_MESH_PHASE_LIMIT_S:.0f} s); no kernel launched (plain "
+          f"paths: no kernel has a backward) ({smi})", flush=True)
+    if phase_s > TRAIN_MESH_PHASE_LIMIT_S:
+        fail(f"train mesh phase took {phase_s:.1f} s, more than "
+             f"{TRAIN_MESH_PHASE_LIMIT_S} s")
+    return {"one_device": one, "control_gap": control, "meshes": meshes,
+            "phase_s": phase_s}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: also time its "
                          "int8_matmul and hypothesis_unit kernels")
-    ap.add_argument("--serve-mesh-only", action="store_true",
-                    help="build, serve phase 5's system in process, then "
-                         "run phase 24 alone (to compare the mesh server "
-                         "of two trees in one call); prints no ok line")
+    ap.add_argument("--only-phase", type=int, choices=(24, 25),
+                    default=None,
+                    help="build, then run this phase alone (24: after "
+                         "serving phase 5's system in process for its "
+                         "references), to compare two trees in one call; "
+                         "prints no ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -5353,7 +5792,11 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"[build] {line.strip()}", flush=True)
 
-    if args.serve_mesh_only:
+    if args.only_phase == 25:
+        train_mesh_phase(dev, smi)
+        return
+
+    if args.only_phase == 24:
         system = full_width_system(dev)
         utts = full_width_utterances(system[1])
         results = [full_phase(dev, system, utts, use_int8=int8)[3]
@@ -5576,6 +6019,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_mesh = serve_mesh_phase(dev, smi, utts, full_results,
                                   full_results8, network)
+    # 25. training on the mesh: launch.train --mesh, gradients at 4 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_mesh = train_mesh_phase(dev, smi)
 
     kernels = []
     for name in KERNELS:
@@ -5704,8 +6151,8 @@ def main() -> None:
         "network": network, "asr_train": asr_train, "lm_train": lm_train,
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
                 AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
-        "lm_mesh": lm_mesh, "serve_mesh": serve_mesh},
-        indent=1))
+        "lm_mesh": lm_mesh, "serve_mesh": serve_mesh,
+        "train_mesh": train_mesh}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
@@ -5719,7 +6166,8 @@ def main() -> None:
           + f"; the sharded ASR step (every rank, every mesh): "
           f"{mesh['counts']}; the sharded LM cells (every rank, every "
           f"case): {lm_mesh['counts']}; the mesh server (every rank, every "
-          f"case): {serve_mesh['counts']}", flush=True)
+          f"case): {serve_mesh['counts']}; training on the mesh: none",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ no-op on an axis of one rank; gloo takes CUDA
 tensors in all of them (ranks sharing one card), so none is staged
 through the host by hand.
 
+Training calls the differentiable collectives below `MeshAxis`
+(`reduce_from`, `copy_to`, `gather_from`, `split_to`, `gather_sum`,
+`all_to_all`): each one's backward is chosen by what consumes its
+output (Megatron-LM's f and g); the in-place serving collectives refuse
+tensors that require grad.
+
 Functions, not module-level state: importing this module reads nothing
 of torch.distributed or of the cards.
 
@@ -62,18 +68,35 @@ class _Done:
 class MeshAxis:
     """One mesh axis as this rank sees it.  `ranks` lists the global
     ranks of its group in index order; `group` is None on an axis of
-    size 1, where every collective is a no-op."""
+    size 1, where every collective is a no-op.
+
+    These collectives are invisible to autograd (the serving path's,
+    `all_reduce` in place): given a tensor that requires grad while
+    grad mode is on, each raises, as the kernels' `refuse_grad` does,
+    so that no serving helper drops a gradient silently.  Training
+    calls the differentiable collectives below (`reduce_from`,
+    `copy_to`, `gather_from`, `split_to`, `gather_sum`,
+    `all_to_all`)."""
     name: str
     size: int
     index: int
     ranks: tuple
     group: Optional[object] = None
 
+    def _refuse_grad(self, op: str, t: torch.Tensor) -> None:
+        if self.size > 1 and torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                f"MeshAxis.{op} over {self.name!r} was given a tensor that "
+                f"requires grad: this collective is invisible to autograd "
+                f"(the serving path's); train through launch.mesh's "
+                f"differentiable collectives")
+
     def all_reduce(self, t: torch.Tensor, async_op: bool = False):
         """Sum `t` in place over the axis (the reference's `psum`).  With
         `async_op`, returns a handle whose `wait()` completes it."""
         if self.size == 1:
             return _Done() if async_op else None
+        self._refuse_grad("all_reduce", t)
         return dist.all_reduce(t, group=self.group, async_op=async_op)
 
     def all_reduce_max(self, t: torch.Tensor):
@@ -81,6 +104,7 @@ class MeshAxis:
         reference's `pmax`: flash-decoding's running maximum)."""
         if self.size == 1:
             return None
+        self._refuse_grad("all_reduce_max", t)
         return dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -89,6 +113,7 @@ class MeshAxis:
         dimension split over the axis."""
         if self.size == 1:
             return t
+        self._refuse_grad("all_gather", t)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t, group=self.group)
@@ -101,6 +126,7 @@ class MeshAxis:
         axis of the axis's size)."""
         if self.size == 1:
             return t
+        self._refuse_grad("all_to_all", t)
         if t.shape[0] % self.size:
             raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
                              f"not split over {self.name!r} ({self.size})")
@@ -152,6 +178,171 @@ class Mesh:
     def __repr__(self) -> str:
         dims = ", ".join(f"{a!r}: {self.shape[a]}" for a in self.axis_names)
         return f"Mesh({{{dims}}}, rank {self.rank} at {self.coords})"
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (training over a mesh)
+# ---------------------------------------------------------------------------
+# Every rank runs the same program on its blocks, and autograd gives each
+# rank the gradient of its own blocks.  The convention is Megatron-LM's
+# (its f and g operators; Shoeybi et al. 2019, arXiv:1909.08053, §3): a
+# tensor replicated over an axis, on which every rank computes the same
+# thing, carries its whole gradient on every rank; a tensor that is the
+# rank's block, or that only this rank's computation consumes, carries
+# this rank's part.  So a collective's backward depends on what
+# consumes its output:
+#
+#   reduce_from  partials -> replicated (all-reduce)     backward: identity
+#   copy_to      replicated -> a per-rank consumer       backward: all-reduce
+#   gather_from  blocks -> replicated (all-gather)       backward: this
+#                                                        rank's slice
+#   split_to     replicated -> this rank's block         backward: all-gather
+#   gather_sum   blocks -> whole, consumed differently   backward: all-reduce,
+#                on each rank (an FSDP weight gather)    then this rank's slice
+#   all_to_all   equal dim-0 blocks exchanged            backward: all_to_all
+#
+# Without a gradient to build (grad mode off, or no input that requires
+# grad) each is the serving path's collective, so the serving numerics
+# are untouched; over a one-rank axis each is the identity.  Every rank
+# of an axis must call them alike and in the same order, as the backward
+# runs them in the reverse order on every rank.
+
+
+def _grad_wanted(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _reduced(ax: MeshAxis, t: torch.Tensor) -> torch.Tensor:
+    """A new tensor: `t` summed over `ax`."""
+    out = t.contiguous().clone()
+    ax.all_reduce(out)
+    return out
+
+
+def _block(t: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // ax.size
+    return t.narrow(dim, ax.index * n, n)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        return _reduced(ax, t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(ctx.ax, g), None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax, dim, summed):
+        ctx.ax, ctx.dim, ctx.summed = ax, dim, summed
+        return ax.all_gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = _reduced(ctx.ax, g)
+        return _block(g, ctx.ax, ctx.dim).contiguous(), None, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _block(t, ax, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.all_gather(g, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return ax.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.all_to_all(g), None
+
+
+def reduce_from(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
+    """`t`'s partials summed over `ax` into a replicated tensor (the
+    serving path reduces `t` in place and returns it).  Backward: the
+    identity (Megatron's g)."""
+    if ax.size == 1:
+        return t
+    if _grad_wanted(t):
+        return _ReduceFrom.apply(t, ax)
+    ax.all_reduce(t)
+    return t
+
+
+def copy_to(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
+    """A replicated `t` handed to a computation that differs per rank of
+    `ax`; the identity.  Backward: the ranks' partial gradients summed
+    (Megatron's f)."""
+    if ax.size == 1 or not _grad_wanted(t):
+        return t
+    return _CopyTo.apply(t, ax)
+
+
+def gather_from(t: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    """The blocks of `t` over `ax` concatenated along `dim` into a
+    replicated tensor.  Backward: this rank's slice of the (whole,
+    replicated) gradient."""
+    if ax.size == 1:
+        return t
+    if _grad_wanted(t):
+        return _GatherFrom.apply(t, ax, dim, False)
+    return ax.all_gather(t, dim)
+
+
+def gather_sum(t: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    """The blocks of `t` over `ax` concatenated along `dim`, for a
+    consumer that differs per rank (FSDP: each rank's rows of the batch
+    use the whole weight).  Backward: the ranks' gradients summed, then
+    this rank's slice (a reduce-scatter)."""
+    if ax.size == 1:
+        return t
+    if _grad_wanted(t):
+        return _GatherFrom.apply(t, ax, dim, True)
+    return ax.all_gather(t, dim)
+
+
+def split_to(t: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of a replicated `t` (the serving
+    path returns a view).  Backward: the ranks' block gradients
+    all-gathered, the whole gradient on every rank."""
+    if ax.size == 1:
+        return t
+    if _grad_wanted(t):
+        return _SplitTo.apply(t, ax, dim)
+    return _block(t, ax, dim)
+
+
+def all_to_all(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
+    """`MeshAxis.all_to_all`, differentiable: its backward sends each
+    gradient block back to the rank it came from (the same exchange)."""
+    if ax.size == 1:
+        return t
+    if _grad_wanted(t):
+        return _AllToAll.apply(t, ax)
+    return ax.all_to_all(t)
 
 
 def choose_backend(device_type: str, local_world_size: int,

@@ -1,20 +1,26 @@
 """Step builders, port of `repro/launch/steps.py`: the LM train step on
-one device, and the serving cells of a (cfg, shape, mesh) on a mesh.
+one device or on a mesh, and the cells of a (cfg, shape, mesh).
 
 Autograd stands in for `jax.value_and_grad`: each train step
 differentiates `LM.loss_fn` with respect to detached copies of the
-parameters, so the state it is given is never written.
+parameters, so the state it is given is never written.  On a mesh
+every rank differentiates its own copy of the program on its blocks
+(the collectives' backward rules are `launch/mesh.py`'s), completes
+its gradients over the batch axes (`sharding.complete_grads`) and
+updates its blocks (`adamw.update(..., mesh=)`).
 
 `build_cell(cfg, shape, mesh)` is the reference's one source of truth
 for a production cell, SPMD: it returns this rank's step function and
 the local shapes of its arguments (meta tensors standing in for
 `ShapeDtypeStruct`s: the rank's blocks under the reference's
-parameter, batch and cache specs).  Serving cells run on int8 serving
-weights unless REPRO_BASELINE=1, as the reference's.  The train cell
-under a mesh is the next slice (ROADMAP Queue 1, item 11).
+parameter, optimizer-state, batch and cache specs).  Serving cells run
+on int8 serving weights unless REPRO_BASELINE=1, as the reference's;
+the train cell runs the plain paths (`KernelPolicy("ref")`: no kernel
+has a backward).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -22,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.treeutil import map_with_paths, tree_map, value_and_grad
+from repro_torch.kernels.policy import KernelPolicy
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import layers
 from repro_torch.models.transformer import DTYPES, LM
 from repro_torch.optim import adamw
@@ -69,37 +77,92 @@ def build_lm(cfg: ModelConfig, mesh, policy=None) -> LM:
     return LM(cfg, policy, shlib.Sharder(mesh))
 
 
-def _grads(lm: LM, params, batch, remat: bool):
+def _grads(lm: LM, params, batch, remat: bool, layout=None):
     """(gradients with `params`' tree and dtypes, detached metrics)."""
     (_, metrics), grads = value_and_grad(
-        lambda p: lm.loss_fn(p, batch, remat=remat), params, has_aux=True)
+        lambda p: lm.loss_fn(p, batch, remat=remat, layout=layout), params,
+        has_aux=True)
     return grads, metrics
 
 
+def opt_specs(lm: LM, opt_cfg: adamw.AdamWConfig) -> dict:
+    """The spec tree of the optimizer state of `lm`'s mesh
+    (`_opt_shardings_like` of `adamw.init`'s shapes)."""
+    return _opt_shardings_like(lm.cfg, adamw.init(lm.param_shapes(),
+                                                  opt_cfg), lm.sh.mesh)
+
+
 def make_train_step(lm: LM, opt_cfg: adamw.AdamWConfig, *, remat=True,
-                    accum: int = 1, accum_dtype=torch.float32):
+                    accum: int = 1, accum_dtype=torch.float32,
+                    shape: Optional[ShapeSpec] = None):
     """`train_step(state, batch) -> (new_state, metrics)` with state
     {"params", "opt", "step"} and batch {"tokens", "labels"} (B, S).
 
     accum > 1: microbatched gradient accumulation over `accum` equal
     slices of the batch, summed in `accum_dtype` and averaged; the
     metrics are the last microbatch's.  Divides the activation footprint
-    by `accum` at equal FLOPs."""
+    by `accum` at equal FLOPs.
+
+    Under a mesh (`lm.sh`) `shape` is the cell's (global batch, seq_len)
+    and the state and the batch hold the rank's blocks (the batch's rows
+    over the batch axes, `sharding.batch_shardings`; the whole batch
+    where it does not split).  Microbatch i is the reference's, global
+    rows [i·B/accum, (i+1)·B/accum): a rank's part of it is its block of
+    those rows, or all of them where they do not split over the batch
+    axes (the batch is gathered whole first)."""
+    sh = lm.sh
+    mesh = layout = o_specs = None          # one device
+    if sh is not None:
+        mesh = sh.mesh
+        if shape is None:
+            raise ValueError("make_train_step under a mesh takes the cell's "
+                             "shape")
+        if shape.global_batch % accum:
+            raise ValueError(f"a batch of {shape.global_batch} does not "
+                             f"split into {accum} microbatches")
+        mb = shape.global_batch // accum
+        layout = lm.layout(dataclasses.replace(shape, global_batch=mb),
+                           int8=False)
+        whole_split = sh.batch_split(shape.global_batch)
+        o_specs = opt_specs(lm, opt_cfg)
+
+    def microbatches(batch):
+        """This rank's part of each microbatch."""
+        if accum == 1:
+            return [batch]
+        if sh is None:
+            n = next(iter(batch.values())).shape[0] // accum
+            return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                    for i in range(accum)]
+        bax = sh.batch_axis
+        if whole_split:
+            batch = {k: bax.all_gather(v, 0) for k, v in batch.items()}
+        out = []
+        for i in range(accum):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            if layout["bl"]:
+                part = {k: meshlib.split_to(v, bax, 0)
+                        for k, v in part.items()}
+            out.append(part)
+        return out
+
     def train_step(state, batch):
         params = state["params"]
+        parts = microbatches(batch)
         if accum == 1:
-            grads, metrics = _grads(lm, params, batch, remat)
+            grads, metrics = _grads(lm, params, parts[0], remat, layout)
         else:
-            mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                  for k, v in batch.items()}
             gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
                                                   device=p.device), params)
-            for i in range(accum):
-                g, metrics = _grads(lm, params, {k: v[i] for k, v in
-                                                 mb.items()}, remat)
+            for part in parts:
+                g, metrics = _grads(lm, params, part, remat, layout)
                 gsum = tree_map(lambda s, x: s + x.to(accum_dtype), gsum, g)
             grads = tree_map(lambda g: g / accum, gsum)
-        new_p, new_opt = adamw.update(grads, state["opt"], params, opt_cfg)
+        if sh is not None:
+            grads = shlib.complete_grads(grads, lm.param_specs(False), mesh,
+                                         layout["bl"])
+        new_p, new_opt = adamw.update(grads, state["opt"], params, opt_cfg,
+                                      mesh=mesh, specs=o_specs)
         step = state["step"] + 1
         return ({"params": new_p, "opt": new_opt, "step": step},
                 dict(metrics, step=step))
@@ -155,12 +218,17 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *, policy=None,
     `fn(params, cache, batch) -> (tokens (B,) whole, cache)` with args
     (params, cache, batch).  Parameters are int8 serving weights unless
     REPRO_BASELINE=1 (`LM.init_local(..., int8=True)` builds them);
-    `policy` selects the kernels or the plain paths."""
+    `policy` selects the kernels or the plain paths.
+
+    The train cell: `fn(state, batch) -> (state, metrics)` with args
+    (state, batch), state {"params" (the rank's blocks under
+    `param_specs(False)`), "opt" (`_opt_shardings_like`), "step"
+    (whole)}.  As the reference's: AdamW with int8 moments above 100 B
+    parameters (fp32 below) unless `opt_cfg` is given, `default_accum`
+    microbatches unless `accum` is, accumulated in bf16 above 100 B
+    parameters; the plain paths unless `policy` is given."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            "build_cell: the train cell under a mesh (the optimizer state's "
-            "shardings, _opt_shardings_like in the step) is the next slice "
-            "of the port (ROADMAP Queue 1, item 11)")
+        return _train_cell(cfg, shape, mesh, policy, opt_cfg, remat, accum)
     lm = build_lm(cfg, mesh, policy)
     if lm.sh is None:
         raise ValueError("build_cell needs a mesh")
@@ -177,6 +245,31 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, *, policy=None,
         return make_prefill(lm, layout), (p_loc, b_loc)
     c_loc = _local(cache_specs(lm, shape), layout["cache"], mesh)
     return make_decode_step(lm, layout), (p_loc, c_loc, b_loc)
+
+
+def _train_cell(cfg, shape, mesh, policy, opt_cfg, remat, accum):
+    lm = build_lm(cfg, mesh, KernelPolicy("ref") if policy is None
+                  else policy)
+    if lm.sh is None:
+        raise ValueError("build_cell needs a mesh")
+    big = cfg.param_counts()["total"] > 100e9
+    if opt_cfg is None:
+        opt_cfg = adamw.AdamWConfig(moment_dtype="int8" if big
+                                    else "float32")
+    if accum is None:
+        accum = default_accum(cfg, shape)
+    p_shapes = lm.param_shapes()
+    opt_shapes = adamw.init(p_shapes, opt_cfg)
+    state = {"params": _local(p_shapes, lm.param_specs(False), mesh),
+             "opt": _local(opt_shapes, opt_specs(lm, opt_cfg), mesh),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    batch_shapes = input_specs(cfg, shape)
+    b_loc = _local(batch_shapes, shlib.batch_shardings(batch_shapes, mesh),
+                   mesh)
+    fn = make_train_step(lm, opt_cfg, remat=remat, accum=accum,
+                         accum_dtype=torch.bfloat16 if big
+                         else torch.float32, shape=shape)
+    return fn, (state, b_loc)
 
 
 def _opt_shardings_like(cfg, opt_shapes, mesh) -> dict:

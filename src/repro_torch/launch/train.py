@@ -1,21 +1,37 @@
-"""Training launcher on one device: config -> LM -> train step -> resilient
-loop.  Port of `repro/launch/train.py` without its mesh.
+"""Training launcher: config -> (mesh ->) LM -> train step -> resilient
+loop.  Port of `repro/launch/train.py`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --tiny --steps 50 --batch 8 --seq 128 --ckpt /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --tiny --steps 20 --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --tiny --steps 3 --mesh local --model-parallel 2 --device cpu
 
-The flags are the reference's, less `--mesh` and `--model-parallel`
-(multi-device training is ROADMAP Queue 1, item 11), plus `--device`
-(default: the GPU; without a card it raises unless given `cpu`).  The
-model runs `KernelPolicy("ref")`: the CUDA kernels have no backward.
-Parameters come from the port's own `LM.init` (seed 0), the data from
+The flags are the reference's, plus `--device` (default: the GPU;
+without a card it raises unless given `cpu`).  The model runs
+`KernelPolicy("ref")`: the CUDA kernels have no backward.  Parameters
+come from the port's own `LM.init` (seed 0), the data from
 `SyntheticLM` (a pure function of the step; an architecture that takes
 frontend embeddings gets the stub frontend's `stub_embeds` with the
 step's labels, as in the reference), and `--resume` restores
 {"params", "opt", "step"} from the latest checkpoint, whose format is
 the reference's.  `main` returns the list of losses.
+
+`--mesh local|production|multi_pod` and `--model-parallel` as the
+reference's.  A world of one rank with `--mesh local` (and
+`--model-parallel 1`) runs the one-device path.  Under torchrun, with
+one process per rank, the world's ranks form `make_local_mesh(model=
+--model-parallel)` or the production mesh (which needs 256 or 512
+ranks): every rank draws the parameters as the one-device run does
+(`LM.init_local`: each leaf whole from seed 0, the rank's block kept),
+takes its block of the step's global batch and steps
+`make_train_step` on the mesh (accum 1, as the reference's launcher);
+rank 0 logs, and every rank returns the same losses.  `--ckpt` and
+`--resume` under a mesh of more than one rank raise: a checkpoint of a
+rank's blocks that both packages read is the next slice (elastic
+restart and the sharded checkpoint, ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -27,12 +43,14 @@ import torch
 
 from repro_torch.ckpt.checkpoint import Checkpointer
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import fp32_numerics, resolve_device
 from repro_torch.kernels.policy import KernelPolicy
-from repro_torch.launch.steps import make_train_step
-from repro_torch.models.transformer import LM
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.steps import build_lm, make_train_step, opt_specs
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shlib
 from repro_torch.runtime import fault
 
 
@@ -55,6 +73,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="local", choices=["local", "production",
+                                                        "multi_pod"])
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -65,20 +86,47 @@ def main(argv=None):
                          "the CPU)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    fp32_numerics()
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
-    lm = LM(cfg, KernelPolicy("ref"))
     opt_cfg = adamw.AdamWConfig(lr=args.lr, moment_dtype=args.moment_dtype)
-    train_step = make_train_step(lm, opt_cfg, remat=True)
-
+    mesh = own_world = None
+    multi_pod = args.mesh == "multi_pod"
+    if meshlib.world_size() == 1:
+        if args.mesh != "local":
+            meshlib.make_production_mesh(multi_pod=multi_pod)  # raises: a
+            # production mesh needs 256 or 512 ranks
+        if args.model_parallel != 1:
+            meshlib.make_local_mesh(model=args.model_parallel)  # raises
+        device = resolve_device(args.device)
+    else:
+        if args.ckpt or args.resume:
+            raise NotImplementedError(
+                "launch.train: --ckpt/--resume under a mesh of more than "
+                "one rank is the next slice of the port (elastic restart "
+                "and the sharded checkpoint, ROADMAP Queue 1, item 11)")
+        own_world = not torch.distributed.is_initialized()
+        device = meshlib.init_ranks(args.device)
+        mesh = (meshlib.make_local_mesh(model=args.model_parallel)
+                if args.mesh == "local" else
+                meshlib.make_production_mesh(multi_pod=multi_pod))
+    fp32_numerics()
+    rank0 = meshlib.is_rank0()
     gen = torch.Generator(device=device).manual_seed(0)
-    params = lm.init(gen)
-    state = {"params": params, "opt": adamw.init(params, opt_cfg),
+    # mesh None: the one-device LM, step and optimizer
+    lm = build_lm(cfg, mesh, KernelPolicy("ref"))
+    train_step = make_train_step(
+        lm, opt_cfg, remat=True,
+        shape=ShapeSpec("train", args.seq, args.batch, "train"))
+    params = lm.init(gen) if mesh is None else lm.init_local(gen)
+    opt = adamw.init(params, opt_cfg, mesh=mesh, specs=None if mesh is None
+                     else opt_specs(lm, opt_cfg))
+    if mesh is not None:
+        b_spec = shlib.batch_shardings(
+            {"x": torch.empty((args.batch,), device="meta")}, mesh)["x"]
+    state = {"params": params, "opt": opt,
              "step": torch.zeros((), dtype=torch.int32, device=device)}
-    del params
+    del params, opt
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
     ckpt = Checkpointer(args.ckpt) if args.ckpt else None
     start = 0
@@ -90,32 +138,40 @@ def main(argv=None):
     losses = []
 
     def one_step(state, step):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in data.batch(step).items()}
+        batch = {k: torch.from_numpy(v) for k, v in data.batch(step).items()}
         if not cfg.embed_inputs:   # frontend stub: embed synthetically
             batch = {"embeds": stub_embeds(step, args.batch, args.seq,
-                                           cfg.d_model).to(device),
+                                           cfg.d_model),
                      "labels": batch["labels"]}
-        return train_step(state, batch)
+        if mesh is not None:       # this rank's rows of the global batch
+            batch = {k: shlib.local_block(
+                v, b_spec + (None,) * (v.dim() - 1), mesh)
+                for k, v in batch.items()}
+        return train_step(state, {k: v.to(device) for k, v in batch.items()})
 
     def log(step, metrics, dt):
         # keep the device tensor: float() here would wait for the card
         # every step, serializing host and device; coerce only at the
         # log boundary (and once at the end)
         losses.append(metrics["loss"])
-        if (step + 1) % args.log_every == 0:
-            print(f"step {step+1} loss {float(losses[-1]):.4f} "
+        if rank0 and (step + 1) % args.log_every == 0:
+            print(f"step {step+1} loss {float(losses[-1]):.6f} "
                   f"({dt*1e3:.0f} ms)", flush=True)
 
     t0 = time.time()
-    state, stats = fault.run_resilient(
-        one_step, state, start, args.steps, checkpointer=ckpt,
-        ckpt_every=args.ckpt_every, watchdog=fault.StepWatchdog(),
-        heartbeat=None, on_metrics=log)
+    try:
+        state, stats = fault.run_resilient(
+            one_step, state, start, args.steps, checkpointer=ckpt,
+            ckpt_every=args.ckpt_every, watchdog=fault.StepWatchdog(),
+            heartbeat=None, on_metrics=log)
+    finally:
+        if own_world:
+            torch.distributed.destroy_process_group()
     losses[:] = [float(v) for v in losses]
     dt = time.time() - t0
-    print(f"done: {args.steps} steps in {dt:.1f}s; "
-          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; stats={stats}")
+    if rank0:
+        print(f"done: {args.steps} steps in {dt:.1f}s; "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; stats={stats}")
     return losses
 
 

@@ -17,7 +17,8 @@ Attention has two paths, as in the reference:
 Port of `repro/models/layers.py`.  The tensor-parallel helpers
 (`linear_col`, `linear_row`, `apply_mlp_sharded`) compute on a rank's
 blocks of a weight split over the 'model' axis and call that axis's
-collectives (`launch/mesh.py`).
+differentiable collectives (`launch/mesh.py`: Megatron's f and g, so
+that they train as they serve).
 
 Every norm goes through the norm kernel: rmsnorm through `ops.rmsnorm`,
 layernorm through `ops.layernorm`.  All softmax math is fp32 whatever
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as meshlib
 
 MASK_VALUE = -1e30
 
@@ -430,19 +432,20 @@ def in_features(p: dict) -> int:
 
 
 def feature_block(y: torch.Tensor, axis) -> torch.Tensor:
-    """This rank's block of y's last dimension over `axis`."""
-    n = y.shape[-1] // axis.size
-    return y[..., axis.index * n:(axis.index + 1) * n]
+    """This rank's block of y's last dimension over `axis` (y replicated;
+    the backward all-gathers the blocks' gradients)."""
+    return meshlib.split_to(y, axis, y.dim() - 1)
 
 
 def linear_col(p: dict, x: torch.Tensor, n_out: int, axis) -> torch.Tensor:
     """Column-parallel linear, its whole output on every rank: x (...,
     d_in) whole; a weight split on its output columns (fewer than
-    `n_out` here) gives the rank's block, all-gathered over `axis`."""
-    y = linear(p, x)
+    `n_out` here) gives the rank's block, all-gathered over `axis` (in
+    the backward, x's gradient is the ranks' partials summed)."""
     if out_features(p) < n_out:
-        return axis.all_gather(y, y.dim() - 1)
-    return y
+        y = linear(p, meshlib.copy_to(x, axis))
+        return meshlib.gather_from(y, axis, y.dim() - 1)
+    return linear(p, x)
 
 
 def linear_row(p: dict, x: torch.Tensor, axis) -> torch.Tensor:
@@ -451,7 +454,7 @@ def linear_row(p: dict, x: torch.Tensor, axis) -> torch.Tensor:
     product is fp32, the fp32 partials are all-reduced over `axis` and
     rounded once to x's dtype, then the (whole) bias is added."""
     y = torch.matmul(x.float(), weight(p, x.dtype).float())
-    axis.all_reduce(y)
+    y = meshlib.reduce_from(y, axis)
     y = y.to(x.dtype)
     if "b" in p:
         y = y + p["b"]
@@ -480,5 +483,6 @@ def apply_mlp_sharded(p: dict, x: torch.Tensor, act: str, d_ff: int,
     w_down row-parallel over `axis` when d_ff is split, else whole."""
     if out_features(p["w_gate"]) == d_ff:
         return apply_mlp(p, x, act)
+    x = meshlib.copy_to(x, axis)
     h = activation(linear(p["w_gate"], x), act) * linear(p["w_up"], x)
     return linear_row(p["w_down"], h, axis)

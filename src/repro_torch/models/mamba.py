@@ -15,10 +15,12 @@ head needs whole, are all-gathered, the gated RMSNorm, which runs over
 the whole d_inner, gets its rows all-gathered before the norm kernel
 (the rank's block of its output goes on), and out_proj is
 row-parallel: its fp32 partials are all-reduced.  Where the heads do
-not divide the axis every rank computes the whole block.  This
-is serving only, so `ssd_chunked` carries the state through a Python
-loop over chunks without the reference's checkpointing: one (B, H, L, L)
-decay matrix is live at a time, as in its `lax.scan`.
+not divide the axis every rank computes the whole block.  The
+collectives are `launch/mesh.py`'s differentiable ones, so the block
+trains on a mesh as it serves.  `ssd_chunked` carries the state through
+a Python loop over chunks without the reference's checkpointing (the
+LM's layer loop recomputes each layer in the backward): one (B, H, L,
+L) decay matrix is live at a time, as in its `lax.scan`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMSpec
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import layers
 
 
@@ -187,11 +190,17 @@ def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
     heads = slice(0, nh) if ax is None else slice(
         ax.index * (nh // ax.size), (ax.index + 1) * (nh // ax.size))
     nh_l = heads.stop - heads.start
-    A = -torch.exp(p["A_log"][heads].float())
-    z = layers.linear(p["w_z"], x)                            # (B,S,di_l)
-    xi = layers.linear(p["w_x"], x)
-    dt = _softplus(layers.linear(p["w_dt"], x).float()
-                   + p["dt_bias"][heads].float())             # (B,S,nh_l)
+
+    def mine(v):
+        """The rank's heads of a replicated per-head vector."""
+        return v if ax is None else meshlib.split_to(v, ax, 0)
+    # x feeds the rank's column blocks of w_z, w_x and w_dt (Megatron's f)
+    xm = x if ax is None else meshlib.copy_to(x, ax)
+    A = -torch.exp(mine(p["A_log"]).float())
+    z = layers.linear(p["w_z"], xm)                           # (B,S,di_l)
+    xi = layers.linear(p["w_x"], xm)
+    dt = _softplus(layers.linear(p["w_dt"], xm).float()
+                   + mine(p["dt_bias"]).float())              # (B,S,nh_l)
     if lengths is not None:
         lengths = lengths.to(device=x.device, dtype=torch.int64)
         pad = (torch.arange(S, device=x.device)[None, :]
@@ -205,15 +214,16 @@ def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
         Bm = layers.linear(p["w_B"], x).reshape(B, S, G, N)
         Cm = layers.linear(p["w_C"], x).reshape(B, S, G, N)
     else:
-        # the whole state dimension, then each local head's group
-        Bm, Cm = (layers.linear_col(p[k], x, G * N, ax).reshape(
-                      B, S, G, N)
-                  for k in ("w_B", "w_C"))
+        # the whole state dimension, then each local head's group (the
+        # rank's heads consume them)
+        Bm, Cm = (meshlib.copy_to(layers.linear_col(
+            p[k], x, G * N, ax).reshape(B, S, G, N), ax)
+            for k in ("w_B", "w_C"))
         if G > 1:
             Bm, Cm = (t.repeat_interleave(nh // G, dim=2)[:, :, heads]
                       for t in (Bm, Cm))
     xh = xi.reshape(B, S, nh_l, P)
-    Dh = p["D"][heads].float()
+    Dh = mine(p["D"]).float()
     Gl = Bm.shape[2]
 
     if S == 1 and cache is not None:
@@ -244,7 +254,7 @@ def apply_mamba(p: dict, x: torch.Tensor, spec: SSMSpec, cache=None,
         y = layers.apply_norm(p["norm_gate"], y, "rmsnorm", policy=policy)
         return layers.linear(p["out_proj"], y), new_cache
     # the norm runs over the whole d_inner: gather the rows first
-    y = ax.all_gather(y, 2)
+    y = meshlib.gather_from(y, ax, 2)
     y = layers.apply_norm(p["norm_gate"], y, "rmsnorm", policy=policy)
     return layers.linear_row(p["out_proj"], layers.feature_block(y, ax),
                              ax), new_cache
@@ -254,18 +264,21 @@ def _whole_mamba(p, x, spec, cache, lengths, policy, ax):
     """apply_mamba on every rank alike, for heads that do not divide the
     mesh axis `ax`: the weights and the conv state gathered whole
     wherever d_inner split them, the rank's block of the new conv
-    state returned where the cache splits it."""
+    state returned where the cache splits it.  Every rank computes the
+    same thing on the gathered weights, so each weight gradient is the
+    rank's slice of the whole one (`gather_from`)."""
     di = spec.d_inner(x.shape[-1])
 
     def whole(lin, n_out, rows=False):
         if rows:
             if layers.in_features(lin) == n_out:
                 return lin
-            return {k: ax.all_gather(v, 0) if k in ("w", "wq") else v
+            return {k: meshlib.gather_from(v, ax, 0) if k in ("w", "wq") else v
                     for k, v in lin.items()}
         if layers.out_features(lin) == n_out:
             return lin
-        return {k: ax.all_gather(v, v.dim() - 1) for k, v in lin.items()}
+        return {k: meshlib.gather_from(v, ax, v.dim() - 1)
+                for k, v in lin.items()}
     q = dict(p)
     for k, n in (("w_z", di), ("w_x", di), ("w_B", spec.ngroups
                                               * spec.d_state),

@@ -20,7 +20,8 @@ deterministic:
     bucket padding included.
 
 On a mesh (`sharder`: a rank's view, `parallel/sharding.Sharder`), as
-the reference:
+the reference (the collectives are `launch/mesh.py`'s differentiable
+ones, so both paths train as they serve):
   * expert-parallel prefill (`apply_moe_ep`, `_local_dispatch_combine`)
     when the experts split over 'model', not under REPRO_BASELINE=1,
     S > 1 and the batch and sequence divide: each rank routes its own
@@ -43,6 +44,8 @@ import math
 import torch
 
 from repro_torch.configs.base import MoESpec
+from repro_torch.core.treeutil import leaves_with_paths, tree_map
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import layers
 
 
@@ -116,14 +119,35 @@ def apply_moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str,
     if ep and not sharder.baseline and x.shape[1] > 1 and divisible:
         return apply_moe_ep(p, x, spec, act, sharder)
     # the GSPMD path routes the global batch: gather the rows over the
-    # batch axes where they are split, and keep this rank's after
+    # batch axes where they are split, and keep this rank's after.  In
+    # the backward each batch rank carries its own rows' share, as the
+    # rest of the model does: the gather's gradient is summed over the
+    # batch axes, and aux, which every batch rank computes whole, enters
+    # each rank's share once divided by their count
     bax = sharder.batch_axis if batch_local else None
-    xa = x if bax is None else bax.all_gather(x, 0)
+    xa = x if bax is None else meshlib.gather_sum(x, bax, 0)
     y, aux = _moe(p, xa, spec, act, sharder.model_axis)
     if bax is not None and bax.size > 1:
         n = x.shape[0]
         y = y[bax.index * n:(bax.index + 1) * n]
+        aux = _ScaleGrad.apply(aux, 1.0 / bax.size)
     return y, aux
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient scaled by `s`."""
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _building_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str, axis=None):
@@ -151,6 +175,10 @@ def _moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str, axis=None):
     El = p["w_gate"].shape[0]
     lo = 0 if El == E else axis.index * El
     partial = axis is not None and p["w_gate"].shape[2] < spec.expert_d_ff
+    # the rank's experts (or blocks of them) consume the tokens and their
+    # router weights: their gradients are summed over the axis (f)
+    per_rank = axis is not None and (El < E or partial)
+    xs = meshlib.copy_to(xt, axis) if per_rank else xt
 
     # expert buffer (El, C, D) filled by gather: slot (e, c) takes the
     # candidate ranked starts[e] + c, zeroed when c >= counts[e]
@@ -159,7 +187,7 @@ def _moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str, axis=None):
     slot_valid = slots[None, :] < counts[lo:lo + El, None]
     cand_of_slot = order[torch.clamp(slot_rank, max=T * K - 1)]
     tok_of_slot = cand_of_slot // K                             # (El, C)
-    buf = xt[tok_of_slot.reshape(-1)].reshape(El, C, D)
+    buf = xs[tok_of_slot.reshape(-1)].reshape(El, C, D)
     buf = torch.where(slot_valid[..., None], buf, torch.zeros_like(buf))
 
     h = (layers.activation(torch.bmm(buf, p["w_gate"]), act)
@@ -180,25 +208,34 @@ def _moe(p: dict, x: torch.Tensor, spec: MoESpec, act: str, axis=None):
     gathered = out[slot]
     gathered = torch.where(mine[:, None], gathered,
                            torch.zeros_like(gathered))
-    if axis is None or (El == E and not partial):
+    if not per_rank:
         y = (gathered.reshape(T, K, D)
              * top_p[..., None].to(x.dtype)).sum(dim=1)
         if "shared" in p:
             y = y + layers.apply_mlp(p["shared"], xt, act)
     else:
         # fp32 partial sums of the rank's candidates, one all-reduce
+        tp = meshlib.copy_to(top_p, axis)
         y = (gathered.reshape(T, K, D).float()
-             * top_p[..., None].to(x.dtype).float()).sum(dim=1)
+             * tp[..., None].to(x.dtype).float()).sum(dim=1)
         if "shared" in p:
             sh = p["shared"]
             if layers.out_features(sh["w_gate"]) < spec.shared_d_ff:
-                hs = (layers.activation(layers.linear(sh["w_gate"], xt), act)
-                      * layers.linear(sh["w_up"], xt))
+                hs = (layers.activation(layers.linear(sh["w_gate"], xs), act)
+                      * layers.linear(sh["w_up"], xs))
                 y = y + torch.matmul(
                     hs.float(), layers.weight(sh["w_down"], x.dtype).float())
-            elif axis.index == 0:      # a whole shared expert: added once
-                y = y + layers.apply_mlp(sh, xt, act).float()
-        axis.all_reduce(y)
+            elif axis.index == 0 or _building_grad(
+                    xt, *(w for _, w in leaves_with_paths(sh))):
+                # a whole shared expert, added once: by the rank at index
+                # 0.  Building a gradient, every rank computes it (and
+                # adds 0 x it) so that every rank's backward runs the
+                # same collectives; only rank 0's weight gradients are
+                # nonzero, so they are summed over the axis (f)
+                s = layers.apply_mlp(tree_map(
+                    lambda w: meshlib.copy_to(w, axis), sh), xs, act).float()
+                y = y + (s if axis.index == 0 else 0.0 * s)
+        y = meshlib.reduce_from(y, axis)
         y = y.to(x.dtype)
 
     # load-balance aux loss (Switch-style)
@@ -232,7 +269,9 @@ def _local_dispatch_combine(p, xl, spec: MoESpec, act: str, axis):
     Cl = local_capacity(Tl, spec)
     dev = xl.device
 
-    logits = torch.matmul(xl.float(), p["router"]["w"].float())
+    # the router weights, replicated, meet this rank's tokens only (f)
+    logits = torch.matmul(xl.float(),
+                          meshlib.copy_to(p["router"]["w"], axis).float())
     probs, top_p, top_e = route(logits, K)
     flat_e = top_e.reshape(-1)
     order, counts, starts, pos, keep = dispatch(flat_e, E, Cl)
@@ -245,7 +284,7 @@ def _local_dispatch_combine(p, xl, spec: MoESpec, act: str, axis):
     buf = torch.where(slot_valid[..., None], buf, torch.zeros_like(buf))
 
     # dispatch: (nm, E_loc, Cl, D) -> the rows of every rank for ours
-    buf = axis.all_to_all(buf.reshape(nm, E_loc, Cl, D))
+    buf = meshlib.all_to_all(buf.reshape(nm, E_loc, Cl, D), axis)
     buf = buf.transpose(0, 1).reshape(E_loc, nm * Cl, D)
 
     h = (layers.activation(torch.bmm(buf, p["w_gate"]), act)
@@ -254,7 +293,7 @@ def _local_dispatch_combine(p, xl, spec: MoESpec, act: str, axis):
 
     # return trip
     out = out.reshape(E_loc, nm, Cl, D).transpose(0, 1)
-    out = axis.all_to_all(out).reshape(E * Cl, D)
+    out = meshlib.all_to_all(out, axis).reshape(E * Cl, D)
 
     slot = torch.clamp(flat_e * Cl + torch.clamp(pos, max=Cl - 1),
                        max=E * Cl - 1)
@@ -287,32 +326,32 @@ def apply_moe_ep(p: dict, x: torch.Tensor, spec: MoESpec, act: str,
     ax = sharder.model_axis
     B, S, D = x.shape
     Sl = S // ax.size
-    xl = x[:, ax.index * Sl:(ax.index + 1) * Sl].reshape(B * Sl, D)
+    xl = meshlib.split_to(x, ax, 1).reshape(B * Sl, D)
     y, aux, dropped = _local_dispatch_combine(p, xl, spec, act, ax)
     drops.append(dropped)
     if "shared" in p:
         y = y + layers.apply_mlp(_whole_mlp(p["shared"], spec.shared_d_ff,
                                             ax), xl, act)
-    aux = aux.reshape(1).clone()
-    ax.all_reduce(aux)
-    aux = aux / ax.size
+    aux = meshlib.reduce_from(aux.reshape(1).clone(), ax) / ax.size
     bax = sharder.batch_axis
-    bax.all_reduce(aux)
-    aux = aux[0] / bax.size
-    y = ax.all_gather(y.reshape(B, Sl, D), 1)
+    aux = meshlib.reduce_from(aux, bax)[0] / bax.size
+    y = meshlib.gather_from(y.reshape(B, Sl, D), ax, 1)
     return y, aux
 
 
 def _whole_mlp(p: dict, d_ff: int, axis) -> dict:
     """A gated MLP's weights whole on every rank: the column blocks of
     w_gate/w_up (and their scales) and the row blocks of w_down
-    all-gathered over `axis` where they are split."""
+    all-gathered over `axis` where they are split.  Each rank applies
+    them to its own tokens, so their gradients are summed over the axis
+    and each rank keeps its block's (`gather_sum`); whole weights'
+    gradients are summed over the axis (`copy_to`)."""
     if layers.out_features(p["w_gate"]) == d_ff:
-        return p
+        return tree_map(lambda w: meshlib.copy_to(w, axis), p)
     out = {}
     for name in ("w_gate", "w_up"):
-        out[name] = {k: axis.all_gather(v, v.dim() - 1)
+        out[name] = {k: meshlib.gather_sum(v, axis, v.dim() - 1)
                      for k, v in p[name].items()}
-    out["w_down"] = {k: axis.all_gather(v, 0) if k in ("w", "wq") else v
-                     for k, v in p["w_down"].items()}
+    out["w_down"] = {k: meshlib.gather_sum(v, axis, 0) if k in ("w", "wq")
+                     else v for k, v in p["w_down"].items()}
     return out

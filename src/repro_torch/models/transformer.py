@@ -57,13 +57,17 @@ prefill cache left sequence-sharded, decode's flash-decoding over it
 k/v written by the rank that owns the slot, the MoE and Mamba mixers as
 their modules say, and vocab-sharded logits all-gathered (prefill's
 output is replicated; decode's token is the argmax of the gathered
-row).  The mesh serves (prefill and decode); `loss_fn` under a mesh
-is the next slice's.  `sharder=None` is the one-device model.  A
-sharded cell's layout (specs, batch split, cache axis) is computed once
-by `layout` when the cell is built and passed down; the LM keeps no
-per-call state.
+row).  The mesh serves (prefill and decode) and trains: `loss_fn`
+under a mesh runs `_train_layers` with the cell's layout, each layer's
+FSDP blocks gathered inside its checkpointed function, and the
+collectives are `launch/mesh.py`'s differentiable ones (Megatron's f
+and g over 'model'; FSDP's reduce-scatter over the batch axes), so
+autograd gives each rank the gradient of its own blocks.
+`sharder=None` is the one-device model.  A sharded cell's layout
+(specs, batch split, cache axis) is computed once by `layout` when the
+cell is built and passed down; the LM keeps no per-call state.
 
-The mesh path keeps its own layer loops and attention bodies
+The mesh's serving path keeps its own layer loops and attention bodies
 (`_prefill_sharded`, `_decode_sharded`, `_attn_*_sharded`) beside the
 one-device ones rather than running them over a one-rank axis, because
 the two do different arithmetic and carry different options: a
@@ -87,6 +91,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.treeutil import params_from_numpy  # noqa: F401
 from repro_torch.core.treeutil import tree_map
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import layers, mamba, moe
 from repro_torch.parallel import sharding as shlib
 
@@ -437,11 +442,15 @@ class LM:
                    "offset": offset + 1}
 
     def _train_layers(self, params, x, positions, remat: bool,
-                      given_pos: bool = False):
+                      given_pos: bool = False, layout=None):
         """The training forward of the layer loop: (x, the MoE aux sum).
         No cache is kept; with `remat` each layer is recomputed in the
         backward (`torch.utils.checkpoint`), so only its input stays
-        alive.
+        alive.  Under a mesh (`layout`: the cell's) `params` are the
+        rank's blocks: each layer's FSDP blocks are gathered inside the
+        checkpointed layer function, so that the backward's recompute
+        gathers them again instead of keeping every layer's whole
+        weights alive.
 
         The aux sum is the reference's: its scan body adds the aux value
         of the period's last sub-layer once per repeat (the loop over
@@ -455,14 +464,21 @@ class LM:
         # gradient of the whole (R, ...) leaf, R of them summed
         per_layer = {name: tree_map(lambda a: a.unbind(0), t)
                      for name, t in params["layers"].items()}
+        lspec = None if layout is None else {
+            name: tree_map(lambda sp: sp[1:], t)
+            for name, t in layout["specs"]["layers"].items()}
         for r in range(self.R):
             for p in range(self.P):
                 lp = tree_map(lambda ls: ls[r], per_layer[f"p{p}"])
 
                 def layer(h, p=p, lp=lp):
+                    if layout is not None:
+                        lp = self._whole_dims(lp, lspec[f"p{p}"],
+                                              layout["bl"])
                     h, _, aux = self._sublayer(p, lp, h, positions, tables,
                                                None, None, False,
-                                               given_pos=given_pos)
+                                               given_pos=given_pos,
+                                               layout=layout)
                     return h, aux
                 x, aux = (checkpoint(layer, x, use_reentrant=False)
                           if remat else layer(x))
@@ -470,10 +486,12 @@ class LM:
                 aux_sum = aux_sum + aux
         return x, aux_sum
 
-    def _chunk_loss(self, params, x, labels):
+    def _chunk_loss(self, params, x, labels, layout=None):
         """Sums over one sequence chunk: (nll, squared log-partition,
-        labelled tokens), labels of -1 masked."""
-        logits = self._logits(params, x).float()
+        labelled tokens), labels of -1 masked.  Under a mesh the logits
+        are the vocab-parallel head's, gathered whole."""
+        logits = (self._logits(params, x) if layout is None else
+                  self._logits_sharded(params, x, layout)).float()
         valid = labels >= 0
         lbl = torch.where(valid, labels, torch.zeros_like(labels))
         lse = torch.logsumexp(logits, dim=-1)
@@ -485,7 +503,8 @@ class LM:
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
-    def loss_fn(self, params, batch, *, remat=True, loss_chunks=0):
+    def loss_fn(self, params, batch, *, remat=True, loss_chunks=0,
+                layout=None):
         """batch: tokens (B, S) or embeds (B, S, D), and labels (B, S)
         int (-1 = pad).
 
@@ -493,17 +512,32 @@ class LM:
         "ntok"}).  Cross-entropy runs over the padded vocab in sequence
         chunks (16 when S % 16 == 0 and S >= 2048, else 1; `loss_chunks`
         overrides), each recomputed in the backward, so the fp32
-        (B, S, Vp) logits never exist at once."""
+        (B, S, Vp) logits never exist at once.
+
+        Under a mesh `params` are the rank's blocks, the batch its rows
+        (the whole batch where it does not split over the batch axes)
+        and `layout` the cell's (`layout`).  The semantics are the
+        reference's on the global batch: nll, the z-sum and ntok are
+        summed over the batch axes, so the value and the metrics are
+        replicated, and each rank back-propagates its own rows' share
+        (the sums' backward is the identity, `launch.mesh.reduce_from`);
+        `launch.steps.make_train_step` completes the gradients
+        (`sharding.complete_grads`)."""
         cfg = self.cfg
         if self.sh is not None:
-            raise NotImplementedError(
-                "LM.loss_fn under a mesh: training over a mesh is the next "
-                "slice of the port (ROADMAP Queue 1, item 11)")
-        x = self._embed(params, batch)
+            layout = self._need_layout(layout)
+            if "positions" in batch:
+                raise NotImplementedError(
+                    "LM.loss_fn under a mesh takes the train cell's batches "
+                    "(tokens or embeds, positions arange(S)): batch-given "
+                    "positions are a one-device option")
+            x = self._embed_sharded(params, batch, layout)
+        else:
+            x = self._embed(params, batch)
         B, S = x.shape[:2]
         positions = self._positions(batch, B, S, x.device)
         x, aux = self._train_layers(params, x, positions, remat,
-                                    "positions" in batch)
+                                    "positions" in batch, layout)
         x = layers.apply_norm(params["final_norm"], x, cfg.norm,
                               policy=self.policy)
         labels = batch["labels"].to(device=x.device, dtype=torch.int64)
@@ -518,8 +552,13 @@ class LM:
         for c in range(loss_chunks):
             sl = slice(c * cs, (c + 1) * cs)
             n, z, k = checkpoint(self._chunk_loss, params, x[:, sl],
-                                 labels[:, sl], use_reentrant=False)
+                                 labels[:, sl], layout, use_reentrant=False)
             nll, zsum, ntok = nll + n, zsum + z, ntok + k
+        if self.sh is not None and layout["bl"]:
+            bax = self.sh.batch_axis
+            nll = meshlib.reduce_from(nll, bax)
+            zsum = meshlib.reduce_from(zsum, bax)
+            ntok = meshlib.reduce_from(ntok, bax)
         ntok = torch.clamp(ntok, min=1)
         loss = nll / ntok
         zloss = Z_LOSS_COEF * zsum / ntok
@@ -720,19 +759,21 @@ class LM:
                              "passes it)")
         return layout
 
-    def _whole_dims(self, tree, spec_tree):
+    def _whole_dims(self, tree, spec_tree, batch_split: bool):
         """A parameter subtree with its FSDP blocks all-gathered (the
-        'model' blocks kept)."""
-        mesh = self.sh.mesh
+        'model' blocks kept).  `batch_split`: the layout's "bl", whether
+        the ranks of the batch axes hold different rows (the gathers'
+        backward then sums, `sharding.gather_dims`)."""
+        m = self.sh.mesh
         return tree_map(lambda t, sp: shlib.gather_dims(
-            t, sp, mesh, keep=("model",)), tree, spec_tree)
+            t, sp, m, keep=("model",), summed=batch_split), tree, spec_tree)
 
     def _layer_local(self, params, layout, p: int, r: int) -> dict:
         """Layer (p, r)'s parameters: its FSDP blocks gathered at use."""
         lspec = tree_map(lambda sp: sp[1:],
                          layout["specs"]["layers"][f"p{p}"])
         return self._whole_dims(_layer_params(params["layers"][f"p{p}"], r),
-                                lspec)
+                                lspec, layout["bl"])
 
     def _embed_sharded(self, params, batch, layout) -> torch.Tensor:
         """Token embeddings from the vocab-parallel table: the rank's
@@ -740,7 +781,8 @@ class LM:
         'model' (exact: one nonzero term a row)."""
         if not self.cfg.embed_inputs:
             return self._embed(params, batch)
-        w = self._whole_dims(params["embed"], layout["specs"]["embed"])["w"]
+        w = self._whole_dims(params["embed"], layout["specs"]["embed"],
+                             layout["bl"])["w"]
         tok = batch["tokens"].long()
         if w.shape[0] == self.Vp:
             return w[tok]
@@ -750,22 +792,23 @@ class LM:
         mine = (loc >= 0) & (loc < n)
         x = w[torch.clamp(loc, 0, n - 1)]
         x = torch.where(mine[..., None], x, torch.zeros_like(x))
-        ax.all_reduce(x)
-        return x
+        return meshlib.reduce_from(x, ax)
 
     def _logits_sharded(self, params, x, layout) -> torch.Tensor:
         """(..., Vp) logits: the rank's vocab block, all-gathered over
-        'model'."""
-        specs = layout["specs"]
+        'model' (x, replicated, meets the rank's block of the head: its
+        gradient is the ranks' partials summed)."""
+        specs, bl, ax = layout["specs"], layout["bl"], self.sh.model_axis
         if self.cfg.tie_embeddings:
-            w = self._whole_dims(params["embed"], specs["embed"])["w"]
-            y, split = torch.matmul(x, w.t()), w.shape[0] < self.Vp
+            w = self._whole_dims(params["embed"], specs["embed"], bl)["w"]
+            split = w.shape[0] < self.Vp
+            y = torch.matmul(meshlib.copy_to(x, ax) if split else x, w.t())
         else:
-            head = self._whole_dims(params["lm_head"], specs["lm_head"])
-            y = layers.linear(head, x)
+            head = self._whole_dims(params["lm_head"], specs["lm_head"], bl)
             split = layers.out_features(head) < self.Vp
+            y = layers.linear(head, meshlib.copy_to(x, ax) if split else x)
         if split:
-            y = self.sh.model_axis.all_gather(y, y.dim() - 1)
+            y = meshlib.gather_from(y, ax, y.dim() - 1)
         return y
 
     def _wo(self, p_wo, o: torch.Tensor) -> torch.Tensor:
@@ -791,20 +834,21 @@ class LM:
         q, k, v = self._split_qkv(qkv, positions, tables)
         win, n, i = cfg.attn_window, ax.size, ax.index
         if H % n == 0 and K % n == 0:
-            hq, hk = H // n, K // n
+            hq = H // n
             o = layers.attention_chunked(
-                q[:, :, i * hq:(i + 1) * hq], k[:, :, i * hk:(i + 1) * hk],
-                v[:, :, i * hk:(i + 1) * hk], window=win, policy=self.policy)
+                meshlib.split_to(q, ax, 2), meshlib.split_to(k, ax, 2),
+                meshlib.split_to(v, ax, 2), window=win, policy=self.policy)
             # wo's rows split with the heads: row-parallel on these
             return layers.linear_row(p_mix["wo"], o.reshape(B, S, hq * D),
                                      ax), (k, v)
         if S % n == 0:
-            rows = S // n
-            hi = (i + 1) * rows
-            o = layers.attention_chunked(q[:, hi - rows:hi], k[:, :hi],
-                                         v[:, :hi], window=win,
-                                         policy=self.policy)
-            o = ax.all_gather(o, 1).reshape(B, S, H * D)
+            hi = (i + 1) * (S // n)
+            # k/v up to the block's last row: a prefix that differs per
+            # rank, so their gradients are the ranks' partials summed
+            o = layers.attention_chunked(
+                meshlib.split_to(q, ax, 1), meshlib.copy_to(k, ax)[:, :hi],
+                meshlib.copy_to(v, ax)[:, :hi], window=win, policy=self.policy)
+            o = meshlib.gather_from(o, ax, 1).reshape(B, S, H * D)
         else:
             o = layers.attention_chunked(q, k, v, window=win,
                                          policy=self.policy)

@@ -23,7 +23,9 @@ Every rank runs its own copy of the program (SPMD): where the reference
 constrains a layout and lets GSPMD insert the collectives, the port's
 models compute on the rank's blocks and call the collectives of
 `launch/mesh.py` themselves.  `Sharder` is the rank's view the models
-are given.
+are given.  Training: `local_block` and `gather_dims` are
+differentiable, and `complete_grads` finishes a rank's gradient tree
+(the sums over the batch axes that no FSDP gather made).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import os
 import torch
 
 from repro_torch.core import treeutil
+from repro_torch.launch import mesh as meshlib
 
 
 def batch_axes(mesh) -> tuple:
@@ -334,7 +337,9 @@ def local_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of `x` under `spec`: along each dimension whose
     entry names an axis (or a tuple of axes), the rank's contiguous
     slice [i*n/size, (i+1)*n/size) (i: its index along the axis, row-
-    major over a tuple); other dimensions whole."""
+    major over a tuple); other dimensions whole.  `x` is replicated:
+    building a gradient, the blocks' gradients are all-gathered
+    (`launch.mesh.split_to`)."""
     if len(spec) != x.dim():
         raise ValueError(f"spec {spec} for a {tuple(x.shape)} leaf")
     for dim, entry in enumerate(spec):
@@ -344,23 +349,55 @@ def local_block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         if x.shape[dim] % ax.size:
             raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
                              f"split over {entry!r} ({ax.size})")
-        n = x.shape[dim] // ax.size
-        x = x.narrow(dim, ax.index * n, n)
+        x = meshlib.split_to(x, ax, dim)
     return x
 
 
-def gather_dims(x: torch.Tensor, spec: tuple, mesh, keep=()) -> torch.Tensor:
+def gather_dims(x: torch.Tensor, spec: tuple, mesh, keep=(),
+                summed: bool = True) -> torch.Tensor:
     """The whole of every dimension of this rank's block `x` that `spec`
     splits, by an all-gather over its axis, except the dimensions whose
     entry is in `keep` (a weight's FSDP blocks gathered at use, its
-    'model' block kept: `keep=("model",)`)."""
+    'model' block kept: `keep=("model",)`).
+
+    Building a gradient: with `summed` the ranks apply the whole to
+    different rows (a batch split over the batch axes), so the whole's
+    gradient is summed over the axis and each rank keeps its block's
+    (`launch.mesh.gather_sum`: FSDP's reduce-scatter); without, every
+    rank computes the same on it (a batch whole on every rank), and
+    keeps its slice of the whole gradient (`gather_from`)."""
+    gather = meshlib.gather_sum if summed else meshlib.gather_from
     for dim, entry in enumerate(spec):
         if entry in keep:
             continue
         ax = split_axis(mesh, entry)
         if ax is not None:
-            x = ax.all_gather(x, dim)
+            x = gather(x, ax, dim)
     return x
+
+
+def complete_grads(grads, spec_tree, mesh, batch_split: bool):
+    """A rank's gradient tree made whole for its blocks: each leaf summed
+    (in place) over the batch axes its rows of the batch did not cover.
+    A leaf whose spec splits it over a batch axis was summed over that
+    axis by its FSDP gather's backward (`gather_dims`); over the batch
+    axes it is replicated on, each rank holds its rows' share, summed
+    here.  Over 'model' every rank already holds its block's whole
+    gradient (Megatron's conventions, `launch.mesh`).  Where the batch
+    does not split (`batch_split` false: every batch rank holds the same
+    rows and computes the same) nothing is summed."""
+    b_axes = batch_axes(mesh) if batch_split else ()
+
+    def f(g, spec):
+        named = set()
+        for entry in spec:
+            if entry:
+                named.update(entry if isinstance(entry, tuple) else (entry,))
+        rest = tuple(a for a in b_axes if a not in named)
+        if rest:
+            mesh.axis(rest).all_reduce(g)
+        return g
+    return treeutil.tree_map(f, grads, spec_tree)
 
 
 def shard_tree(tree, spec_tree, mesh, device=None):

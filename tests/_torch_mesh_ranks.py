@@ -777,3 +777,253 @@ def serve_mesh(payload):
 
 
 JOBS["serve_mesh"] = serve_mesh
+
+
+# ---------------------------------------------------------------------------
+# training on the LM mesh
+# ---------------------------------------------------------------------------
+def _whole(tree, spec_tree, mesh):
+    """Every leaf of a rank's tree of blocks gathered whole, as numpy."""
+    from repro_torch.core.treeutil import tree_map
+    from repro_torch.parallel import sharding as shlib
+    return tree_map(lambda t, sp: _np(shlib.gather_dims(t, sp, mesh)), tree,
+                    spec_tree)
+
+
+def train_mesh(payload):
+    """Each case whose mesh covers this rank (the world's first ranks; the
+    others wait at a barrier): `LM.loss_fn` under the mesh on the rank's
+    blocks of the case's parameters and rows of its batch, its value,
+    metrics and gradients (completed, `sharding.complete_grads`, then
+    gathered whole on every rank); then two steps of `build_cell`'s
+    train cell from `adamw.init`'s state, the rank's blocks of the state
+    and the metrics after each, and whether the cell's local shapes are
+    the state's and the batch's."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.treeutil import tree_map, value_and_grad
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shlib
+    out, meshes = {}, {}
+    for case in payload["cases"]:
+        spec = case["mesh"]
+        if spec not in meshes:      # every rank of the world makes it
+            meshes[spec] = _lm_mesh(spec)
+        mesh = meshes[spec]
+        if mesh is None:
+            torch.distributed.barrier()
+            continue
+        cfg = _cfg(case["cfg"])
+        B, S = case["tokens"].shape
+        lm = steps.build_lm(cfg, mesh, KernelPolicy("ref"))
+        specs = lm.param_specs(False)
+        full = tree_map(torch.from_numpy, case["params"])
+        params = shlib.shard_tree(full, specs, mesh)
+        whole_b = {"tokens": torch.from_numpy(case["tokens"]),
+                   "labels": torch.from_numpy(case["labels"])}
+        b_spec = shlib.batch_shardings(whole_b, mesh)
+        batch = {k: shlib.local_block(v, b_spec[k], mesh)
+                 for k, v in whole_b.items()}
+        shape = ShapeSpec("t", S, B, "train")
+        layout = lm.layout(shape, int8=False)
+        (loss, met), grads = value_and_grad(
+            lambda p: lm.loss_fn(p, batch, layout=layout), params,
+            has_aux=True)
+        grads = shlib.complete_grads(grads, specs, mesh, layout["bl"])
+        res = {"loss": float(loss),
+               "metrics": {k: float(v) for k, v in met.items()},
+               "grads": _whole(grads, specs, mesh), "coords": mesh.coords}
+        ocfg = adamw.AdamWConfig(moment_dtype=case["moments"])
+        fn, (s_loc, b_loc) = steps.build_cell(cfg, shape, mesh, opt_cfg=ocfg)
+        o_specs = steps.opt_specs(lm, ocfg)
+        state = {"params": params,
+                 "opt": adamw.init(params, ocfg, mesh=mesh, specs=o_specs),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        res["shapes"] = (_shapes(state) == _shapes(s_loc)
+                         and _shapes(batch) == _shapes(b_loc))
+        res["steps"] = []
+        for i in range(2):
+            state, met = fn(state, batch)
+            res["steps"].append({
+                "state": tree_map(_np, state),
+                "metrics": {k: float(v) for k, v in met.items()}})
+            if i == 0:
+                res["whole_after_1"] = {
+                    "params": _whole(state["params"], specs, mesh),
+                    "opt": {"m": _whole(state["opt"]["m"], o_specs["m"],
+                                        mesh),
+                            "v": _whole(state["opt"]["v"], o_specs["v"],
+                                        mesh),
+                            "count": _np(state["opt"]["count"])}}
+        res["specs"] = {"params": specs, "opt": o_specs}
+        out[case["name"]] = res
+        torch.distributed.barrier()
+    return out
+
+
+JOBS["train_mesh"] = train_mesh
+
+
+def collective_grads(payload):
+    """Each differentiable collective of `launch.mesh` inside a small
+    computation on a 2-rank world, on the rank's part of the payload's
+    whole inputs: the value and the gradients (the test redoes each
+    computation whole in one process).  Then each serving collective of
+    `MeshAxis` given a tensor that requires grad: the error it raises."""
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers
+    me = torch.distributed.get_rank()
+    t = {k: torch.from_numpy(v) for k, v in payload.items()}
+    mm = _lm_mesh("1x2")                    # 'model' over the 2 ranks
+    dm = _lm_mesh("2x1")                    # 'data' over the 2 ranks
+    ax, bax = mm.axis("model"), dm.axis("data")
+    out = {}
+
+    def run(name, fn, *leaves):
+        leaves = [x.detach().clone().requires_grad_() for x in leaves]
+        val = fn(*leaves)
+        gs = torch.autograd.grad(val, leaves)
+        out[name] = {"value": float(val), "grads": [_np(g) for g in gs]}
+
+    def blk(x, dim):                        # this rank's block, no graph
+        n = x.shape[dim] // 2
+        return x.narrow(dim, me * n, n)
+    # reduce_from and copy_to: Megatron's MLP, w1 column-, w2 row-split
+    run("mlp", lambda x, w1, w2: (meshlib.reduce_from(torch.relu(
+        meshlib.copy_to(x, ax) @ w1) @ w2, ax) * t["c"]).sum(),
+        t["x"], blk(t["w1"], 1), blk(t["w2"], 0))
+    # gather_from (and copy_to): the column-parallel linear
+    run("linear_col", lambda x, w: (layers.linear_col(
+        {"w": w}, x, t["w1"].shape[1], ax) * t["c1"]).sum(),
+        t["x"], blk(t["w1"], 1))
+    # split_to: a replicated tensor's block, row-parallel after it
+    run("split_to", lambda x, w: (layers.linear_row(
+        {"w": w}, meshlib.split_to(x, ax, 1), ax) * t["c2"]).sum(),
+        t["x"], blk(t["w3"], 0))
+    # all_to_all: each rank's (2, 3, 4), weighted by the rank's own c
+    run("all_to_all", lambda a: (meshlib.all_to_all(a, ax)
+                                 * t["ca"][me]).sum(), t["a"][me])
+    # gather_sum: an FSDP weight, its rows split over 'data'; each data
+    # rank its own rows of x; the loss summed over 'data' (reduce_from)
+    run("gather_sum", lambda x, w: meshlib.reduce_from(
+        (x @ meshlib.gather_sum(w, bax, 0) * blk(t["c1"], 0)).sum(), bax),
+        blk(t["x"], 0), blk(t["w1"], 0))
+    # gather_from over 'data': a batch whole on both ranks, computing the
+    # same on the gathered weight (its gradient: the rank's slice)
+    run("gather_from", lambda x, w: (x @ meshlib.gather_from(w, bax, 0)
+                                     * t["c1"]).sum(),
+        t["x"], blk(t["w1"], 0))
+    errors = {}
+    g = torch.ones(3, requires_grad=True) * 1.0
+    for op, call in (("all_reduce", lambda: ax.all_reduce(g)),
+                     ("all_reduce_max", lambda: ax.all_reduce_max(g)),
+                     ("all_gather", lambda: ax.all_gather(g, 0)),
+                     ("all_to_all", lambda: ax.all_to_all(g[:2]))):
+        try:
+            call()
+            errors[op] = None
+        except RuntimeError as e:
+            errors[op] = str(e)
+    with torch.no_grad():                   # serving: grad mode off
+        h = g.detach().clone()
+        ax.all_reduce(h)
+    out["errors"] = errors
+    out["no_grad_sum"] = _np(h)
+    out["rank"] = me
+    return out
+
+
+def moe_grads(payload):
+    """`moe.apply_moe` on a 2x2 mesh through its GSPMD path (3 experts do
+    not split over 'model' = 2: each rank its block of every expert's
+    d_ff, and a whole shared expert of an odd d_ff that the rank at index
+    0 adds), on the rank's rows of x: the value of sum(y * c) + aux and
+    its gradients with respect to x and every parameter block, completed
+    over the batch axes (`sharding.complete_grads`) and gathered whole."""
+    import torch
+
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.core.treeutil import tree_map, value_and_grad
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as shlib
+    mesh = _lm_mesh("2x2")
+    sh = shlib.Sharder(mesh)
+    spec = MoESpec(**payload["spec"])
+    specs = payload["specs"]
+    full = tree_map(torch.from_numpy, payload["params"])
+    params = shlib.shard_tree(full, specs, mesh)
+    x = torch.from_numpy(payload["x"])
+    c = torch.from_numpy(payload["c"])
+    rows = ("data", None, None)
+    params["x"] = shlib.local_block(x, rows, mesh).contiguous()
+    cl = shlib.local_block(c, rows, mesh)
+    bax = sh.batch_axis
+
+    def loss(p):
+        lp = tree_map(lambda t, sp: shlib.gather_dims(t, sp, mesh,
+                                                      keep=("model",)),
+                      {k: v for k, v in p.items() if k != "x"}, specs)
+        y, aux = moe.apply_moe(lp, p["x"], spec, "silu", sharder=sh)
+        return meshlib.reduce_from((y * cl).sum(), bax) + aux
+    val, grads = value_and_grad(loss, params)
+    gx = grads.pop("x")
+    grads = shlib.complete_grads(grads, specs, mesh, True)
+    return {"value": float(val), "x": _np(bax.all_gather(gx, 0)),
+            "grads": _whole(grads, specs, mesh), "coords": mesh.coords}
+
+
+def int8_moments(payload):
+    """`adamw`'s int8 moment encoding on a 1x2 mesh, for a whole fp32 m
+    whose last dimension (128) splits over 'model': this rank's q and
+    scale blocks (`_encode` under the mesh) and the decoded block."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shlib
+    mesh = _lm_mesh("1x2")
+    if mesh is None:
+        return None
+    m = torch.from_numpy(payload["m"])
+    spec = {"q": payload["q_spec"], "scale": payload["scale_spec"]}
+    cfg = adamw.AdamWConfig(moment_dtype="int8")
+    enc = adamw._encode(shlib.local_block(m, spec["q"], mesh), cfg, spec,
+                        mesh)
+    return {"q": _np(enc["q"]), "scale": _np(enc["scale"]),
+            "decoded": _np(adamw._decode(enc, cfg, spec, mesh)),
+            "coords": mesh.coords}
+
+
+def launcher_fp32(payload):
+    """`launch.train.main(payload["args"] + --mesh local --model-parallel
+    2)` in this world of 2 ranks on the config in fp32 (its `get_config`
+    patched to give fp32 configs): the losses this rank returns."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    train.get_config = lambda arch: dataclasses.replace(get_config(arch),
+                                                        dtype="float32")
+    return train.main(payload["args"] + ["--mesh", "local",
+                                         "--model-parallel", "2"])
+
+
+def mesh2_world(payload):
+    """The jobs of the world of 2: {job: its results}."""
+    return {"coll": collective_grads(payload["coll"]),
+            "launcher": launcher_fp32(payload["launcher"])}
+
+
+def train_mesh_world(payload):
+    """The train mesh's jobs in one world of 4: {job: its results}."""
+    return {"train_mesh": train_mesh(payload["train_mesh"]),
+            "moe_grads": moe_grads(payload["moe_grads"]),
+            "int8_moments": int8_moments(payload["int8_moments"])}
+
+
+JOBS.update(mesh2_world=mesh2_world, train_mesh_world=train_mesh_world)

@@ -272,9 +272,19 @@ def test_train_launcher_tiny(tmp_path):
 
 
 def test_train_launcher_refuses_the_mesh_flags(monkeypatch):
+    """The mesh flags a world of one rank cannot serve: a mesh name the
+    reference lacks, a production mesh (256 or 512 ranks), a 'model'
+    axis of 2; and no card without `--device cpu`.  (Training under a
+    mesh of more than one rank: `test_torch_train_mesh.py`.)"""
     from repro_torch.launch import train
+    tiny = ["--arch", "mamba2-1.3b", "--tiny", "--steps", "1", "--device",
+            "cpu"]
     with pytest.raises(SystemExit):
-        train.main(["--arch", "mamba2-1.3b", "--mesh", "local"])
+        train.main(tiny + ["--mesh", "ring"])
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        train.main(tiny + ["--mesh", "production"])
+    with pytest.raises(ValueError, match="'model' axes of 2"):
+        train.main(tiny + ["--model-parallel", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "mamba2-1.3b", "--tiny", "--steps", "1"])
