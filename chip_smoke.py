@@ -7,10 +7,12 @@ of the LM stack (M-RoPE and frontend embeddings, the LM's bf16 LayerNorm,
 int8 LM serving weights), the sharded ASR serving step (a mesh of
 `torch.distributed` ranks, here sharing the one card), the sharded
 LM serving cells (`launch/steps.build_cell` on such a mesh), the
-network server on such a mesh (`--serve --mesh`) and LM training on
-such a mesh (`launch/train.py --mesh`).
+network server on such a mesh (`--serve --mesh`), LM training on
+such a mesh (`launch/train.py --mesh`) and the rest of the multi-device
+layer (elastic restart with a sharded checkpoint, int8 gradient
+compression, the pipeline).
 
-    python3 chip_smoke.py [--before DIR] [--only-phase 24|25]
+    python3 chip_smoke.py [--before DIR] [--only-phase 24|25|26]
 
 `--before DIR` (a checkout of the parent commit) also times DIR's
 logmel and beam_prune kernels beside this checkout's.  `--only-phase
@@ -353,6 +355,37 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                as "N ranks sharing one card, gloo host-staged
                collectives: not a multi-card figure".  At
                most TRAIN_MESH_PHASE_LIMIT_S.
+ 26. elastic — one world of ELASTIC_WORLD ranks spawned on the card
+               (gloo), the plain paths (the phase must launch no kernel).
+               (a) Elastic restart: h2o-danube-1.8b at every width, cut
+               to ELASTIC_LAYERS layers (a checkpoint of ~5.3 GB; full
+               depth would be ~22 GB a save, and the phase must fit its
+               budget), fp32 parameters and moments at (ELASTIC_BATCH,
+               ELASTIC_SEQ): ELASTIC_STEPS straight steps on 2x2, saved
+               (whole leaves, `Checkpointer` under the mesh) after steps
+               ELASTIC_CONTROL and ELASTIC_SAVED; ranks 0-1 resume step
+               ELASTIC_SAVED on 1x2 through `elastic.replace_state`
+               while ranks 2-3 run straight on 1x2.  Every restored block
+               equals `local_block` of its leaf read back with numpy;
+               the resumed run's final loss and worst parameter gap to
+               the straight 1x2 run lie within ELASTIC_FLOOR_RATIO times
+               the straight 2x2 run's (the topology's floor), floored at
+               ELASTIC_MIN_REL; the control (step ELASTIC_CONTROL
+               resumed as step ELASTIC_SAVED) must miss.  int8 moments
+               saved and restored on 1x2: bitwise.  (b) `compressed_psum`
+               over 2 ranks at every gradient shape of (a)'s model:
+               bitwise the mean of both ranks' dequantized payloads,
+               timed against plain all-reduces; the EF drift over
+               COMPRESS_ROUNDS rounds within the reference's bound.
+               (c) `pipeline_apply` over 4 stages of tanh(h @ w) (d =
+               PIPE_D, PIPE_MICRO microbatches of PIPE_ROWS rows, fp32):
+               within PIPE_OUT_RTOL of the sequential run, gradients
+               within PIPE_GRAD_RTOL of max |g| (a swap of two stages'
+               gradients must miss).  Checkpoint bytes, gather / write /
+               restore seconds, step and pipeline times and peak memory
+               per rank are printed as "N ranks sharing one card, gloo
+               host-staged collectives: not a multi-card figure".  At
+               most ELASTIC_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -384,6 +417,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))     # the port, from this checkout
 
+from repro_torch.ckpt.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.configs.tds_asr import (DECODER_CONFIG,  # noqa: E402
@@ -408,7 +442,9 @@ from repro_torch.models import LM, layers, moe, tds  # noqa: E402
 from repro_torch.core.treeutil import (leaves_with_paths,  # noqa: E402
                                        tree_map, value_and_grad)
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.parallel import sharding as shlib  # noqa: E402
+from repro_torch.parallel import (compress, pipeline,  # noqa: E402
+                                  sharding as shlib)
+from repro_torch.runtime import elastic  # noqa: E402
 from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
                                  EngineConfig, FaultPolicy, FaultSpec,
                                  LmEngine, LmProgram)
@@ -634,6 +670,36 @@ TRAIN_MESH_LOSS_RTOL = 2e-3
 TRAIN_MESH_TIMEOUT_S = 300.0
 TRAIN_MESH_PHASE_LIMIT_S = 300.0
 TRAIN_MESH_DIR = ROOT / "build" / "chip_smoke" / "train_mesh"
+# phase 26: the rest of the multi-device layer, on one world of
+# ELASTIC_WORLD ranks sharing the card.  (a) elastic restart: LM_ARCH at
+# every width, cut to ELASTIC_LAYERS layers (its checkpoint, fp32
+# parameters and fp32 moments, ~5.3 GB; full depth would be ~22 GB a
+# save), in fp32 at (ELASTIC_BATCH, ELASTIC_SEQ): ELASTIC_STEPS straight
+# steps on 2x2, saved after steps ELASTIC_CONTROL and ELASTIC_SAVED;
+# step ELASTIC_SAVED resumed on 1x2 for the rest, against straight runs
+# on 1x2 and 2x2, whose gap is the topology's own floor: the resumed
+# run's worst parameter gap (||d|| / ||p|| a leaf) and its final loss
+# within ELASTIC_FLOOR_RATIO times the floor, floored at ELASTIC_MIN_REL
+# relative; the control (step ELASTIC_CONTROL resumed as step
+# ELASTIC_SAVED) must miss.  (b) compressed_psum over 2 ranks on the
+# gradient shapes of (a)'s model, bitwise the mean of the two ranks'
+# dequantized payloads; the EF drift over COMPRESS_ROUNDS rounds on the
+# embedding within the reference's bound (max |g| / 127 + 1e-5).
+# (c) pipeline_apply over 4 stages of tanh(h @ w), d = PIPE_D, PIPE_MICRO
+# microbatches of PIPE_ROWS rows, fp32: the output within PIPE_OUT_RTOL
+# of the sequential application (relative to its max), each stage's
+# gradient within PIPE_GRAD_RTOL of max |g|
+ELASTIC_WORLD, ELASTIC_LAYERS = 4, 4
+ELASTIC_BATCH, ELASTIC_SEQ = 4, 256
+ELASTIC_STEPS, ELASTIC_SAVED, ELASTIC_CONTROL = 3, 2, 1
+ELASTIC_FLOOR_RATIO, ELASTIC_MIN_REL = 2.0, 1e-6
+COMPRESS_ROUNDS = 20
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS, PIPE_D = 4, 8, 4 * 256, 2560
+PIPE_OUT_RTOL, PIPE_GRAD_RTOL = 1e-5, 1e-4
+ELASTIC_TIMEOUT_S = 300.0
+ELASTIC_PHASE_GOAL_S = 150.0
+ELASTIC_PHASE_LIMIT_S = 300.0
+ELASTIC_DIR = ROOT / "build" / "chip_smoke" / "elastic"
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -5595,18 +5661,17 @@ def train_mesh_rank(rank, world, init, out_dir, spec):
             pickle.dump(res, f)
 
 
-def train_mesh_world(spec: str, deadline: float) -> list:
-    """Spawn the ranks of mesh `spec` on the card and return their results
-    in rank order; fails on any rank's error or at the deadline."""
+def spawn_ranks(target, world: int, work: pathlib.Path, deadline: float,
+                tag: str, limit: float, *extra) -> list:
+    """Spawn `world` ranks of `target(rank, world, init, work, *extra)` on
+    the card and return their results in rank order; fails on any
+    rank's error or at the deadline (the ranks still running are
+    killed)."""
     import multiprocessing as mp
-    r, m = (int(v) for v in spec.split("x"))
-    world = r * m
-    work = TRAIN_MESH_DIR / spec
-    work.mkdir(parents=True)
     init = f"file://{work / 'rendezvous'}"
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=train_mesh_rank,
-                         args=(k, world, init, str(work), spec))
+    procs = [ctx.Process(target=target,
+                         args=(k, world, init, str(work)) + extra)
              for k in range(world)]
     for p in procs:
         p.start()
@@ -5623,14 +5688,24 @@ def train_mesh_world(spec: str, deadline: float) -> list:
     for k, p in enumerate(procs):
         path = work / f"rank{k}.pkl"
         if not path.exists():
-            fail(f"train mesh {spec}: rank {k} wrote no result (exit code "
-                 f"{p.exitcode}; killed at the phase's limit of "
-                 f"{TRAIN_MESH_PHASE_LIMIT_S} s if still running)")
+            fail(f"{tag}: rank {k} wrote no result (exit code {p.exitcode}; "
+                 f"killed at the phase's limit of {limit} s if still "
+                 f"running)")
         ok, val = pickle.loads(path.read_bytes())
         if not ok:
-            fail(f"train mesh {spec}: rank {k} failed:\n{val}")
+            fail(f"{tag}: rank {k} failed:\n{val}")
         outs.append(val)
     return outs
+
+
+def train_mesh_world(spec: str, deadline: float) -> list:
+    """Spawn the ranks of mesh `spec` on the card and return their results
+    in rank order; fails on any rank's error or at the deadline."""
+    r, m = (int(v) for v in spec.split("x"))
+    work = TRAIN_MESH_DIR / spec
+    work.mkdir(parents=True)
+    return spawn_ranks(train_mesh_rank, r * m, work, deadline,
+                       f"train mesh {spec}", TRAIN_MESH_PHASE_LIMIT_S, spec)
 
 
 def train_mesh_phase(dev, smi) -> dict:
@@ -5751,13 +5826,507 @@ def train_mesh_phase(dev, smi) -> dict:
             "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: elastic restart, compressed_psum and the pipeline on the mesh
+# ---------------------------------------------------------------------------
+def elastic_cfg():
+    return replace(get_config(LM_ARCH), n_layers=ELASTIC_LAYERS,
+                   dtype="float32")
+
+
+def elastic_state(dev, cfg, mesh, ocfg, seed=SEED):
+    """(lm, this rank's blocks of a fresh training state, its spec tree)."""
+    lm = steps.build_lm(cfg, mesh, PLAIN)
+    params = lm.init_local(torch.Generator(device=dev).manual_seed(seed))
+    specs = elastic.state_specs(cfg, mesh, ocfg.moment_dtype)
+    return lm, {"params": params,
+                "opt": adamw.init(params, ocfg, mesh=mesh, specs=specs["opt"]),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}, specs
+
+
+def elastic_steps(dev, lm, mesh, state, ocfg, start, n, times):
+    """`n` train steps from `start` on this rank's rows of SyntheticLM's
+    batches, each timed to a synchronize; (state, losses)."""
+    step = make_train_step(lm, ocfg, shape=ShapeSpec(
+        "train", ELASTIC_SEQ, ELASTIC_BATCH, "train"))
+    data = SyntheticLM(DataConfig(lm.cfg.vocab_size, ELASTIC_SEQ,
+                                  ELASTIC_BATCH))
+    b_spec = shlib.batch_shardings(
+        {"x": torch.empty((ELASTIC_BATCH,), device="meta")}, mesh)["x"]
+    losses = []
+    for s in range(start, start + n):
+        batch = {k: shlib.local_block(torch.from_numpy(v), b_spec + (None,),
+                                      mesh).contiguous().to(dev)
+                 for k, v in data.batch(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, losses
+
+
+def timed_save(ck, step, state) -> dict:
+    """`ck.save` with its two halves timed: the gather to rank 0's host
+    (every rank, the calling thread) and the write (rank 0's thread;
+    the others wait for its outcome)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save_async(step, state)
+    t1 = time.perf_counter()
+    ck.wait()
+    return {"gather_s": t1 - t0, "write_s": time.perf_counter() - t1}
+
+
+def restored_from_disk(state, specs, mesh, d: pathlib.Path) -> bool:
+    """Whether each block of `state` equals `local_block` of its leaf
+    read back from `d` with numpy (every rank reads the file itself)."""
+    manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+    same = True
+    for path, blk in leaves_with_paths(state):
+        with warnings.catch_warnings():   # a read-only map: nothing writes
+            warnings.simplefilter("ignore", UserWarning)
+            whole = torch.from_numpy(np.load(d / manifest["/".join(
+                map(str, path))]["file"], mmap_mode="r"))
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        same &= bool(torch.equal(blk.cpu(), shlib.local_block(whole, spec,
+                                                              mesh)))
+    return same
+
+
+def elastic_runs(dev, rank, meshes, work: pathlib.Path) -> dict:
+    """(a) on this rank: the straight run on 2x2 (every rank), saved twice;
+    then ranks 0-1 resume it on 1x2 (and the control) while ranks 2-3 run
+    straight on their own 1x2.  Each run's final parameters are saved
+    whole for the parent to compare."""
+    cfg, ocfg = elastic_cfg(), adamw.AdamWConfig(lr=3e-4)
+    out = {"step_ms": {}, "save": {}}
+    mesh = meshes["2x2"]
+    lm, state, specs = elastic_state(dev, cfg, mesh, ocfg)
+    ck = Checkpointer(work / "saved", mesh=mesh, specs=specs)
+    times, losses = out["step_ms"].setdefault("2x2", []), []
+    for s in range(ELASTIC_STEPS):
+        state, ls = elastic_steps(dev, lm, mesh, state, ocfg, s, 1, times)
+        losses += ls
+        if s + 1 in (ELASTIC_CONTROL, ELASTIC_SAVED):
+            out["save"][f"2x2 step {s + 1}"] = timed_save(ck, s + 1, state)
+    out["straight 2x2"] = losses
+    Checkpointer(work / "straight_2x2", mesh=mesh,
+                 specs={"params": specs["params"]}).save(
+        ELASTIC_STEPS, {"params": state["params"]})
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = meshes["1x2"]
+    rest = ELASTIC_STEPS - ELASTIC_SAVED
+    if rank < 2:
+        lm, tmpl, specs = elastic_state(dev, cfg, mesh, ocfg, seed=SEED + 1)
+        for name, saved in (("resumed", ELASTIC_SAVED),
+                            ("control", ELASTIC_CONTROL)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = elastic.replace_state(cfg, Checkpointer(work / "saved"),
+                                          tmpl, mesh, step=saved)
+            torch.cuda.synchronize()
+            out[f"restore_s {name}"] = time.perf_counter() - t0
+            out[f"from disk {name}"] = restored_from_disk(
+                state, specs, mesh, work / "saved" / f"step_{saved:09d}")
+            state, ls = elastic_steps(dev, lm, mesh, state, ocfg,
+                                      ELASTIC_SAVED, rest,
+                                      out["step_ms"].setdefault(name, []))
+            out[name] = ls
+            out["save"][name] = timed_save(Checkpointer(
+                work / name, mesh=mesh, specs={"params": specs["params"]}),
+                ELASTIC_STEPS, {"params": state["params"]})
+            del state
+    else:
+        lm, state, specs = elastic_state(dev, cfg, mesh, ocfg)
+        state, out["straight 1x2"] = elastic_steps(
+            dev, lm, mesh, state, ocfg, 0, ELASTIC_STEPS,
+            out["step_ms"].setdefault("1x2", []))
+        Checkpointer(work / "straight_1x2", mesh=mesh,
+                     specs={"params": specs["params"]}).save(
+            ELASTIC_STEPS, {"params": state["params"]})
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_round_trip(dev, mesh, work: pathlib.Path) -> dict:
+    """(a) on ranks 0-1: a state with int8 moments after one step, saved
+    on 1x2 and restored into a template of other values: every block
+    bitwise, in its dtype."""
+    cfg = elastic_cfg()
+    ocfg = adamw.AdamWConfig(lr=3e-4, moment_dtype="int8")
+    lm, state, specs = elastic_state(dev, cfg, mesh, ocfg)
+    state, _ = elastic_steps(dev, lm, mesh, state, ocfg, 0, 1, [])
+    ck = Checkpointer(work / "int8", mesh=mesh, specs=specs)
+    save = timed_save(ck, 1, state)
+    tmpl = elastic_state(dev, cfg, mesh, ocfg, seed=SEED + 1)[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ck.restore(tmpl)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    want = dict(leaves_with_paths(state))
+    same = all(torch.equal(t, want[p]) and t.dtype == want[p].dtype
+               and t.device == want[p].device
+               for p, t in leaves_with_paths(got))
+    q = [t for p, t in leaves_with_paths(got["opt"]) if p[-1] == "q"]
+    out = {"bitwise": same, "save": save, "restore_s": restore_s,
+           "q_leaves": len(q), "q_nonzero": sum(int(t.count_nonzero())
+                                                for t in q)}
+    del state, got, tmpl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compress_runs(dev, rank, mesh) -> dict:
+    """(b) on ranks 2-3 ('data' of 2): compressed_psum of seeded random
+    gradients at every leaf shape of (a)'s model, timed against plain
+    all-reduces of the same tree; each leaf's mean held bitwise against
+    the mean of both ranks' dequantized payloads (gathered; the first
+    rank checks); the EF drift of COMPRESS_ROUNDS rounds on the
+    embedding."""
+    ax = mesh.axis("data")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100 + ax.index)
+    shapes = LM(elastic_cfg()).param_shapes()
+    grads = {p: torch.randn(t.shape, generator=gen, device=dev)
+             for p, t in leaves_with_paths(shapes)}
+    errs = {p: torch.zeros_like(g) for p, g in grads.items()}
+    out = {"elements": sum(g.numel() for g in grads.values())}
+    for rep in range(2):                  # the first: warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hats = {p: compress.compressed_psum(g, errs[p], ax)
+                for p, g in grads.items()}
+        torch.cuda.synchronize()
+        out["compressed_ms"] = (time.perf_counter() - t0) * 1e3
+        del hats
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads.values():
+            ax.all_reduce(g.clone())
+        torch.cuda.synchronize()
+        out["all_reduce_ms"] = (time.perf_counter() - t0) * 1e3
+    same = True
+    for p, g in grads.items():
+        g_hat, new_err = compress.compressed_psum(g, errs[p], ax)
+        qs, err_own = compress.compress(g, errs[p])
+        both = ax.all_gather(compress.decompress(qs).contiguous()[None], 0)
+        same &= bool(torch.equal(g_hat, (both[0] + both[1]) / 2)
+                     and torch.equal(new_err, err_own))
+    out["bitwise"] = same
+    g_true = grads[("embed", "w")]
+    err = torch.zeros_like(g_true)
+    acc = torch.zeros_like(g_true)
+    for _ in range(COMPRESS_ROUNDS):
+        qs, err = compress.compress(g_true, err)
+        acc += compress.decompress(qs)
+    out["drift"] = float((acc / COMPRESS_ROUNDS - g_true).abs().max())
+    out["drift_bound"] = float(g_true.abs().max()) / 127 + 1e-5
+    del grads, errs, acc, err
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_run(dev, rank, mesh) -> dict:
+    """(c) on every rank ('stage' of 4): pipeline_apply of tanh(h @ w)
+    forward and backward (timed, the second of two runs), each stage's
+    gradient gathered; the first rank runs the stages in sequence and
+    compares."""
+    ax = mesh.axis("stage")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    w = torch.randn(PIPE_STAGES, PIPE_D, PIPE_D, generator=gen,
+                    device=dev) / math.sqrt(PIPE_D)
+    x = torch.randn(PIPE_MICRO, PIPE_ROWS, PIPE_D, generator=gen, device=dev)
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"])
+    out = {}
+    for rep in range(2):
+        blk = w[rank:rank + 1].clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline.pipeline_apply(stage_fn, {"w": blk}, x, mesh)
+        (g,) = torch.autograd.grad((y ** 2).sum(), [blk])
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+    g_all = ax.all_gather(g.detach(), 0)
+    if ax.index == 0:
+        wt = w.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = x
+        for s in range(PIPE_STAGES):
+            h = stage_fn({"w": wt[s]}, h)
+        (gs,) = torch.autograd.grad((h ** 2).sum(), [wt])
+        torch.cuda.synchronize()
+        out["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+        out["out_rel"] = float((y.detach() - h.detach()).abs().max()
+                               / h.detach().abs().max())
+        out["grad_rel"] = float((g_all - gs).abs().max() / gs.abs().max())
+        # the control: the last two stages' gradients swapped
+        swapped = g_all[[0, 1, 3, 2]]
+        out["control_rel"] = float((swapped - gs).abs().max()
+                                   / gs.abs().max())
+    return out
+
+
+def elastic_rank(rank, world, init, out_dir):
+    """One rank of phase 26's world (a spawned process) on the card: the
+    meshes every rank makes alike, then (a), (a)'s int8 round trip on
+    ranks 0-1 beside (b) on ranks 2-3, then (c).  Writes (ok, results or
+    traceback)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)
+    res = None
+    try:
+        dev = meshlib.init_ranks(None, init_method=init, rank=rank,
+                                 world_size=world,
+                                 timeout_s=ELASTIC_TIMEOUT_S)
+        fp32_numerics()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        # every rank makes every mesh (new_group is collective)
+        names = ("data", "model")
+        pair = [meshlib.make_mesh((1, 2), names, ranks=r)
+                for r in ((0, 1), (2, 3))]
+        meshes = {"2x2": meshlib.make_mesh((2, 2), names),
+                  "1x2": pair[rank // 2],
+                  "data": meshlib.make_mesh((2,), ("data",), ranks=(2, 3)),
+                  "stage": meshlib.make_mesh((PIPE_STAGES,), ("stage",))}
+        work = pathlib.Path(out_dir)
+        t0 = time.perf_counter()
+        out = {"elastic": elastic_runs(dev, rank, meshes, work)}
+        out["elastic_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if rank < 2:
+            out["int8"] = int8_round_trip(dev, meshes["1x2"], work)
+        else:
+            out["compress"] = compress_runs(dev, rank, meshes["data"])
+        out["side_s"] = time.perf_counter() - t0
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        out["pipeline"] = pipeline_run(dev, rank, meshes["stage"])
+        out["pipeline_s"] = time.perf_counter() - t0
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["launches"] = ops.launch_counts()
+        res = (True, out)
+    except BaseException:          # reported to the parent, which fails
+        import traceback
+        res = (False, traceback.format_exc())
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+def param_gaps(a: pathlib.Path, b: pathlib.Path) -> dict:
+    """{leaf: (||a - b|| / ||b||, max |a - b| / max |b|)} of two saved
+    parameter trees, read back with numpy one leaf at a time.  The first
+    (L2) is the check's: Adam's first steps move an element by ~lr times
+    the sign of its gradient, so a gradient within rounding of 0 can
+    step the other way on another topology (2 lr apart), which the max
+    shows as ~1e-2 of a leaf and the L2 norm does not, while one step
+    more or less moves every element."""
+    ma = json.loads((a / "manifest.json").read_text())["leaves"]
+    mb = json.loads((b / "manifest.json").read_text())["leaves"]
+    if sorted(ma) != sorted(mb):
+        fail(f"elastic: the saved trees {a} and {b} differ in their leaves")
+    out = {}
+    for key in ma:
+        x = np.load(a / ma[key]["file"], mmap_mode="r")
+        y = np.load(b / mb[key]["file"], mmap_mode="r")
+        d = np.asarray(x, np.float64) - np.asarray(y, np.float64)
+        out[key] = (float(np.linalg.norm(d)) / max(float(np.linalg.norm(
+            np.asarray(y, np.float64))), 1e-30),
+            float(np.abs(d).max()) / max(float(np.abs(y).max()), 1e-30))
+    return out
+
+
+def dir_bytes(d: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def elastic_phase(dev, smi) -> dict:
+    """Phase 26 (see ELASTIC_*, COMPRESS_*, PIPE_*): one world of
+    ELASTIC_WORLD ranks on the card runs (a), (b) and (c); every check
+    is made here on the ranks' results and on what they saved; within
+    ELASTIC_PHASE_LIMIT_S (its goal: ELASTIC_PHASE_GOAL_S)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    cfg = elastic_cfg()
+    n_params = cfg.param_counts()["total"]
+    reckoned = n_params * 4 * 3           # fp32 parameters, m and v
+    label = shared_card_label(ELASTIC_WORLD, smi)
+    print(f"[elastic] {LM_ARCH} at every width, {ELASTIC_LAYERS} layers "
+          f"(cut from {get_config(LM_ARCH).n_layers}), fp32 with fp32 "
+          f"moments: {n_params} parameters (param_counts), a checkpoint "
+          f"of ~{reckoned / 1e9:.3f} GB (parameters, m, v in fp32)",
+          flush=True)
+    outs = spawn_ranks(elastic_rank, ELASTIC_WORLD, ELASTIC_DIR,
+                       t_phase + ELASTIC_PHASE_LIMIT_S, "elastic",
+                       ELASTIC_PHASE_LIMIT_S)
+    launches = {}
+    for o in outs:
+        launches = {k: launches.get(k, 0) + v
+                    for k, v in o["launches"].items()}
+    if any(launches.values()):
+        fail(f"elastic: the phase launched kernels {launches}")
+    e0, e2 = outs[0]["elastic"], outs[2]["elastic"]
+    # (a) the restores, the floor, the resumed run and its control
+    for r in (0, 1):
+        for name in ("resumed", "control"):
+            if not outs[r]["elastic"][f"from disk {name}"]:
+                fail(f"elastic: rank {r}'s {name} blocks differ from "
+                     f"local_block of the leaves read back with numpy")
+    saved = ELASTIC_DIR / "saved" / f"step_{ELASTIC_SAVED:09d}"
+    ckpt_bytes = dir_bytes(saved)
+    last = f"step_{ELASTIC_STEPS:09d}"
+    s12 = ELASTIC_DIR / "straight_1x2" / last
+    floor = param_gaps(ELASTIC_DIR / "straight_2x2" / last, s12)
+    resumed = param_gaps(ELASTIC_DIR / "resumed" / last, s12)
+    control = param_gaps(ELASTIC_DIR / "control" / last, s12)
+    l12, l22 = e2["straight 1x2"][-1], e0["straight 2x2"][-1]
+    lr_, lc = e0["resumed"][-1], e0["control"][-1]
+    def worst(gaps, i=0):
+        key = max(gaps, key=lambda k: gaps[k][i])
+        return gaps[key][i], key
+    floor_p, floor_at = worst(floor)
+    bound_p = max(ELASTIC_FLOOR_RATIO * floor_p, ELASTIC_MIN_REL)
+    floor_l = abs(l22 - l12) / abs(l12)
+    bound_l = max(ELASTIC_FLOOR_RATIO * floor_l, ELASTIC_MIN_REL)
+    gap_p, gap_c = worst(resumed)[0], worst(control)[0]
+    maxes = {k: worst(g, 1)[0] for k, g in (("floor", floor),
+                                            ("resumed", resumed),
+                                            ("control", control))}
+    gap_l, gap_lc = abs(lr_ - l12) / abs(l12), abs(lc - l12) / abs(l12)
+    saves = e0["save"]                  # rank 0 writes every one
+    print(f"[elastic] (a) 2x2 for {ELASTIC_SAVED} steps, saved, resumed on "
+          f"1x2 for {ELASTIC_STEPS - ELASTIC_SAVED}: losses 2x2 "
+          f"{e0['straight 2x2']}, 1x2 {e2['straight 1x2']}, resumed "
+          f"{e0['resumed']}, control {e0['control']}; final loss gap to "
+          f"the straight 1x2 {gap_l:.3e} relative (floor 2x2 vs 1x2 "
+          f"{floor_l:.3e}, bound {bound_l:.3e}; control {gap_lc:.3e}); "
+          f"worst parameter gap (||d|| / ||p|| a leaf) {gap_p:.3e} (floor "
+          f"{floor_p:.3e} at {floor_at}, bound {bound_p:.3e}; control "
+          f"{gap_c:.3e}); max |d| / max |p| a leaf {maxes['resumed']:.3e} "
+          f"(floor {maxes['floor']:.3e}, control {maxes['control']:.3e})",
+          flush=True)
+    print(f"[elastic] (a) the checkpoint of step {ELASTIC_SAVED}: "
+          f"{ckpt_bytes} bytes on disk (reckoned {reckoned}); gather / "
+          f"write seconds "
+          + "; ".join(f"{k} {v['gather_s']:.2f} / {v['write_s']:.2f}"
+                      for k, v in saves.items())
+          + f"; restore on 1x2 {e0['restore_s resumed']:.2f} s (control "
+          f"{e0['restore_s control']:.2f}); restored blocks equal "
+          f"local_block of the leaves read back with numpy on ranks 0-1; "
+          f"steps (ms, synchronized) 2x2 "
+          f"{[round(t, 1) for t in e0['step_ms']['2x2']]}, 1x2 "
+          f"{[round(t, 1) for t in e2['step_ms']['1x2']]}, resumed "
+          f"{[round(t, 1) for t in e0['step_ms']['resumed']]}; peak "
+          f"memory per rank {[round(o['peak_gb'], 2) for o in outs]} GB "
+          f"({label})", flush=True)
+    if not (gap_p <= bound_p and gap_l <= bound_l
+            and np.isfinite(e0["resumed"]).all()):
+        fail(f"elastic: the resumed run is {gap_p:.3e} (parameters) and "
+             f"{gap_l:.3e} (loss) from the straight 1x2 run, beyond "
+             f"{ELASTIC_FLOOR_RATIO}x the topology's floor ({bound_p:.3e}, "
+             f"{bound_l:.3e})")
+    if not gap_c > bound_p:
+        fail(f"elastic: the control (step {ELASTIC_CONTROL} resumed as step "
+             f"{ELASTIC_SAVED}) passes the parameter check ({gap_c:.3e})")
+    i8 = outs[0]["int8"]
+    print(f"[elastic] (a) int8 moments on 1x2: save "
+          f"{i8['save']['gather_s']:.2f} / {i8['save']['write_s']:.2f} s, "
+          f"restore {i8['restore_s']:.2f} "
+          f"s, {i8['q_leaves']} q leaves ({i8['q_nonzero']} nonzero "
+          f"elements), bitwise {i8['bitwise']}", flush=True)
+    if not (outs[0]["int8"]["bitwise"] and outs[1]["int8"]["bitwise"]
+            and i8["q_nonzero"] > 0):
+        fail(f"elastic: the int8 moments' round trip is not bitwise: "
+             f"{[o['int8'] for o in outs[:2]]}")
+    # (b)
+    c2 = outs[2]["compress"]
+    print(f"[elastic] (b) compressed_psum over 2 ranks on (a)'s gradient "
+          f"shapes ({c2['elements']} elements): {c2['compressed_ms']:.1f} ms "
+          f"against plain all-reduces {c2['all_reduce_ms']:.1f} ms (rank "
+          f"3: {outs[3]['compress']['compressed_ms']:.1f} / "
+          f"{outs[3]['compress']['all_reduce_ms']:.1f}); bitwise the mean "
+          f"of the dequantized payloads: {c2['bitwise']}; EF drift over "
+          f"{COMPRESS_ROUNDS} rounds on embed/w {c2['drift']:.4e} (bound "
+          f"{c2['drift_bound']:.4e}) ({shared_card_label(2, smi)})",
+          flush=True)
+    if not (c2["bitwise"] and outs[3]["compress"]["bitwise"]):
+        fail("elastic: compressed_psum differs from the mean of the "
+             "dequantized payloads")
+    if not all(o["compress"]["drift"] < o["compress"]["drift_bound"]
+               for o in outs[2:]):
+        fail(f"elastic: the EF drift exceeds the reference's bound: "
+             f"{[o['compress'] for o in outs[2:]]}")
+    # (c)
+    pp = outs[0]["pipeline"]
+    bubble = pipeline.bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    print(f"[elastic] (c) pipeline_apply, {PIPE_STAGES} stages of "
+          f"tanh(h @ w) at d = {PIPE_D}, {PIPE_MICRO} microbatches of "
+          f"{PIPE_ROWS} rows, fp32: output {pp['out_rel']:.3e} of max "
+          f"(limit {PIPE_OUT_RTOL}), gradients {pp['grad_rel']:.3e} of max "
+          f"|g| (limit {PIPE_GRAD_RTOL}; control, two stages' swapped, "
+          f"{pp['control_rel']:.3e}); forward + backward "
+          f"{[round(o['pipeline']['ms'], 1) for o in outs]} ms a rank, "
+          f"sequential on one rank {pp['sequential_ms']:.1f} ms; bubble "
+          f"fraction {bubble:.4f} ({label})", flush=True)
+    if not (pp["out_rel"] <= PIPE_OUT_RTOL and pp["grad_rel"]
+            <= PIPE_GRAD_RTOL):
+        fail(f"elastic: the pipeline is off: {pp}")
+    if not pp["control_rel"] > PIPE_GRAD_RTOL:
+        fail(f"elastic: the pipeline's control passes ({pp['control_rel']})")
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[elastic] phase 26 took {phase_s:.2f} s (goal "
+          f"{ELASTIC_PHASE_GOAL_S:.0f} s, limit {ELASTIC_PHASE_LIMIT_S:.0f} "
+          f"s; ranks: (a) {[round(o['elastic_s'], 1) for o in outs]} s, "
+          f"int8 / compress {[round(o['side_s'], 1) for o in outs]} s, "
+          f"(c) {[round(o['pipeline_s'], 1) for o in outs]} s); no kernel "
+          f"launched (plain paths) ({smi})", flush=True)
+    if phase_s > ELASTIC_PHASE_LIMIT_S:
+        fail(f"elastic phase took {phase_s:.1f} s, more than "
+             f"{ELASTIC_PHASE_LIMIT_S} s")
+    return {"checkpoint_bytes": ckpt_bytes, "reckoned_bytes": reckoned,
+            "saves": saves, "losses": {"2x2": e0["straight 2x2"],
+                                       "1x2": e2["straight 1x2"],
+                                       "resumed": e0["resumed"],
+                                       "control": e0["control"]},
+            "gaps": {"floor": floor_p, "resumed": gap_p, "control": gap_c,
+                     "floor_loss": floor_l, "resumed_loss": gap_l,
+                     "control_loss": gap_lc, "max_abs": maxes},
+            "restore_s": e0["restore_s resumed"],
+            "step_ms": {**e0["step_ms"], "1x2": e2["step_ms"]["1x2"]},
+            "int8": outs[0]["int8"], "compress": [o["compress"]
+                                                  for o in outs[2:]],
+            "pipeline": {"rank0": pp, "ms": [o["pipeline"]["ms"]
+                                             for o in outs],
+                         "bubble": bubble},
+            "peak_gb": [o["peak_gb"] for o in outs], "phase_s": phase_s,
+            "label": label}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: also time its "
                          "int8_matmul and hypothesis_unit kernels")
-    ap.add_argument("--only-phase", type=int, choices=(24, 25),
+    ap.add_argument("--only-phase", type=int, choices=(24, 25, 26),
                     default=None,
                     help="build, then run this phase alone (24: after "
                          "serving phase 5's system in process for its "
@@ -5794,6 +6363,9 @@ def main() -> None:
 
     if args.only_phase == 25:
         train_mesh_phase(dev, smi)
+        return
+    if args.only_phase == 26:
+        elastic_phase(dev, smi)
         return
 
     if args.only_phase == 24:
@@ -6023,6 +6595,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     train_mesh = train_mesh_phase(dev, smi)
+    # 26. elastic restart with a sharded checkpoint, compressed_psum and
+    # the pipeline, on ranks sharing the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_res = elastic_phase(dev, smi)
 
     kernels = []
     for name in KERNELS:
@@ -6152,7 +6729,7 @@ def main() -> None:
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
                 AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
         "lm_mesh": lm_mesh, "serve_mesh": serve_mesh,
-        "train_mesh": train_mesh}, indent=1))
+        "train_mesh": train_mesh, "elastic": elastic_res}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
@@ -6166,7 +6743,8 @@ def main() -> None:
           + f"; the sharded ASR step (every rank, every mesh): "
           f"{mesh['counts']}; the sharded LM cells (every rank, every "
           f"case): {lm_mesh['counts']}; the mesh server (every rank, every "
-          f"case): {serve_mesh['counts']}; training on the mesh: none",
+          f"case): {serve_mesh['counts']}; training on the mesh, elastic "
+          f"restart, compressed_psum and the pipeline: none",
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,16 +9,17 @@ copy of the program (SPMD) and a `Mesh` is that rank's view: each axis's
 size, the rank's index along it, and the process group of the ranks
 that share its other coordinates (the group an all-reduce over that
 axis runs in).  Every collective the sharded models need lives on
-`MeshAxis` (sum and max all-reduces, all-gather, all-to-all), each a
-no-op on an axis of one rank; gloo takes CUDA
-tensors in all of them (ranks sharing one card), so none is staged
-through the host by hand.
+`MeshAxis` (sum and max all-reduces, all-gather, all-to-all, and the
+ring shift of a pipeline), each a no-op on an axis of one rank; gloo
+takes CUDA tensors in the collectives (ranks sharing one card), so
+only the ring shift, a pair of point-to-point ops, is staged through
+the host by hand.
 
 Training calls the differentiable collectives below `MeshAxis`
 (`reduce_from`, `copy_to`, `gather_from`, `split_to`, `gather_sum`,
-`all_to_all`): each one's backward is chosen by what consumes its
-output (Megatron-LM's f and g); the in-place serving collectives refuse
-tensors that require grad.
+`all_to_all`, `ring_shift`): each one's backward is chosen by what
+consumes its output (Megatron-LM's f and g); the in-place serving
+collectives refuse tensors that require grad.
 
 Functions, not module-level state: importing this module reads nothing
 of torch.distributed or of the cards.
@@ -76,7 +77,7 @@ class MeshAxis:
     so that no serving helper drops a gradient silently.  Training
     calls the differentiable collectives below (`reduce_from`,
     `copy_to`, `gather_from`, `split_to`, `gather_sum`,
-    `all_to_all`)."""
+    `all_to_all`, `ring_shift`)."""
     name: str
     size: int
     index: int
@@ -97,7 +98,19 @@ class MeshAxis:
         if self.size == 1:
             return _Done() if async_op else None
         self._refuse_grad("all_reduce", t)
+        if not t.is_contiguous():
+            if async_op:
+                raise ValueError("all_reduce: an async sum needs a "
+                                 "contiguous tensor")
+            return self._strided(t, dist.ReduceOp.SUM)
         return dist.all_reduce(t, group=self.group, async_op=async_op)
+
+    def _strided(self, t: torch.Tensor, op) -> None:
+        """All-reduce a strided view through a dense copy: gloo reduces
+        the view's storage as if it were dense (wrong elements)."""
+        dense = t.contiguous()
+        dist.all_reduce(dense, op=op, group=self.group)
+        t.copy_(dense)
 
     def all_reduce_max(self, t: torch.Tensor):
         """Elementwise maximum of `t` in place over the axis (the
@@ -105,6 +118,8 @@ class MeshAxis:
         if self.size == 1:
             return None
         self._refuse_grad("all_reduce_max", t)
+        if not t.is_contiguous():
+            return self._strided(t, dist.ReduceOp.MAX)
         return dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -134,6 +149,30 @@ class MeshAxis:
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=self.group)
         return out
+
+    def ring_shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """A new tensor: the `t` of the rank `step` places before this one
+        along the axis (the rank at index i sends its `t` to index
+        (i + step) % size; the reference's `ppermute` over that ring).
+        Each rank posts its send and its receive together (`isend` /
+        `irecv`), so the ring cannot deadlock.  Under gloo the tensor is
+        staged through a host copy: gloo's point-to-point ops read a
+        host pointer, and the staged hop moves the tensor's bytes once
+        (an `all_to_all` carrying it would move `size` times as many)."""
+        if self.size == 1 or step % self.size == 0:
+            return t.clone()
+        self._refuse_grad("ring_shift", t)
+        staged = (t.device.type != "cpu"
+                  and dist.get_backend(self.group) == "gloo")
+        send = (t.detach().to("cpu") if staged else t).contiguous()
+        recv = torch.empty_like(send)
+        dst = self.ranks[(self.index + step) % self.size]
+        src = self.ranks[(self.index - step) % self.size]
+        reqs = [dist.isend(send, dst, group=self.group),
+                dist.irecv(recv, src, group=self.group)]
+        for r in reqs:
+            r.wait()
+        return recv.to(t.device) if staged else recv
 
     def broadcast_object(self, obj, src_index: int):
         """The picklable `obj` of the rank at `src_index` along the axis,
@@ -200,6 +239,8 @@ class Mesh:
 #   gather_sum   blocks -> whole, consumed differently   backward: all-reduce,
 #                on each rank (an FSDP weight gather)    then this rank's slice
 #   all_to_all   equal dim-0 blocks exchanged            backward: all_to_all
+#   ring_shift   each rank's tensor to the next rank     backward: the
+#                (a pipeline's hop)                      reverse shift
 #
 # Without a gradient to build (grad mode off, or no input that requires
 # grad) each is the serving path's collective, so the serving numerics
@@ -267,6 +308,17 @@ class _SplitTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.ax.all_gather(g, ctx.dim), None, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ax, step):
+        ctx.ax, ctx.step = ax, step
+        return ax.ring_shift(t, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.ring_shift(g, -ctx.step), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -343,6 +395,15 @@ def all_to_all(t: torch.Tensor, ax: MeshAxis) -> torch.Tensor:
     if _grad_wanted(t):
         return _AllToAll.apply(t, ax)
     return ax.all_to_all(t)
+
+
+def ring_shift(t: torch.Tensor, ax: MeshAxis, step: int = 1) -> torch.Tensor:
+    """`MeshAxis.ring_shift`, differentiable: its backward hands each
+    gradient back the other way round the ring (JAX's transpose of
+    `ppermute`)."""
+    if _grad_wanted(t) and ax.size > 1:
+        return _RingShift.apply(t, ax, step)
+    return ax.ring_shift(t, step)
 
 
 def choose_backend(device_type: str, local_world_size: int,

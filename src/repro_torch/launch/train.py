@@ -28,10 +28,18 @@ ranks): every rank draws the parameters as the one-device run does
 (`LM.init_local`: each leaf whole from seed 0, the rank's block kept),
 takes its block of the step's global batch and steps
 `make_train_step` on the mesh (accum 1, as the reference's launcher);
-rank 0 logs, and every rank returns the same losses.  `--ckpt` and
-`--resume` under a mesh of more than one rank raise: a checkpoint of a
-rank's blocks that both packages read is the next slice (elastic
-restart and the sharded checkpoint, ROADMAP Queue 1, item 11).
+rank 0 logs, and every rank returns the same losses.
+
+`--ckpt` and `--resume` work on a world of any size: a mesh's
+checkpoint holds the whole leaves (rank 0 writes them, gathered one at
+a time), in the reference's format, and `--resume` restores through
+`runtime.elastic.replace_state`, each rank cutting its blocks of the
+whole leaves.  So a run may resume on another mesh than the one that
+saved it (an elastic restart: 2x2 to 1x2, or a mesh to one device), and
+the reference's launcher may resume it too.  `run_resilient`'s restore
+escalation under a mesh is served when every rank raises
+`TransientError` at the same step (SPMD cannot mend a failure one rank
+sees alone; `runtime/elastic.py`).
 """
 from __future__ import annotations
 
@@ -48,10 +56,12 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.device import fp32_numerics, resolve_device
 from repro_torch.kernels.policy import KernelPolicy
 from repro_torch.launch import mesh as meshlib
-from repro_torch.launch.steps import build_lm, make_train_step, opt_specs
+from repro_torch.launch.steps import build_lm, make_train_step
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shlib
 from repro_torch.runtime import fault
+from repro_torch.runtime.elastic import (mesh_invariant_rng, replace_state,
+                                         state_specs)
 
 
 def stub_embeds(step: int, batch: int, seq: int, d_model: int) -> torch.Tensor:
@@ -86,6 +96,9 @@ def main(argv=None):
                          "the CPU)")
     args = ap.parse_args(argv)
 
+    # before any draw: init must be a function of the seed, not of the
+    # mesh (a no-op in the port; see runtime/elastic.py)
+    mesh_invariant_rng()
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = cfg.tiny()
@@ -100,11 +113,6 @@ def main(argv=None):
             meshlib.make_local_mesh(model=args.model_parallel)  # raises
         device = resolve_device(args.device)
     else:
-        if args.ckpt or args.resume:
-            raise NotImplementedError(
-                "launch.train: --ckpt/--resume under a mesh of more than "
-                "one rank is the next slice of the port (elastic restart "
-                "and the sharded checkpoint, ROADMAP Queue 1, item 11)")
         own_world = not torch.distributed.is_initialized()
         device = meshlib.init_ranks(args.device)
         mesh = (meshlib.make_local_mesh(model=args.model_parallel)
@@ -119,8 +127,10 @@ def main(argv=None):
         lm, opt_cfg, remat=True,
         shape=ShapeSpec("train", args.seq, args.batch, "train"))
     params = lm.init(gen) if mesh is None else lm.init_local(gen)
-    opt = adamw.init(params, opt_cfg, mesh=mesh, specs=None if mesh is None
-                     else opt_specs(lm, opt_cfg))
+    specs = (None if mesh is None
+             else state_specs(cfg, mesh, args.moment_dtype))
+    opt = adamw.init(params, opt_cfg, mesh=mesh,
+                     specs=None if mesh is None else specs["opt"])
     if mesh is not None:
         b_spec = shlib.batch_shardings(
             {"x": torch.empty((args.batch,), device="meta")}, mesh)["x"]
@@ -128,12 +138,16 @@ def main(argv=None):
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     del params, opt
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
-    ckpt = Checkpointer(args.ckpt) if args.ckpt else None
+    ckpt = (Checkpointer(args.ckpt, mesh=mesh, specs=specs) if args.ckpt
+            else None)
     start = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         start = ckpt.latest_step()
-        state = ckpt.restore(state, step=start)
-        print(f"resumed from step {start}")
+        # the checkpoint may come from another mesh: each rank cuts its
+        # blocks of the whole leaves
+        state = replace_state(cfg, ckpt, state, mesh, step=start)
+        if rank0:
+            print(f"resumed from step {start}", flush=True)
 
     losses = []
 

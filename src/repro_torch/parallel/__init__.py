@@ -1,2 +1,3 @@
-"""Parallel layouts of the port (port of `repro.parallel`): the serving
-mesh's sharding rules in `sharding`."""
+"""Parallel layouts of the port (port of `repro.parallel`): the mesh's
+sharding rules in `sharding`, int8 error-feedback gradient compression
+in `compress`, the GPipe schedule in `pipeline`."""

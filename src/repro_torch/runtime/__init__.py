@@ -1,1 +1,2 @@
-"""Fault tolerance of the training loop."""
+"""Fault tolerance of the training loop (`fault`) and elastic restart on
+another mesh (`elastic`)."""

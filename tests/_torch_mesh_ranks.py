@@ -1014,9 +1014,11 @@ def launcher_fp32(payload):
 
 
 def mesh2_world(payload):
-    """The jobs of the world of 2: {job: its results}."""
+    """The jobs of the world of 2 (the launcher twice: without and with a
+    checkpoint): {job: its results}."""
     return {"coll": collective_grads(payload["coll"]),
-            "launcher": launcher_fp32(payload["launcher"])}
+            "launcher": launcher_fp32(payload["launcher"]),
+            "launcher_ckpt": launcher_fp32(payload["launcher_ckpt"])}
 
 
 def train_mesh_world(payload):
@@ -1027,3 +1029,218 @@ def train_mesh_world(payload):
 
 
 JOBS.update(mesh2_world=mesh2_world, train_mesh_world=train_mesh_world)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the multi-device layer: compress, pipeline, elastic restart
+# ---------------------------------------------------------------------------
+def parallel_extras(payload):
+    """On a world of 4: `compressed_psum` of each rank's gradient over a
+    ('data',) mesh of the world's first 2 ranks and of all 4 (this
+    rank's g_hat and new_err); `pipeline_apply` over a ('stage',) mesh
+    of 4 for each microbatch count (its output and this rank's stage
+    gradient of sum(out ** 2)); the ring shift's values and its
+    refusal of a tensor that requires grad."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.parallel import compress, pipeline
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    for n in (2, 4):
+        mesh = meshlib.make_mesh((n,), ("data",), ranks=range(n))
+        if mesh is None:
+            continue
+        g = torch.from_numpy(payload["g"][n][rank])
+        err = torch.from_numpy(payload["err"][n][rank])
+        g_hat, new_err = compress.compressed_psum(g, err, mesh.axis("data"))
+        out[f"psum {n}"] = (_np(g_hat), _np(new_err))
+    mesh = meshlib.make_mesh((4,), ("stage",))
+    ax = mesh.axis("stage")
+    w = torch.from_numpy(payload["w"])
+    for m, x in payload["x"].items():
+        blk = w[rank:rank + 1].clone().requires_grad_()
+        y = pipeline.pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]),
+                                    {"w": blk}, torch.from_numpy(x), mesh)
+        (gw,) = torch.autograd.grad((y ** 2).sum(), [blk])
+        out[f"pipeline {m}"] = (_np(y), _np(gw))
+    t = torch.full((2, 3), float(rank))
+    out["shift"] = [_np(ax.ring_shift(t, s)) for s in (1, -1, 2)]
+    try:
+        ax.ring_shift(t.clone().requires_grad_() * 1.0)
+        out["shift refusal"] = None
+    except RuntimeError as e:
+        out["shift refusal"] = str(e)
+    return out
+
+
+JOBS["parallel_extras"] = parallel_extras
+
+
+def _state_on(mesh, cfg, ocfg, seed=0):
+    """(lm, the rank's blocks of a fresh state, its spec tree) on `mesh`."""
+    import torch
+
+    from repro_torch.kernels.policy import KernelPolicy
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic
+    lm = steps.build_lm(cfg, mesh, KernelPolicy("ref"))
+    params = lm.init_local(torch.Generator().manual_seed(seed))
+    specs = elastic.state_specs(cfg, mesh, ocfg.moment_dtype)
+    state = {"params": params,
+             "opt": adamw.init(params, ocfg, mesh=mesh, specs=specs["opt"]),
+             "step": torch.zeros((), dtype=torch.int32)}
+    return lm, state, specs
+
+
+def _train_steps(lm, ocfg, mesh, state, start, n, batch, seq):
+    """`n` train steps from `start` on the rank's rows of SyntheticLM's
+    batches; (state, the last step's loss)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.parallel import sharding as shlib
+    step = steps.make_train_step(lm, ocfg,
+                                 shape=ShapeSpec("t", seq, batch, "train"))
+    data = SyntheticLM(DataConfig(lm.cfg.vocab_size, seq, batch))
+    b_spec = shlib.batch_shardings(
+        {"x": torch.empty((batch,), device="meta")}, mesh)["x"]
+    loss = None
+    for s in range(start, start + n):
+        b = {k: shlib.local_block(torch.from_numpy(v), b_spec + (None,),
+                                  mesh).contiguous()
+             for k, v in data.batch(s).items()}
+        state, met = step(state, b)
+        loss = float(met["loss"])
+    return state, loss
+
+
+def _sub_meshes(shape, names):
+    """The mesh `shape` over ranks (0, 1) and over ranks (2, 3) of a world
+    of 4: (this rank's, whether it is the first)."""
+    from repro_torch.launch import mesh as meshlib
+    a = meshlib.make_mesh(shape, names, ranks=(0, 1))
+    b = meshlib.make_mesh(shape, names, ranks=(2, 3))
+    return (a, True) if a is not None else (b, False)
+
+
+def elastic_world(payload):
+    """The elastic restart's scenarios in one world of 4 (tiny config in
+    fp32, AdamW at lr 3e-4, SyntheticLM batches of (8, 32)):
+
+      * phase 1 on `build_mesh(plan_remesh(4, 2, 8))` (2x2): 4 steps,
+        saved at steps 2 and 4;
+      * ranks (0, 1) on `plan_remesh(2, 2, 8)` (1x2): resume step 4
+        through `replace_state` and take 2 steps, then the control
+        (step 2's checkpoint taken for step 4); meanwhile ranks (2, 3)
+        run a straight 6 steps on their own 1x2 mesh;
+      * checkpoints for the reference: one step on 1x2 (ranks 0, 1) and
+        on 2x1 (ranks 2, 3), fp32 and int8 moments, saved, with the
+        state gathered whole;
+      * the reference's checkpoints (fp32 and int8 moments) restored on
+        2x2, then on 1x2 (ranks 0, 1) and 2x1 (ranks 2, 3): this rank's
+        blocks;
+      * `run_resilient`'s restore escalation on 1x2: every rank raises
+        TransientError twice at step 3 (ranks 0, 1), against the same
+        run uninterrupted (ranks 2, 3).
+    Returns {scenario: results}; whole trees on their mesh's rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.core.treeutil import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import elastic, fault
+    rank = dist.get_rank()
+    cfg = _cfg(payload["cfg"])
+    B, S = payload["batch"], payload["seq"]
+    ocfg = adamw.AdamWConfig(lr=3e-4)
+    ck1 = payload["dir"] + "/elastic"
+    out = {"rank": rank}
+
+    # phase 1: 2x2, 4 steps, saved at 2 and 4
+    plan = elastic.plan_remesh(4, model_parallel=2, global_batch=B)
+    mesh4 = elastic.build_mesh(plan)
+    lm, state, specs = _state_on(mesh4, cfg, ocfg)
+    ck = Checkpointer(ck1, mesh=mesh4, specs=specs)
+    state, _ = _train_steps(lm, ocfg, mesh4, state, 0, 2, B, S)
+    ck.save(2, state)
+    state, loss = _train_steps(lm, ocfg, mesh4, state, 2, 2, B, S)
+    ck.save(4, state)
+    out["phase 1"] = {"plan": plan, "coords": mesh4.coords, "loss": loss}
+
+    # phase 2 on 1x2 (ranks 0, 1) and the straight run (ranks 2, 3)
+    plan2 = elastic.plan_remesh(2, model_parallel=2, global_batch=B)
+    mesh, first = _sub_meshes(plan2.shape(), plan2.axis_names())
+    lm, tmpl, specs = _state_on(mesh, cfg, ocfg, seed=1)
+    runs = ((("resumed", 4), ("control", 2)) if first
+            else (("straight", None),))
+    for name, saved in runs:
+        if saved is None:
+            st, loss = _train_steps(lm, ocfg, mesh, _state_on(
+                mesh, cfg, ocfg)[1], 0, 6, B, S)
+        else:
+            st = elastic.replace_state(cfg, Checkpointer(ck1), tmpl, mesh,
+                                       step=saved)
+            st, loss = _train_steps(lm, ocfg, mesh, st, 4, 2, B, S)
+        whole = _whole(st["params"], specs["params"], mesh)
+        out[name] = {"loss": loss, "plan": plan2,
+                     "params": whole if mesh.rank in (0, 2) else None}
+    dist.barrier()
+
+    # checkpoints for the reference: 1x2 on (0, 1), 2x1 on (2, 3)
+    from repro_torch.launch import mesh as meshlib
+    a = meshlib.make_mesh((1, 2), ("data", "model"), ranks=(0, 1))
+    b = meshlib.make_mesh((2, 1), ("data", "model"), ranks=(2, 3))
+    sub, name = (a, "1x2") if a is not None else (b, "2x1")
+    for moments in ("float32", "int8"):
+        oc = adamw.AdamWConfig(lr=3e-4, moment_dtype=moments)
+        lm, st, specs = _state_on(sub, cfg, oc)
+        st, _ = _train_steps(lm, oc, sub, st, 0, 1, B, S)
+        d = payload["dir"] + f"/to_ref_{name}_{moments}"
+        Checkpointer(d, mesh=sub, specs=specs).save(1, st)
+        whole = _whole(st, specs, sub)
+        out[f"to ref {name} {moments}"] = {
+            "dir": d, "whole": whole if sub.rank in (0, 2) else None}
+    dist.barrier()
+
+    # the reference's checkpoints on phase 1's 2x2 mesh, then on 1x2
+    # (ranks 0, 1) and 2x1 (ranks 2, 3)
+    for target, tname in ((mesh4, "2x2"), (sub, name)):
+        for moments in ("float32", "int8"):
+            oc = adamw.AdamWConfig(lr=3e-4, moment_dtype=moments)
+            lm, tmpl, specs = _state_on(target, cfg, oc, seed=1)
+            st = elastic.replace_state(cfg, Checkpointer(
+                payload["from_ref"][moments]), tmpl, target)
+            out[f"from ref {tname} {moments}"] = {
+                "blocks": tree_map(_np, st), "specs": specs,
+                "coords": target.coords, "shape": target.shape,
+                "same_dtype": tree_map(lambda x, y: x.dtype == y.dtype, st,
+                                       tmpl)}
+
+    # run_resilient's restore escalation on 1x2
+    mesh, first = _sub_meshes(plan2.shape(), plan2.axis_names())
+    lm, st, specs = _state_on(mesh, cfg, ocfg)
+    ck = Checkpointer(payload["dir"] + f"/escalation_{int(first)}",
+                      mesh=mesh, specs=specs)
+    failures = {"left": 2 if first else 0}
+
+    def one_step(state, step):
+        if step == 3 and failures["left"]:
+            failures["left"] -= 1
+            raise fault.TransientError("every rank at step 3")
+        return _train_steps(lm, ocfg, mesh, state, step, 1, B, S)[0], {}
+    st, stats = fault.run_resilient(one_step, st, 0, 5, checkpointer=ck,
+                                    ckpt_every=2)
+    whole = _whole(st, specs, mesh)
+    out["escalation" if first else "uninterrupted"] = {
+        "stats": stats, "steps": ck.all_steps(),
+        "state": whole if mesh.rank in (0, 2) else None}
+    return out
+
+
+JOBS["elastic_world"] = elastic_world

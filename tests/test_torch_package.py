@@ -180,10 +180,12 @@ GSPMD_LAYOUTS = {f"Sharder.{m}" for m in (
 
 
 @pytest.mark.parametrize("module", [
-    "parallel/sharding", "launch/steps", "launch/mesh"])
+    "parallel/sharding", "launch/steps", "launch/mesh", "runtime/elastic",
+    "parallel/compress", "parallel/pipeline"])
 def test_mesh_modules_have_port_counterparts(module):
-    """Every public function, class and method of the reference's LM and
-    serving mesh modules has a counterpart of the same name (or the
+    """Every public function, class and method of the reference's
+    multi-device modules (the LM and serving meshes, elastic restart,
+    gradient compression, the pipeline) has a counterpart of the same name (or the
     port's name in MESH_RENAMED) in the port's module of the same path."""
     import importlib
     port = importlib.import_module("repro_torch." + module.replace("/", "."))

@@ -64,6 +64,7 @@ What is held, and the tolerances:
     rounding noise either way, not a fault.
 """
 import dataclasses
+import json
 import os
 import pickle
 import re
@@ -665,12 +666,25 @@ LAUNCH_ARGS = ["--arch", H2O, "--tiny", "--steps", "3", "--batch", "4",
                "--seq", "32", "--log-every", "1", "--device", "cpu"]
 
 
+# the launcher with a checkpoint: 4 steps, saved at 2 and 4
+CKPT_BASE = ["--arch", H2O, "--tiny", "--batch", "4", "--seq", "32",
+             "--log-every", "1", "--device", "cpu"]
+CKPT_ARGS = CKPT_BASE + ["--steps", "4", "--ckpt-every", "2"]
+
+
 @pytest.fixture(scope="module")
-def world2(inputs, tmp_path_factory):
+def launch_ckpt(tmp_path_factory):
+    return tmp_path_factory.mktemp("launch_ckpt") / "ckpt"
+
+
+@pytest.fixture(scope="module")
+def world2(inputs, launch_ckpt, tmp_path_factory):
     """Rank r's results of every job of the world of 2."""
     return ranks.run(2, tmp_path_factory.mktemp("world2"), "mesh2_world",
                      {"coll": inputs["coll"],
-                      "launcher": {"args": LAUNCH_ARGS}})
+                      "launcher": {"args": LAUNCH_ARGS},
+                      "launcher_ckpt": {"args": CKPT_ARGS + [
+                          "--ckpt", str(launch_ckpt)]}})
 
 
 @pytest.fixture(scope="module")
@@ -759,15 +773,44 @@ def test_loss_fn_under_a_mesh_takes_the_layout_and_no_positions():
     assert float(a) == pytest.approx(float(b), abs=1e-6)
 
 
-def test_launcher_refuses_checkpoints_under_a_mesh(monkeypatch, tmp_path):
+def test_launcher_refuses_checkpoints_under_a_mesh(world2, launch_ckpt,
+                                                   monkeypatch):
+    """The launcher once refused `--ckpt` under a mesh of more than one
+    rank; now the flags run.  In the world of 2 at --model-parallel 2,
+    4 steps in fp32 with `--ckpt D --ckpt-every 2`: both ranks return
+    the same losses, each within 1e-5 relative of the one-device
+    launcher's, and D holds steps 2 and 4 with every leaf whole (the
+    global shapes)."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
     from repro_torch.launch import train
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    for extra in (["--ckpt", str(tmp_path)], ["--resume"]):
-        with pytest.raises(NotImplementedError,
-                           match="elastic restart and the sharded "
-                                 "checkpoint"):
-            train.main(["--arch", H2O, "--tiny", "--mesh", "local",
-                        "--model-parallel", "2", "--device", "cpu"] + extra)
+    monkeypatch.setattr(train, "get_config", lambda arch: dataclasses.replace(
+        get_config(arch), dtype="float32"))
+    got = [r["launcher_ckpt"] for r in world2]
+    assert got[0] == got[1] and len(got[0]) == 4
+    np.testing.assert_allclose(got[0], train.main(CKPT_ARGS), rtol=1e-5)
+    assert Checkpointer(launch_ckpt).all_steps() == [2, 4]
+    manifest = json.loads((launch_ckpt / "step_000000004" / "manifest.json")
+                          .read_text())["leaves"]
+    for path, leaf in leaves_with_paths(LM(_cfg(H2O)).param_shapes()):
+        assert manifest["params/" + "/".join(path)]["shape"] == list(
+            leaf.shape), path
+
+
+def test_launcher_mesh_checkpoint_resumes_on_one_device(world2, launch_ckpt,
+                                                        monkeypatch):
+    """An elastic restart from a mesh to one device: the one-device
+    launcher `--resume`s the world of 2's step-4 checkpoint for 2 steps,
+    whose losses are within 1e-5 relative of a straight one-device 6-step
+    run's last two."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(train, "get_config", lambda arch: dataclasses.replace(
+        get_config(arch), dtype="float32"))
+    assert world2[0]["launcher_ckpt"]
+    resumed = train.main(CKPT_BASE + ["--steps", "2", "--ckpt",
+                                      str(launch_ckpt), "--resume"])
+    straight = train.main(CKPT_BASE + ["--steps", "6"])
+    assert len(resumed) == 2 and len(straight) == 6
+    np.testing.assert_allclose(resumed, straight[4:], rtol=1e-5)
 
 
 def test_launcher_mesh_matches_one_device_in_fp32(world2, monkeypatch):
