@@ -8,11 +8,12 @@ int8 LM serving weights), the sharded ASR serving step (a mesh of
 `torch.distributed` ranks, here sharing the one card), the sharded
 LM serving cells (`launch/steps.build_cell` on such a mesh), the
 network server on such a mesh (`--serve --mesh`), LM training on
-such a mesh (`launch/train.py --mesh`) and the rest of the multi-device
+such a mesh (`launch/train.py --mesh`), the rest of the multi-device
 layer (elastic restart with a sharded checkpoint, int8 gradient
-compression, the pipeline).
+compression, the pipeline) and the dry-run tooling's counts against
+measured cells (`launch/dryrun.py`, `op_cost.py`, `roofline.py`).
 
-    python3 chip_smoke.py [--before DIR] [--only-phase 24|25|26]
+    python3 chip_smoke.py [--before DIR] [--only-phase 24|25|26|27]
 
 `--before DIR` (a checkout of the parent commit) also times DIR's
 logmel and beam_prune kernels beside this checkout's.  `--only-phase
@@ -263,8 +264,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                under build/chip_smoke/lm_mesh/ and freed.  On every rank:
                its parameter blocks bitwise the unsharded serving tree's
                (fingerprints of the bits); launches per cell as one
-               device's (rmsnorm 49 a forward, 97 for mamba2; flash 24 a
-               prefill).  At full depth in bf16 and at LM_MESH_LAYERS
+               device's (rmsnorm 2 L + 1 a forward of L layers; flash L
+               a prefill, none for mamba2).  In bf16 at LM_MESH_DEEP
+               layers (the depth cut, every width kept, so that the
+               whole run keeps within 1000 s) and at LM_MESH_LAYERS
                layers in fp32 and bf16, the kernel path and the mesh's
                plain path (replaying the kernel path's MoE routes) run
                prefill and the decode steps.  The kernels, isolated from
@@ -386,6 +389,27 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                per rank are printed as "N ranks sharing one card, gloo
                host-staged collectives: not a multi-card figure".  At
                most ELASTIC_PHASE_LIMIT_S.
+ 27. roofline — the dry run's op counter against the card.  (a)
+               ROOF_ARCH at full width on a 1x1 mesh through
+               `build_cell` (ROOF_CELLS: a prefill at (1, 4096), a decode
+               step at 8 slots over a 4096-token cache, a train step at
+               (1, 2048) with fp32 moments; int8 serving weights and
+               KernelPolicy("auto") for the serving cells, the train
+               cell's own plain paths), each counted on meta by
+               `dryrun.count_cell`, then on the card: one call's kernel
+               launches must equal the counter's kernel ops; the median
+               of ROOF_REPS calls (CUDA events, after a warm-up), the
+               device busy time of one call (profiler) and its peak of
+               allocated memory beside the predicted high-water mark.
+               Printed: FLOPs by dtype, bytes, t_compute / t_memory, the
+               bound (derived from NVIDIA H100 SXM published peaks) and
+               its term, measured ms, share (bound / measured), busy
+               share.  A share above ROOF_SHARE_MAX fails (no card beats
+               its peak: the count would be wrong).  (b) ROOF_DRY dry on
+               this host at rank 0 and at the last rank: both ranks'
+               terms and HBM a rank printed; the last rank's attention
+               operations must exceed rank 0's.  There is no CPU
+               fallback.  At most ROOF_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -433,8 +457,10 @@ from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  hypothesis_unit as khu, int8_matmul as kim,
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
+from repro_torch.kernels.cost import attn_pairs, flash_flops  # noqa: E402
 from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
-from repro_torch.launch import mesh as meshlib, steps, train  # noqa: E402
+from repro_torch.launch import (dryrun, mesh as meshlib,  # noqa: E402
+                                roofline, steps, train)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.serve import (asr_demo_engine,  # noqa: E402
                                       asr_demo_system)
@@ -456,12 +482,12 @@ from repro_torch.serving.server import (AsrClient,  # noqa: E402
 OUT = ROOT / "build" / "chip_smoke"
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor)
-# FLOP/s and dense int8 tensor-core OP/s, for the bounds.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_INT8 = 1979e12
-PEAK_BF16 = 989e12
+# H100 SXM peaks (NVIDIA data sheet; launch/roofline.py): HBM3 bytes/s,
+# fp32 (non-tensor) FLOP/s, dense int8 and bf16 tensor-core rates, for
+# the bounds.
+PEAK_BYTES = roofline.HBM_BW
+PEAK_FP32, PEAK_INT8, PEAK_BF16 = (roofline.PEAK_FLOPS[k]
+                                   for k in ("fp32", "int8", "bf16"))
 KERNELS = ("logmel", "tds_conv", "layernorm", "hypothesis_unit",
            "int8_matmul")
 LM_KERNELS = ("rmsnorm", "flash_attention")
@@ -607,6 +633,10 @@ LM_MESH_CASES = ((LM_ARCH, "1x2", 4), (LM_ARCH, "1x4", 4), (LM_ARCH, "2x2", 4),
 LM_MESH_SEQ = 2048
 LM_MESH_STEPS = 8
 LM_MESH_LAYERS = 4              # the fp32 and the shallow bf16 checks' depth
+# the deep bf16 check's depth, every width kept: the models' 24 (48 for
+# mamba2-1.3b) layers cut so that the whole run, phase 27 included, keeps
+# within 1000 s (984.7 s before the cut, phase 23 263-323 s at full depth)
+LM_MESH_DEEP = 8
 # fp32 at LM_MESH_LAYERS layers, sharded vs unsharded: prefill logits
 # within LM_LOGIT_RTOL of max |logit|, cache blocks within
 # LM_MESH_CACHE_RTOL of the cache's largest |value|.  Relative: the
@@ -700,6 +730,19 @@ ELASTIC_TIMEOUT_S = 300.0
 ELASTIC_PHASE_GOAL_S = 150.0
 ELASTIC_PHASE_LIMIT_S = 300.0
 ELASTIC_DIR = ROOT / "build" / "chip_smoke" / "elastic"
+# phase 27: the dry-run tooling's counts against the card.  (a) ROOF_ARCH
+# at full width on a 1x1 mesh through build_cell, (kind, B, S): int8
+# serving weights and KernelPolicy("auto") for the serving cells, the
+# train cell's own plain paths and fp32 moments; the decode step's cache
+# is a prefill's of its 8 rows.  No card beats its peak: a share of the
+# bound above ROOF_SHARE_MAX means the count is wrong.  (b) ROOF_DRY dry,
+# at rank 0 and at the last rank
+ROOF_ARCH = LM_ARCH
+ROOF_CELLS = (("prefill", 1, 4096), ("decode", 8, 4096), ("train", 1, 2048))
+ROOF_REPS = 5
+ROOF_SHARE_MAX = 1.05
+ROOF_DRY = ("qwen2-72b", "prefill_32k", "single_pod")
+ROOF_PHASE_LIMIT_S = 60.0
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -787,7 +830,8 @@ def fail(msg: str) -> None:
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FP32) -> float:
-    return max(nbytes / PEAK_BYTES, flops / peak) * 1e3
+    kind = {v: k for k, v in roofline.PEAK_FLOPS.items()}[peak]
+    return roofline.bound_s({kind: flops}, nbytes) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1876,15 +1920,6 @@ def device_breakdown(fn, tag: str, what: str, step_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 # LM phases: h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
-def attn_pairs(sq: int, skv: int, window, causal: bool = True) -> int:
-    """Unmasked (q, k) pairs of one head, q right-aligned to the end of
-    kv: the work the flash kernel's inputs need."""
-    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
-    hi = np.minimum(qpos, skv - 1) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def attn_inputs(dev, gen, b, h, kv, sq, skv, d, dtype):
     return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
                  for shape in ((b, h, sq, d), (b, kv, skv, d),
@@ -2240,7 +2275,7 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
                   f"{flash_key(H, K, S, D, B)}: {e}", flush=True)
             sdpa, lib_err = None, None
         pairs = attn_pairs(S, S, win)
-        flops = 4 * D * H * B * pairs
+        flops = flash_flops(q, k, True, win)
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
         r = {"ms": device_ms(lambda q=q, k=k, v=v: kfa.flash_attention(
                  q, k, v, causal=True, window=win), n=10),
@@ -4239,13 +4274,14 @@ def top2(logits: torch.Tensor, vocab: int):
 
 
 def lm_mesh_configs(cfg):
-    """Phase 23's three depths of a model: (tag, config): the full-depth
-    bf16 model, LM_MESH_LAYERS layers in fp32 (the same draws), and
-    LM_MESH_LAYERS layers in bf16 (where each path's roundings are also
-    measured against an fp32 evaluation of the same weights)."""
+    """Phase 23's three depths of a model: (tag, config): the bf16 model
+    at LM_MESH_DEEP layers (every width), LM_MESH_LAYERS layers in fp32
+    (the same draws), and LM_MESH_LAYERS layers in bf16 (where each
+    path's roundings are also measured against an fp32 evaluation of the
+    same weights)."""
     short = replace(cfg, n_layers=LM_MESH_LAYERS)
-    return (("bf16", cfg), ("fp32", replace(short, dtype="float32")),
-            ("bf16 L4", short))
+    return (("bf16", replace(cfg, n_layers=min(cfg.n_layers, LM_MESH_DEEP))),
+            ("fp32", replace(short, dtype="float32")), ("bf16 L4", short))
 
 
 @contextlib.contextmanager
@@ -4479,7 +4515,7 @@ def lm_mesh_case(dev, arch, spec, batch, mesh, prints, rank) -> dict:
     cfg = get_config(arch)
     ref = torch.load(LM_MESH_DIR / f"{arch}.pt")
     S = LM_MESH_SEQ
-    norms, attn = LM_LAUNCHES[arch]
+    attn = LM_LAUNCHES[arch][1]
     kern = KernelPolicy("auto")
     torch.cuda.reset_peak_memory_stats(dev)
     res = {"counts": {}, "collectives": {}, "ms": {}}
@@ -4499,8 +4535,8 @@ def lm_mesh_case(dev, arch, spec, batch, mesh, prints, rank) -> dict:
     for tag, c in lm_mesh_configs(cfg):
         rb = ref[tag]
         # two norms a layer and the final one; a flash launch a layer
-        n_norm = norms if tag == "bf16" else 2 * LM_MESH_LAYERS + 1
-        n_attn = attn if tag == "bf16" or not attn else LM_MESH_LAYERS
+        n_norm = 2 * c.n_layers + 1
+        n_attn = c.n_layers if attn else 0
         fn_p, (p_loc, b_loc) = steps.build_cell(c, pre, mesh, policy=kern)
         fn_d, (_, c_loc, d_loc) = steps.build_cell(c, dec, mesh, policy=kern)
         fn_pp, _ = steps.build_cell(c, pre, mesh, policy=PLAIN)
@@ -4823,7 +4859,12 @@ def lm_mesh_phase(dev, smi) -> dict:
         cases[key] = {"label": label, "ranks": mine}
     print(f"[lm mesh] phase 23 took {phase_s:.2f} s (references "
           f"{ref_s:.2f} s; limit {LM_MESH_PHASE_LIMIT_S:.0f} s); launches "
-          f"over every rank and case {counts} ({smi})", flush=True)
+          f"over every rank and case {counts} ({smi}); depth cut: the deep "
+          f"bf16 check at {LM_MESH_DEEP} layers of "
+          + ", ".join(f"{a}'s {get_config(a).n_layers}"
+                      for a in lm_mesh_archs())
+          + " (every width kept), so that the whole run keeps within "
+          "1000 s", flush=True)
     if phase_s > LM_MESH_PHASE_LIMIT_S:
         fail(f"lm mesh phase took {phase_s:.1f} s, more than "
              f"{LM_MESH_PHASE_LIMIT_S} s")
@@ -6320,13 +6361,176 @@ def elastic_phase(dev, smi) -> dict:
             "label": label}
 
 
+# ---------------------------------------------------------------------------
+# 27. the dry-run tooling's counts against measured cells on the card
+# ---------------------------------------------------------------------------
+def roof_args(dev, cfg, kind, B, S, mesh, meta_args):
+    """Tensors on the card for a cell's arguments, checked against the
+    cell's meta shapes: the rank's int8 serving blocks (`init_local`,
+    seed SEED) and random tokens; a decode step's cache is the prefill's
+    of the same rows; the train state's parameters are the bf16 tree
+    with `adamw.init`'s fp32 moments."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lm = steps.build_lm(cfg, mesh, KernelPolicy("auto"))
+    if kind == "train":
+        params = lm.init_local(gen, int8=False)
+        opt = adamw.init(params, adamw.AdamWConfig(moment_dtype="float32"))
+        args = ({"params": params, "opt": opt,
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)},
+                {"tokens": toks, "labels": torch.roll(toks, -1, 1)})
+    else:
+        params = lm.init_local(gen, int8=True)
+        if kind == "prefill":
+            args = (params, {"tokens": toks})
+        else:
+            fn_p, _ = steps.build_cell(cfg, ShapeSpec("p", S, B, "prefill"),
+                                       mesh, policy=KernelPolicy("auto"))
+            _, cache = fn_p(params, {"tokens": toks})
+            args = (params, cache, {"tokens": toks[:, -1:]})
+    got = [(tuple(t.shape), t.dtype) for _, t in leaves_with_paths(args)]
+    want = [(tuple(t.shape), t.dtype)
+            for _, t in leaves_with_paths(meta_args)]
+    if got != want:
+        fail(f"roofline {kind}: the card's arguments are not build_cell's "
+             f"shapes")
+    return args
+
+
+def roof_cell(dev, smi, cfg, kind, B, S) -> dict:
+    """One cell of phase 27(a): counted on meta (`dryrun.count_cell`, the
+    same 1x1 mesh and policy), then on the card: one call's launches
+    against the counter's kernel ops, the median of ROOF_REPS timed calls
+    after a warm-up (CUDA events), the device's busy time in one call
+    (profiler), and the peak of allocated memory in one call against the
+    predicted high-water mark."""
+    mesh = meshlib.make_mesh((1, 1), ("data", "model"))
+    shape = ShapeSpec(kind, S, B, kind)
+    policy = None if kind == "train" else KernelPolicy("auto")
+    rec = dryrun.count_cell(cfg, shape, mesh)
+    if rec["status"] != "ok":
+        fail(f"roofline {kind}: the count failed: {rec['error']}\n"
+             f"{rec['traceback']}")
+    fn, meta_args = steps.build_cell(cfg, shape, mesh, policy=policy)
+    args = roof_args(dev, cfg, kind, B, S, mesh, meta_args)
+    fn(*args)                                    # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    if launched != rec["kernel_ops"]:
+        fail(f"roofline {kind}: the counter's kernel ops "
+             f"{rec['kernel_ops']} are not the card's launches {launched}")
+    ms = host_ms(lambda: fn(*args), n=ROOF_REPS, warmup=1)
+    prof = device_breakdown(lambda: fn(*args), f"roofline {kind}",
+                            f"{cfg.name} {kind} (B={B}, S={S})", ms)
+    r, mem = rec["roofline"], rec["memory_analysis"]
+    bound = max(r["t_compute"], r["t_memory"], r["t_collective"]) * 1e3
+    share = bound / ms
+    busy = prof["device_busy_ms"]
+    out = {"B": B, "S": S, "flops": r["flops_by_dtype"],
+           "bytes": r["bytes_per_device"], "t_compute_ms": r["t_compute"] * 1e3,
+           "t_memory_ms": r["t_memory"] * 1e3, "bound_ms": bound,
+           "bound_by": r["bottleneck"], "ms": ms, "share": share,
+           "busy_ms": busy, "busy_share": None if busy is None else busy / ms,
+           "predicted_hbm_bytes": mem["total_hbm_bytes_per_device"],
+           "predicted_argument_bytes": mem["argument_size_in_bytes"],
+           "resident_bytes": resident, "max_allocated_bytes": peak,
+           "kernel_ops": rec["kernel_ops"], "count_s": rec["count_s"]}
+    flops = ", ".join(f"{k} {v:.4e}" for k, v in r["flops_by_dtype"].items()
+                      if v)
+    print(f"[roofline] {cfg.name} {kind} (B={B}, S={S}) 1x1: FLOPs {flops}; "
+          f"bytes {r['bytes_per_device']:.4e}; t_compute "
+          f"{out['t_compute_ms']:.3f} ms, t_memory {out['t_memory_ms']:.3f} "
+          f"ms: bound {bound:.3f} ms by {r['bottleneck']}; measured "
+          f"{ms:.3f} ms (median of {ROOF_REPS}): share {share:.4f}; device "
+          f"busy {busy} ms, busy share "
+          f"{'not measured' if busy is None else f'{busy / ms:.4f}'}; HBM "
+          f"predicted {mem['total_hbm_bytes_per_device'] / 1e9:.3f} GB "
+          f"(arguments {mem['argument_size_in_bytes'] / 1e9:.3f}) against "
+          f"max allocated {peak / 1e9:.3f} GB (resident before the call "
+          f"{resident / 1e9:.3f}); kernel ops = launches {launched}; "
+          f"counted on meta in {rec['count_s']} s ({smi})", flush=True)
+    if not share <= ROOF_SHARE_MAX:
+        fail(f"roofline {kind}: the bound is {share:.3f} of the measured "
+             f"time (limit {ROOF_SHARE_MAX}): the count is wrong")
+    del args
+    return out
+
+
+def roofline_phase(dev, smi) -> dict:
+    """Phase 27: (a) each ROOF_CELLS cell of ROOF_ARCH counted and
+    measured (`roof_cell`); (b) ROOF_DRY dry at rank 0 and at the last
+    rank (`dryrun.run_cell`): both ranks' terms and HBM printed, the last
+    rank's attention operations above rank 0's.  Within
+    ROOF_PHASE_LIMIT_S."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ROOF_ARCH)
+    cells = {}
+    for kind, B, S in ROOF_CELLS:
+        cells[kind] = roof_cell(dev, smi, cfg, kind, B, S)
+        gc.collect()
+        torch.cuda.empty_cache()
+    arch, shape, mesh = ROOF_DRY
+    dry = {}
+    for rank in (0, None):
+        rec = dryrun.run_cell(arch, shape, mesh, rank=rank, save=False)
+        if rec["status"] != "ok":
+            fail(f"roofline: {arch} {shape} {mesh} rank {rank} dry: "
+                 f"{rec['error']}")
+        r = rec["roofline"]
+        dry[rec["rank"]] = {
+            "coords": rec["coords"], "t_compute": r["t_compute"],
+            "t_memory": r["t_memory"], "t_collective": r["t_collective"],
+            "bottleneck": r["bottleneck"],
+            "attention_flops": rec["flops_by_op"].get("flash_attention", 0.0),
+            "flops": r["flops_by_dtype"],
+            "hbm_bytes": rec["memory_analysis"]["total_hbm_bytes_per_device"],
+            "count_s": rec["count_s"]}
+        d = dry[rec["rank"]]
+        print(f"[roofline] {arch} {shape} {mesh} dry, rank {rec['rank']} "
+              f"{rec['coords']}: t = ({d['t_compute']:.4f}, "
+              f"{d['t_memory']:.4f}, {d['t_collective']:.4f}) s, bound by "
+              f"{d['bottleneck']}; attention {d['attention_flops']:.4e} of "
+              f"{r['flops_per_device']:.4e} operations; HBM "
+              f"{d['hbm_bytes'] / 1e9:.3f} GB a rank of "
+              f"{roofline.HBM_BYTES / 1e9:.0f}; counted in {d['count_s']} s "
+              f"(derived from NVIDIA H100 SXM published peaks, not measured)",
+              flush=True)
+    first, last = dry[0], dry[max(dry)]
+    if not last["attention_flops"] > first["attention_flops"]:
+        fail(f"roofline: the last rank's attention "
+             f"{last['attention_flops']:.4e} is not above rank 0's "
+             f"{first['attention_flops']:.4e}")
+    counts = {name: sum(c["kernel_ops"].get(name, 0) for c in cells.values())
+              for name in ops.KERNEL_MODULES}
+    phase_s = time.perf_counter() - t_phase
+    print(f"[roofline] phase 27 took {phase_s:.2f} s (limit "
+          f"{ROOF_PHASE_LIMIT_S:.0f} s); every share at most "
+          f"{ROOF_SHARE_MAX}; kernel ops equal the launches ({smi})",
+          flush=True)
+    if phase_s > ROOF_PHASE_LIMIT_S:
+        fail(f"roofline phase took {phase_s:.1f} s, more than "
+             f"{ROOF_PHASE_LIMIT_S} s")
+    return {"cells": cells, "dry": {str(k): v for k, v in dry.items()},
+            "counts": counts, "phase_s": phase_s}
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: also time its "
                          "int8_matmul and hypothesis_unit kernels")
-    ap.add_argument("--only-phase", type=int, choices=(24, 25, 26),
+    ap.add_argument("--only-phase", type=int, choices=(24, 25, 26, 27),
                     default=None,
                     help="build, then run this phase alone (24: after "
                          "serving phase 5's system in process for its "
@@ -6366,6 +6570,9 @@ def main() -> None:
         return
     if args.only_phase == 26:
         elastic_phase(dev, smi)
+        return
+    if args.only_phase == 27:
+        roofline_phase(dev, smi)
         return
 
     if args.only_phase == 24:
@@ -6600,6 +6807,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     elastic_res = elastic_phase(dev, smi)
+    # 27. the dry-run tooling's counts against measured cells on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    roof = roofline_phase(dev, smi)
 
     kernels = []
     for name in KERNELS:
@@ -6674,6 +6885,7 @@ def main() -> None:
         by_path.update({arch: lm2[arch]["counts"][name] for arch in lm2})
         by_path.update({path: c[name] for path, c in lm3_paths.items()})
         by_path["lm mesh (all ranks)"] = lm_mesh["counts"][name]
+        by_path["roofline cells"] = roof["counts"][name]
         lm_errs[name] = max(lm_errs[name], lm3_errs[name])
         kernels.append({
             "name": name, "route": "cuda",
@@ -6729,7 +6941,8 @@ def main() -> None:
         "lm3": {"max_abs_err": lm3_errs, "timing": lm3_timing, VLM_ARCH: vlm,
                 AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
         "lm_mesh": lm_mesh, "serve_mesh": serve_mesh,
-        "train_mesh": train_mesh, "elastic": elastic_res}, indent=1))
+        "train_mesh": train_mesh, "elastic": elastic_res,
+        "roofline": roof}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
@@ -6744,7 +6957,8 @@ def main() -> None:
           f"{mesh['counts']}; the sharded LM cells (every rank, every "
           f"case): {lm_mesh['counts']}; the mesh server (every rank, every "
           f"case): {serve_mesh['counts']}; training on the mesh, elastic "
-          f"restart, compressed_psum and the pipeline: none",
+          f"restart, compressed_psum and the pipeline: none; the roofline "
+          f"cells (phase 27): {roof['counts']}",
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

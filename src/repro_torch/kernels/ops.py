@@ -6,6 +6,10 @@ the plain PyTorch version in `kernels/ref.py` (CPU or card), ``kernel``
 the CUDA kernel's wrapper (card only).  The wrappers never fall back: a
 failed build or launch raises.
 
+Each wrapper that launches a kernel is decorated with `cost.fused`: under
+an op counter (`launch/op_cost.py`) one call of it is one fused op of
+its kernel's formula, its plain ops not counted again.
+
 The mesh helpers (`shard_local_cols`, `overlap_splits`,
 `psum_overlap_matmul`, and `int8_matmul_prepared(axis=)`) serve the
 sharded ASR step: `axis` is a `launch.mesh.MeshAxis`, this rank's view
@@ -16,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import beam_prune as _bp
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hypothesis_unit as _hu
 from repro_torch.kernels import int8_matmul as _im
@@ -45,12 +50,14 @@ def reset_launch_counts() -> None:
         setattr(mod, _COUNTERS.get(name, "launches"), 0)
 
 
+@_cost.fused("layernorm")
 def layernorm(x, scale, bias, *, eps=1e-5, policy=None):
     if resolve(policy, x) == "ref":
         return _ref.layernorm(x, scale, bias, eps=eps)
     return _ln.layernorm(x.contiguous(), scale, bias, eps=eps)
 
 
+@_cost.fused("layernorm")
 def bias_residual_layernorm(y, scale, bias, *, add_bias=None, res=None,
                             eps=1e-5, policy=None):
     """LayerNorm of (y + add_bias) + res, the addends optional: the TDS
@@ -64,6 +71,7 @@ def bias_residual_layernorm(y, scale, bias, *, add_bias=None, res=None,
         res=None if res is None else res.contiguous(), eps=eps)
 
 
+@_cost.fused("rmsnorm")
 def rmsnorm(x, scale, *, eps=1e-6, policy=None):
     """x: (R, D) bf16/f32; scale: (D,) f32 -> (R, D) in x's dtype."""
     if resolve(policy, x) == "ref":
@@ -71,6 +79,7 @@ def rmsnorm(x, scale, *, eps=1e-6, policy=None):
     return _ln.rmsnorm(x.contiguous(), scale.float().contiguous(), eps=eps)
 
 
+@_cost.fused("flash_attention")
 def flash_attention(q, k, v, *, causal=True, window=None, policy=None):
     """q: (B, H, Sq, D); k, v: (B, K, Skv, D) with K | H -> (B, H, Sq, D).
 
@@ -84,12 +93,14 @@ def flash_attention(q, k, v, *, causal=True, window=None, policy=None):
                                v.contiguous(), causal=causal, window=window)
 
 
+@_cost.fused("logmel")
 def logmel(power, fb, dct, policy=None):
     if resolve(policy, power) == "ref":
         return _ref.logmel(power, fb, dct)
     return _lm.logmel(power.contiguous(), fb, dct)
 
 
+@_cost.fused("logmel")
 def mfcc(signal, cfg, tables, policy=None):
     """signal: (..., S) f32 -> (..., n_frames, n_mfcc) f32, the whole MFCC
     (`cfg`: a FeatureConfig; `tables`: `features._tables`); one launch
@@ -99,6 +110,7 @@ def mfcc(signal, cfg, tables, policy=None):
     return _lm.mfcc(signal.contiguous(), cfg, tables)
 
 
+@_cost.fused("beam_prune")
 def beam_prune(scores, beam, policy=None):
     """scores: (N,) f32 -> scores with entries < max - beam set to -1e30
     (the hypothesis unit's standalone threshold stage)."""
@@ -107,6 +119,7 @@ def beam_prune(scores, beam, policy=None):
     return _bp.beam_prune(scores.contiguous(), beam)
 
 
+@_cost.fused("tds_conv")
 def tds_conv(x, w, b, *, stride=1, relu=False, res=None, policy=None):
     """Causal strided TDS conv with the fused bias+ReLU+residual
     epilogue.  x: (B, k-1+T, W, Cin) slot-batched (3-D = B=1)."""
@@ -124,6 +137,7 @@ def tds_conv(x, w, b, *, stride=1, relu=False, res=None, policy=None):
     return out[0] if squeeze else out
 
 
+@_cost.fused("tds_conv")
 def tds_conv_ln(x, w, b, ln_scale, ln_bias, *, stride=1, relu=False,
                 res=None, eps=1e-5, policy=None):
     """`tds_conv`, then LayerNorm over each output frame's W*Cout values
@@ -144,6 +158,7 @@ def tds_conv_ln(x, w, b, ln_scale, ln_bias, *, stride=1, relu=False,
     return out[0] if squeeze else out
 
 
+@_cost.fused("hypothesis_unit")
 def hypothesis_unit(hashes, pb, pnb, k, beam, policy=None):
     """Fused hypothesis unit over a batch of candidate rows.
 
@@ -255,22 +270,34 @@ def int8_matmul_prepared(x, wq, ws, *, policy=None, axis=None,
     does; the column slice of the K-contiguous weight view stays
     K-contiguous, so no chunk copies its weight."""
     if axis is None or wq.shape[0] == x.shape[1]:
-        if resolve(policy, x) == "ref":
-            return _ref.int8_matmul_prepared(x, wq, ws)
-        return _im.int8_matmul_fused(x.float().contiguous(), wq, ws)
-    mode = resolve(policy, x)
+        return _int8_fused(x, wq, ws, policy=policy)
     xq, xs = quantize_rows(x)
     xloc = shard_local_cols(xq, wq.shape[0], axis).contiguous()
 
     def product(lo, hi):
-        if mode == "ref":
-            return _ref.int8_matmul(xloc, wq[:, lo:hi], xs, ws[lo:hi])
-        return _im.int8_matmul(xloc, wq[:, lo:hi], xs, ws[lo:hi])
+        return _int8_product(xloc, wq[:, lo:hi], xs, ws[lo:hi],
+                             policy=policy)
     if overlap:
         return _overlapped(wq.shape[1], product, axis)
     out = product(0, wq.shape[1])
     axis.all_reduce(out)
     return out
+
+
+@_cost.fused("int8_matmul")
+def _int8_fused(x, wq, ws, *, policy=None):
+    """One launch: x's rows quantized, the int8 product, the rescale."""
+    if resolve(policy, x) == "ref":
+        return _ref.int8_matmul_prepared(x, wq, ws)
+    return _im.int8_matmul_fused(x.float().contiguous(), wq, ws)
+
+
+@_cost.fused("int8_matmul")
+def _int8_product(x, wq, xs, ws, *, policy=None):
+    """One launch on pre-quantized rows: `(acc·xs)·ws`."""
+    if resolve(policy, x) == "ref":
+        return _ref.int8_matmul(x, wq, xs, ws)
+    return _im.int8_matmul(x, wq, xs, ws)
 
 
 def int8_matmul(x, w, *, policy=None):

@@ -28,7 +28,14 @@ of torch.distributed or of the cards.
                              explicit init_method (the tests: file://)
   make_mesh(shape, names)    a Mesh over the world's ranks (or a subset)
   make_local_mesh(model)     the reference's (world / model, model) mesh
-  make_production_mesh(...)  the reference's (16, 16) / (2, 16, 16) meshes
+  make_production_mesh(...)  the reference's (16, 16) / (2, 16, 16) meshes,
+                             real or (given a rank) dry
+  make_dry_mesh(shape, names, rank)
+                             one rank's view of a mesh whose collectives
+                             send nothing (`DryAxis`): the dry run's
+                             stand-in for the reference's placeholder
+                             devices
+  count_collectives()        record every collective a `MeshAxis` issues
   choose_backend(...)        nccl or gloo, the one place that decides
   make_channel(ranks, ...)   a `CommandChannel`: rank 0's ordered messages
                              to the other ranks of a mesh (the network
@@ -36,12 +43,13 @@ of torch.distributed or of the cards.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import os
 import pickle
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -65,6 +73,50 @@ class _Done:
         return True
 
 
+class Collective(NamedTuple):
+    """One collective a `MeshAxis` issued, as `count_collectives` records
+    it: `kind` in the reference's names (all-gather, all-reduce,
+    all-to-all, collective-permute), `nbytes` the rank's output tensor's
+    bytes (the reference's HLO convention, before any ring factor),
+    `axis` the axis's name, `size` its group's ranks and `ranks` their
+    global ranks in index order (which link the group takes)."""
+    kind: str
+    nbytes: int
+    axis: str
+    size: int
+    ranks: tuple
+
+
+# the logs of the `count_collectives` blocks entered, innermost last
+_LOGS: list = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yield a list that receives a `Collective` for every collective a
+    `MeshAxis` (or a `DryAxis`) issues over more than one rank inside
+    the block: the serving collectives, and through them the
+    differentiable ones, forward and backward.  Blocks nest; each sees
+    every collective issued inside it."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def _record(kind: str, nbytes: int, ax) -> None:
+    if _LOGS:
+        c = Collective(kind, int(nbytes), ax.name, ax.size, ax.ranks)
+        for log in _LOGS:
+            log.append(c)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 @dataclass(frozen=True, eq=False)
 class MeshAxis:
     """One mesh axis as this rank sees it.  `ranks` lists the global
@@ -77,7 +129,12 @@ class MeshAxis:
     so that no serving helper drops a gradient silently.  Training
     calls the differentiable collectives below (`reduce_from`,
     `copy_to`, `gather_from`, `split_to`, `gather_sum`,
-    `all_to_all`, `ring_shift`)."""
+    `all_to_all`, `ring_shift`).
+
+    Each collective checks its arguments, records itself for
+    `count_collectives`, then moves its bytes through the transport
+    methods (`_reduce`, `_gather`, `_exchange`, `_shift`), which
+    `DryAxis` replaces: a dry rank records what a real one does."""
     name: str
     size: int
     index: int
@@ -98,19 +155,44 @@ class MeshAxis:
         if self.size == 1:
             return _Done() if async_op else None
         self._refuse_grad("all_reduce", t)
+        _record("all-reduce", _nbytes(t), self)
         if not t.is_contiguous():
             if async_op:
                 raise ValueError("all_reduce: an async sum needs a "
                                  "contiguous tensor")
             return self._strided(t, dist.ReduceOp.SUM)
-        return dist.all_reduce(t, group=self.group, async_op=async_op)
+        return self._reduce(t, dist.ReduceOp.SUM, async_op)
 
     def _strided(self, t: torch.Tensor, op) -> None:
         """All-reduce a strided view through a dense copy: gloo reduces
         the view's storage as if it were dense (wrong elements)."""
         dense = t.contiguous()
-        dist.all_reduce(dense, op=op, group=self.group)
+        self._reduce(dense, op, False)
         t.copy_(dense)
+
+    # the transport: what a collective sends and receives
+    def _reduce(self, t: torch.Tensor, op, async_op: bool):
+        return dist.all_reduce(t, op=op, group=self.group, async_op=async_op)
+
+    def _gather(self, parts: list, t: torch.Tensor) -> None:
+        dist.all_gather(parts, t, group=self.group)
+
+    def _exchange(self, out: torch.Tensor, t: torch.Tensor) -> None:
+        dist.all_to_all_single(out, t, group=self.group)
+
+    def _shift(self, t: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """Send `t` to global rank `dst` and return what `src` sent.  Under
+        gloo the tensor is staged through a host copy: gloo's
+        point-to-point ops read a host pointer."""
+        staged = (t.device.type != "cpu"
+                  and dist.get_backend(self.group) == "gloo")
+        send = (t.detach().to("cpu") if staged else t).contiguous()
+        recv = torch.empty_like(send)
+        reqs = [dist.isend(send, dst, group=self.group),
+                dist.irecv(recv, src, group=self.group)]
+        for r in reqs:
+            r.wait()
+        return recv.to(t.device) if staged else recv
 
     def all_reduce_max(self, t: torch.Tensor):
         """Elementwise maximum of `t` in place over the axis (the
@@ -118,9 +200,10 @@ class MeshAxis:
         if self.size == 1:
             return None
         self._refuse_grad("all_reduce_max", t)
+        _record("all-reduce", _nbytes(t), self)
         if not t.is_contiguous():
             return self._strided(t, dist.ReduceOp.MAX)
-        return dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return self._reduce(t, dist.ReduceOp.MAX, False)
 
     def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The axis's blocks of `t` concatenated along `dim` in index
@@ -129,9 +212,10 @@ class MeshAxis:
         if self.size == 1:
             return t
         self._refuse_grad("all_gather", t)
+        _record("all-gather", self.size * _nbytes(t), self)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t, group=self.group)
+        self._gather(parts, t)
         return torch.cat(parts, dim=dim)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -145,9 +229,10 @@ class MeshAxis:
         if t.shape[0] % self.size:
             raise ValueError(f"all_to_all: dim 0 of {tuple(t.shape)} does "
                              f"not split over {self.name!r} ({self.size})")
+        _record("all-to-all", _nbytes(t), self)
         t = t.contiguous()
         out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=self.group)
+        self._exchange(out, t)
         return out
 
     def ring_shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
@@ -162,27 +247,45 @@ class MeshAxis:
         if self.size == 1 or step % self.size == 0:
             return t.clone()
         self._refuse_grad("ring_shift", t)
-        staged = (t.device.type != "cpu"
-                  and dist.get_backend(self.group) == "gloo")
-        send = (t.detach().to("cpu") if staged else t).contiguous()
-        recv = torch.empty_like(send)
-        dst = self.ranks[(self.index + step) % self.size]
-        src = self.ranks[(self.index - step) % self.size]
-        reqs = [dist.isend(send, dst, group=self.group),
-                dist.irecv(recv, src, group=self.group)]
-        for r in reqs:
-            r.wait()
-        return recv.to(t.device) if staged else recv
+        _record("collective-permute", _nbytes(t), self)
+        return self._shift(t, self.ranks[(self.index + step) % self.size],
+                           self.ranks[(self.index - step) % self.size])
 
     def broadcast_object(self, obj, src_index: int):
         """The picklable `obj` of the rank at `src_index` along the axis,
-        on every rank of the axis (the other ranks pass anything)."""
+        on every rank of the axis (the other ranks pass anything).  A
+        host object, not a tensor: no counterpart in the reference's
+        HLO, and not recorded."""
         if self.size == 1:
             return obj
         box = [obj]
         dist.broadcast_object_list(box, src=self.ranks[src_index],
                                    group=self.group)
         return box[0]
+
+
+@dataclass(frozen=True, eq=False)
+class DryAxis(MeshAxis):
+    """A `MeshAxis` of a dry mesh (`make_dry_mesh`): every collective
+    checks and records itself as a real axis's does, and returns a
+    tensor of the right shape and dtype on its input's device (meta
+    included) without sending anything.  Its values are not the
+    collective's; a dry run reads shapes, never values."""
+
+    def _reduce(self, t, op, async_op):
+        return _Done() if async_op else None
+
+    def _gather(self, parts, t):
+        pass
+
+    def _exchange(self, out, t):
+        pass
+
+    def _shift(self, t, dst, src):
+        return torch.empty_like(t)
+
+    def broadcast_object(self, obj, src_index: int):
+        return obj
 
 
 @dataclass(frozen=True, eq=False)
@@ -493,10 +596,24 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
         raise RuntimeError(f"make_mesh: a {shape} mesh needs an initialized "
                            f"world of ranks (init_ranks)")
     me = dist.get_rank() if dist.is_initialized() else ranks[0]
-    grid = np.asarray(ranks).reshape(shape)
     axes = {}
-    # every single axis, then every combination of two or more in mesh
-    # order (an LM spec may split one dimension over ("data", "model"))
+    for key, line in _axis_lines(shape, axis_names, ranks):
+        group = dist.new_group(list(line)) if len(line) > 1 else None
+        if me in line:
+            axes[key] = _axis(MeshAxis, key, line, me, group)
+    if me not in ranks:
+        return None
+    return Mesh(axis_names, dict(zip(axis_names, shape)), axes, me)
+
+
+def _axis_lines(shape: tuple, axis_names: tuple, ranks: tuple):
+    """(key, line) of every line of ranks of a mesh, in the order every
+    rank must make their groups: each single axis, then each
+    combination of two or more axes in mesh order (an LM spec may split
+    one dimension over ("data", "model")), the key its name or tuple of
+    names; a line lists the ranks that share their coordinates on the
+    other axes, in index order along the key (row-major)."""
+    grid = np.asarray(ranks).reshape(shape)
     combos = [(i,) for i in range(len(shape))] + [
         c for n_ax in range(2, len(shape) + 1)
         for c in itertools.combinations(range(len(shape)), n_ax)]
@@ -505,27 +622,49 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                else tuple(axis_names[i] for i in combo))
         size = int(np.prod([shape[i] for i in combo]))
         rest = [i for i in range(len(shape)) if i not in combo]
-        # each line of ranks over the combo: same coordinates on the rest
-        lines = np.transpose(grid, rest + list(combo)).reshape(-1, size)
-        for line in lines:
-            line = tuple(int(r) for r in line)
-            group = dist.new_group(list(line)) if size > 1 else None
-            if me in line:
-                axes[key] = MeshAxis(key if isinstance(key, str)
-                                     else "+".join(key), size,
-                                     line.index(me), line, group)
-    if me not in ranks:
-        return None
-    return Mesh(axis_names, dict(zip(axis_names, shape)), axes, me)
+        for line in np.transpose(grid, rest + list(combo)).reshape(-1, size):
+            yield key, tuple(int(r) for r in line)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def _axis(cls, key, line: tuple, me: int, group) -> MeshAxis:
+    return cls(key if isinstance(key, str) else "+".join(key), len(line),
+               line.index(me), line, group)
+
+
+def make_dry_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                  rank: int) -> Mesh:
+    """Rank `rank`'s view of a mesh of `shape` over ranks 0..n-1, its
+    axes `DryAxis`es: the same indices, lines and combined axes as a
+    real rank's (`_axis_lines`, as `make_mesh` builds them), with
+    collectives that record themselves and send nothing.  Needs no
+    world of ranks: the dry run (`launch/dryrun.py`) traces one rank of
+    a production mesh on meta tensors."""
+    shape = tuple(int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    n = int(np.prod(shape))
+    if len(shape) != len(axis_names) or min(shape, default=0) < 1:
+        raise ValueError(f"make_dry_mesh: shape {shape} for axes "
+                         f"{axis_names}")
+    if not 0 <= rank < n:
+        raise ValueError(f"make_dry_mesh: rank {rank} of a {shape} mesh "
+                         f"({n} ranks)")
+    axes = {key: _axis(DryAxis, key, line, rank, None)
+            for key, line in _axis_lines(shape, axis_names, tuple(range(n)))
+            if rank in line}
+    return Mesh(axis_names, dict(zip(axis_names, shape)), axes, rank)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         dry_rank: Optional[int] = None) -> Mesh:
     """The reference's production meshes: ('data', 'model') of (16, 16),
     256 ranks, or ('pod', 'data', 'model') of (2, 16, 16), 512 ranks,
     over the world's first ranks.  A smaller world raises, naming the
-    count the mesh needs."""
+    count the mesh needs.  Given `dry_rank`, that rank's view of the
+    mesh dry (`make_dry_mesh`), with no world."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry_rank is not None:
+        return make_dry_mesh(shape, axes, dry_rank)
     need = int(np.prod(shape))
     if world_size() < need:
         raise ValueError(f"make_production_mesh: a {shape} {axes} mesh "

@@ -97,7 +97,11 @@ def dispatch(flat_e: torch.Tensor, n_experts: int, cap: int):
     order = torch.argsort(flat_e, stable=True)
     rank = torch.empty_like(order)       # rank of candidate i in expert order
     rank[order] = torch.arange(order.shape[0], device=flat_e.device)
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # bincount's length is read back from the device; every id is
+    # < n_experts, so a scatter of ones counts the same with no read
+    counts = torch.zeros(n_experts, dtype=torch.long,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = rank - starts[flat_e]
     return order, counts, starts, pos, pos < cap

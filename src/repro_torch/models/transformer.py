@@ -413,8 +413,11 @@ class LM:
             kpos[rows, slot] = offset
             kpos_m[rows, slot] = -1
         else:
-            kpos[slot] = offset
-            kpos_m[slot] = -1
+            # a 1-element index: a 0-d one is read back to the host
+            at = slot.long().reshape(1)
+            kpos.index_put_((at,), offset.reshape(1).to(kpos.dtype))
+            kpos_m.index_put_((at,), torch.full_like(at, -1,
+                                                     dtype=kpos_m.dtype))
         new = {f"p{p}": [] for p in range(self.P)}
         for r in range(self.R):
             for p in range(self.P):
@@ -437,7 +440,7 @@ class LM:
                     rows = torch.arange(dst.shape[1], device=upd.device)
                     dst[:, rows, slot] = upd[:, :, 0].to(dst.dtype)
                 else:
-                    dst[:, :, slot] = upd[:, :, 0].to(dst.dtype)
+                    dst.index_copy_(2, at, upd.to(dst.dtype))
         return x, {"layers": cache["layers"], "kpos": kpos,
                    "offset": offset + 1}
 
@@ -962,9 +965,13 @@ class LM:
         ls = torch.clamp(slot, 0, max(0, n_loc - 1))
         kpos_m = kpos.clone()
         if n_loc:
-            kpos[ls] = torch.where(mine, offset, kpos[ls])
-            kpos_m[ls] = torch.where(mine, torch.full_like(offset, -1),
-                                     kpos_m[ls])
+            # a 1-element index: a 0-d one is read back to the host
+            at = ls.reshape(1)
+            kpos.index_put_((at,), torch.where(mine, offset, kpos[at]).to(
+                kpos.dtype))
+            kpos_m.index_put_((at,), torch.where(
+                mine, torch.full_like(offset, -1), kpos_m[at]).to(
+                    kpos_m.dtype))
         new = {f"p{p}": [] for p in range(self.P)}
         for r in range(self.R):
             for p in range(self.P):
@@ -983,8 +990,8 @@ class LM:
                     continue
                 upd = torch.stack([nc[name] for nc in new[f"p{p}"]])
                 if n_loc:
-                    dst[:, :, ls] = torch.where(mine, upd[:, :, 0].to(
-                        dst.dtype), dst[:, :, ls])
+                    dst.index_copy_(2, at, torch.where(mine, upd[:, :, :1].to(
+                        dst.dtype), dst.index_select(2, at)))
         x = layers.apply_norm(params["final_norm"], x, cfg.norm,
                               policy=self.policy)
         logits = self._gather_batch(

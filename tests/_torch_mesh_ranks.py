@@ -1244,3 +1244,48 @@ def elastic_world(payload):
 
 
 JOBS["elastic_world"] = elastic_world
+
+
+# ---------------------------------------------------------------------------
+# the dry run's collective record against a real world's
+# ---------------------------------------------------------------------------
+def materialize(tree, seed: int = 0):
+    """Tensors of the meta shapes and dtypes of a tree: small seeded
+    floats, zero integers (tokens, labels, int8 payloads, the step)."""
+    import torch
+
+    from repro_torch.core.treeutil import tree_map
+    gen = torch.Generator().manual_seed(seed)
+
+    def one(t):
+        if t.dtype.is_floating_point:
+            return (0.02 * torch.randn(t.shape, generator=gen)).to(t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype)
+    return tree_map(one, tree)
+
+
+def collective_log(payload):
+    """Each (arch, kind, B, S) cell of `payload` built with `build_cell`
+    on the world's ('data', 'model') mesh of `payload["mesh"]` and
+    called once on seeded tensors of its argument shapes, under
+    `count_collectives`: this rank's log as (kind, bytes, axis, size,
+    ranks) tuples, by cell."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps
+    mesh = _lm_mesh(payload["mesh"])
+    out = {"coords": mesh.coords, "rank": mesh.rank,
+           "axes": {str(k): (a.name, a.size, a.index, a.ranks)
+                    for k, a in mesh.axes.items()}}
+    for arch, kind, B, S in payload["cells"]:
+        cfg = get_config(arch).tiny()
+        fn, args = steps.build_cell(cfg, ShapeSpec("x", S, B, kind), mesh)
+        real = tuple(materialize(a) for a in args)
+        with meshlib.count_collectives() as log:
+            fn(*real)
+        out[f"{arch} {kind}"] = [tuple(c) for c in log]
+    return out
+
+
+JOBS["collective_log"] = collective_log

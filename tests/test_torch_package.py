@@ -218,3 +218,34 @@ def test_sharded_model_functions_have_port_counterparts():
         missing = sorted(f for f in sharded
                          if not callable(getattr(port, f, None)))
         assert not missing, (mod, missing)
+
+
+# the reference's dry-run and roofline tooling: the port's module of each
+# (the HLO walker's counterpart is the op counter); the walker's XLA-text
+# functions have none, as the port counts eager ops instead of parsing a
+# compiled program
+TOOLING = {"launch/dryrun": "launch/dryrun",
+           "launch/roofline": "launch/roofline",
+           "launch/report": "launch/report",
+           "launch/hlo_cost": "launch/op_cost"}
+HLO_ONLY = {"analyze_hlo", "parse_computations"}
+
+
+@pytest.mark.parametrize("module", sorted(TOOLING))
+def test_tooling_modules_have_port_counterparts(module):
+    """Every public function, class and method of the reference's
+    dry-run and roofline modules has one of the same name in the port's
+    counterpart (`TOOLING`), apart from the HLO-only functions."""
+    import importlib
+    port = importlib.import_module(
+        "repro_torch." + TOOLING[module].replace("/", "."))
+    want = _top_level_public(ROOT / "src" / "repro" / f"{module}.py")
+    assert want
+    missing = []
+    for name in sorted(want - HLO_ONLY):
+        obj = port
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        if obj is None:
+            missing.append(name)
+    assert not missing, (module, missing)
