@@ -13,7 +13,7 @@ layer (elastic restart with a sharded checkpoint, int8 gradient
 compression, the pipeline) and the dry-run tooling's counts against
 measured cells (`launch/dryrun.py`, `op_cost.py`, `roofline.py`).
 
-    python3 chip_smoke.py [--before DIR] [--only-phase 24|25|26|27]
+    python3 chip_smoke.py [--before DIR] [--only-phase 24|25|26|27|28]
 
 `--before DIR` (a checkout of the parent commit) also times DIR's
 logmel and beam_prune kernels beside this checkout's.  `--only-phase
@@ -410,6 +410,25 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                terms and HBM a rank printed; the last rank's attention
                operations must exceed rank 0's.  There is no CPU
                fallback.  At most ROOF_PHASE_LIMIT_S.
+ 28. analysis — (a) the port's linter (`repro_torch.analysis`) in
+               process over src/repro_torch: 0 findings; every C entry
+               point KERNEL_REGISTRY names resolves in the built library.
+               (b) GUARD_STEPS warmed steps of phase 5's full-width
+               system, fp32 and int8, at GUARD_SLOTS slots and each w of
+               GUARD_WINDOWS, under the engine's own host-sync guard
+               (`no_implicit_transfers`: the sync debug mode in error)
+               inside `compilation_budget(0)`; their words equal those
+               of the same steps with the guard taken out, and the
+               path's kernels launched as a step launches them.  (c) the
+               same for GUARD_LM_STEPS LmEngine decode steps of LM_ARCH
+               at full width, bf16, GUARD_SLOTS slots: equal tokens.  A
+               guarded step that syncs fails with every sync's site
+               (warn mode).  (d) controls that must raise inside the
+               guard: an `.item()` on a CUDA tensor, a blocking upload of
+               pageable memory.  (e) under warn mode, the synchronizing
+               calls of one LM prefill, one `slot_best` readout and one
+               TDS training step, counted and printed with their sites
+               (not failures).  At most GUARD_PHASE_LIMIT_S.
 The last lines are the card (nvidia-smi name, power limit), the kernels
 JSON and the ok JSON.  Needs a CUDA device; without one it exits 1.
 Detailed results (build log, timings, profile) go to build/chip_smoke/.
@@ -418,6 +437,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -429,6 +449,7 @@ import signal
 import subprocess
 import sys
 import time
+import traceback
 import types
 import warnings
 from dataclasses import replace
@@ -441,6 +462,8 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))     # the port, from this checkout
 
+import repro_torch.analysis as lint  # noqa: E402
+from repro_torch.analysis import guards  # noqa: E402
 from repro_torch.ckpt.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -458,7 +481,8 @@ from repro_torch.kernels import (_build, ops, ref,  # noqa: E402
                                  layernorm as kln, logmel as klm,
                                  tds_conv as ktc)
 from repro_torch.kernels.cost import attn_pairs, flash_flops  # noqa: E402
-from repro_torch.kernels.policy import KernelPolicy  # noqa: E402
+from repro_torch.kernels.policy import (KERNEL_REGISTRY,  # noqa: E402
+                                        KernelPolicy)
 from repro_torch.launch import (dryrun, mesh as meshlib,  # noqa: E402
                                 roofline, steps, train)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
@@ -474,6 +498,7 @@ from repro_torch.runtime import elastic  # noqa: E402
 from repro_torch.serving import (AsrEngine, AsrProgram,  # noqa: E402
                                  EngineConfig, FaultPolicy, FaultSpec,
                                  LmEngine, LmProgram)
+from repro_torch.serving import asr as asrmod, lm as lmmod  # noqa: E402
 from repro_torch.serving.server import (AsrClient,  # noqa: E402
                                         EngineServer,
                                         fetch_healthz, fetch_metrics,
@@ -510,17 +535,14 @@ TOL = {"logmel": dict(rtol=1e-4, atol=1e-3),
 # int8_matmul's plain version substituted gives the same bits.
 INT8_LOGP_ATOL = 0.5
 INT8_SCORE_RTOL = 1e-2
-REPLACES = {
-    "logmel": "src/repro/kernels/logmel.py:24",
-    "tds_conv": "src/repro/kernels/tds_conv.py:52",
-    "layernorm": "src/repro/kernels/layernorm.py:32",
-    "hypothesis_unit": "src/repro/kernels/hypothesis_unit.py:45",
-    "int8_matmul": "src/repro/kernels/int8_matmul.py:42",
-    "rmsnorm": "src/repro/kernels/layernorm.py:32",
-    "flash_attention": "src/repro/kernels/flash_attention.py:80",
-    "beam_prune": "src/repro/kernels/beam_prune.py:44",
-}
 SOURCES = {"rmsnorm": "layernorm"}      # kernel -> csrc file stem
+
+
+def replaces(name: str) -> str:
+    """The TPU kernel that kernel `name` ports (KERNEL_REGISTRY's
+    `replaces`)."""
+    return KERNEL_REGISTRY[SOURCES.get(name, name)]["replaces"]
+
 
 # LM kernels vs their plain versions.  rmsnorm: both compute in fp32 and
 # round once to the output type, so bf16 may differ by one bf16 ulp (2^-8
@@ -743,6 +765,18 @@ ROOF_REPS = 5
 ROOF_SHARE_MAX = 1.05
 ROOF_DRY = ("qwen2-72b", "prefill_32k", "single_pod")
 ROOF_PHASE_LIMIT_S = 60.0
+# phase 28: the analysis package.  The engines' steps under their own
+# host-sync guard: GUARD_STEPS warmed steps of phase 5's full-width
+# system (fp32 and int8) at GUARD_SLOTS slots for each w of
+# GUARD_WINDOWS, and GUARD_LM_STEPS warmed decode steps of LM_ARCH at
+# full width in bf16 after one prefill group of GUARD_LM_PROMPTS
+GUARD_SLOTS, GUARD_WINDOWS, GUARD_STEPS = 4, (1, 4), 3
+GUARD_LM_STEPS = 8
+GUARD_LM_PROMPTS = (100, 300, 200, 480)
+GUARD_LM_BUCKETS = (512,)
+GUARD_PHASE_LIMIT_S = 60.0
+# what torch's sync debug mode says of a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 # phase 17: TDS_CONFIG trained with CTC on 8 SyntheticASR utterances of
 # phase 5's lexicon words (AdamW, no weight decay, as the reference's
 # ASR training test), then 4 held-out utterances decoded
@@ -1997,10 +2031,14 @@ def timed_engine(eng: LmEngine):
         return out
 
     def timed_decode(params, cache, batch):
-        torch.cuda.synchronize()
+        # the engine decodes inside its host-sync guard: the timing's
+        # synchronizes are explicit
+        with guards.allow_transfers():
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = decode(params, cache, batch)
-        torch.cuda.synchronize()
+        with guards.allow_transfers():
+            torch.cuda.synchronize()
         steps.append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -6524,13 +6562,342 @@ def roofline_phase(dev, smi) -> dict:
             "counts": counts, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# 28. analysis and guards: the port's linter and kernel registry on the
+# card's build, and the engines' steps under their host-sync guard
+# ---------------------------------------------------------------------------
+def lint_phase() -> dict:
+    """28(a): the port's linter in process over src/repro_torch (0
+    findings), then the half of RPL002 only a build can check: every C
+    entry point of KERNEL_REGISTRY resolves in the library `_build`
+    built."""
+    t0 = time.perf_counter()
+    findings, suppressed = lint.run_paths([str(ROOT / "src" / "repro_torch")],
+                                          root=ROOT)
+    lint_s = time.perf_counter() - t0
+    if findings:
+        fail("repro_torch.analysis over src/repro_torch: "
+             + "; ".join(f.format() for f in findings))
+    registry = KERNEL_REGISTRY
+    handle = ctypes.CDLL(str(_build.build()))
+    entries = sorted({e for meta in registry.values()
+                      for e in meta["entry_points"]})
+    missing = [e for e in entries if not hasattr(handle, e)]
+    if missing or set(entries) != set(_build.SIGNATURES):
+        fail(f"KERNEL_REGISTRY's entry points {entries}: not in the built "
+             f"library {missing}; _build.SIGNATURES "
+             f"{sorted(_build.SIGNATURES)}")
+    print(f"[analysis] repro_torch.analysis over src/repro_torch: 0 "
+          f"findings, {len(suppressed)} suppressed, {lint_s:.2f} s; "
+          f"KERNEL_REGISTRY: {len(registry)} kernels, all {len(entries)} C "
+          f"entry points resolve in {_build.build().name}", flush=True)
+    return {"findings": 0, "suppressed": len(suppressed), "lint_s": lint_s,
+            "kernels": sorted(registry), "entry_points": entries}
+
+
+@contextlib.contextmanager
+def engine_guard(module, active: bool, entered: list):
+    """Run `module`'s engine steps under the engine's own guard
+    (`active`) or with it taken out (a null context), to compare the
+    same steps; `entered` counts the blocks the engine opened."""
+    real = module.no_implicit_transfers
+
+    def guard(*args, **kwargs):
+        entered.append(1)
+        return real(*args, **kwargs) if active else contextlib.nullcontext()
+    module.no_implicit_transfers = guard
+    try:
+        yield
+    finally:
+        module.no_implicit_transfers = real
+
+
+def sync_sites(fn) -> tuple:
+    """Run `fn` with the sync debug mode at warn: (its result, the number
+    of synchronizing calls, {"file:line in the port": count})."""
+    sites = {}
+    prev = torch.cuda.get_sync_debug_mode()
+    show = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            return show(message, category, filename, lineno, file, line)
+        frames = [f for f in traceback.extract_stack()
+                  if "repro_torch" in f.filename]
+        where = (f"{frames[-1].filename.split('src/')[-1]}:"
+                 f"{frames[-1].lineno}" if frames else f"{filename}:{lineno}")
+        sites[where] = sites.get(where, 0) + 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            warnings.showwarning = show
+    return out, sum(sites.values()), sites
+
+
+def guarded_or_sites(tag, fn, module):
+    """`fn()` (steps under `module`'s engine guard); where the guard
+    raises, the same steps again with the guard taken out, under warn
+    mode, name every sync; then fail."""
+    try:
+        return fn()
+    except RuntimeError as exc:
+        if SYNC_WARNING not in str(exc):
+            raise
+        with engine_guard(module, False, []):
+            _, n, sites = sync_sites(fn)
+        fail(f"{tag}: a guarded step synchronised ({exc}); under warn mode "
+             f"{n} syncs at {sites}")
+
+
+def guard_asr(dev, system, utts, use_int8) -> dict:
+    """28(b): GUARD_STEPS warmed steps of the full-width engine at
+    GUARD_SLOTS slots, at each w of GUARD_WINDOWS, under the engine's own
+    guard (error mode) and compilation_budget(0); then the same steps on
+    a fresh engine with the guard taken out.  The words of every slot
+    must be equal, the guard entered once a step, and the kernels of the
+    path launched as a step launches them."""
+    tag = f"guard asr {'int8' if use_int8 else 'fp32'}"
+    slots = list(range(GUARD_SLOTS))
+    counts = {name: 0 for name in ops.KERNEL_MODULES}
+    out = {"steps": 0}
+    for w in GUARD_WINDOWS:
+        words, scores = {}, {}
+        for active in (True, False):
+            eng = full_engine(dev, system, KernelPolicy("auto"),
+                              use_int8=use_int8)
+            for s in slots:
+                eng.feed_slot(s, utts[s])
+            n = min(eng.slot_windows(s) for s in slots) // w - 1
+            if n < GUARD_STEPS:
+                fail(f"{tag}: {n + 1} steps of w={w} buffered, need "
+                     f"{GUARD_STEPS + 1}")
+            entered = []
+            with engine_guard(asrmod, active, entered):
+                guarded_or_sites(f"{tag} w={w} warm-up",        # warm-up
+                                 lambda: eng._step_slots(slots, w), asrmod)
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+
+                def run():
+                    with guards.compilation_budget(0, f"{tag} w={w}"):
+                        for _ in range(GUARD_STEPS):
+                            eng._step_slots(slots, w)
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                guarded_or_sites(f"{tag} w={w}", run, asrmod)
+                ms = (time.perf_counter() - t0) * 1e3 / GUARD_STEPS
+                got = ops.launch_counts()
+            res = [eng.slot_best(s) for s in slots]
+            words[active] = [r["words"].tolist() for r in res]
+            scores[active] = [r["score"] for r in res]
+            if active:
+                if len(entered) != GUARD_STEPS + 1:
+                    fail(f"{tag} w={w}: the engine entered its guard "
+                         f"{len(entered)} times in {GUARD_STEPS + 1} steps")
+                expect = {name: 0 for name in got}
+                expect.update({"logmel": GUARD_STEPS,
+                               "tds_conv": 18 * GUARD_STEPS,
+                               "layernorm": 15 * GUARD_STEPS,
+                               "hypothesis_unit": w * GUARD_STEPS,
+                               "int8_matmul": 29 * GUARD_STEPS * use_int8})
+                if got != expect:
+                    fail(f"{tag} w={w}: launches {got} != {expect}")
+                for name, c in got.items():
+                    counts[name] += c
+                out[f"w={w} guarded_ms"] = ms
+            else:
+                out[f"w={w} unguarded_ms"] = ms
+            del eng
+        gap = max(abs(a - b) for a, b in zip(scores[True], scores[False]))
+        if words[True] != words[False]:
+            fail(f"{tag} w={w}: words under the guard {words[True]} != "
+                 f"without it {words[False]}")
+        out["steps"] += GUARD_STEPS
+        out[f"w={w} score_gap"] = gap
+        print(f"[analysis] {tag} w={w}: {GUARD_STEPS} warmed steps of "
+              f"{GUARD_SLOTS} slots under the engine's guard (error mode), "
+              f"0 builds or loads; words equal to the unguarded steps' "
+              f"(scores {gap:.3e} apart); {out[f'w={w} guarded_ms']:.3f} / "
+              f"{out[f'w={w} unguarded_ms']:.3f} ms a step guarded / not "
+              f"(synchronized at the end)", flush=True)
+    out["counts"] = counts
+    return out
+
+
+def guard_lm(dev) -> dict:
+    """28(c): GUARD_LM_STEPS warmed LmEngine decode steps of LM_ARCH at
+    full width, bf16, GUARD_SLOTS slots, under the engine's guard and
+    compilation_budget(0); then the same steps with the guard taken out,
+    from the same prompts on a fresh engine: equal tokens."""
+    cfg = get_config(LM_ARCH)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(SEED))
+    prompts = lm_prompts(GUARD_LM_PROMPTS, cfg.vocab_size, seed=SEED + 3)
+    program = LmProgram(cfg, cache_len=GUARD_LM_BUCKETS[-1] + GUARD_LM_STEPS
+                        + 2, max_new=GUARD_LM_STEPS + 2,
+                        prefill_buckets=GUARD_LM_BUCKETS)
+    tokens, out = {}, {}
+    for active in (True, False):
+        eng = LmEngine(EngineConfig(program, n_slots=GUARD_SLOTS,
+                                    kernels=KernelPolicy("auto")),
+                       params, device=dev)
+        for p in prompts:
+            eng.open().push(p)                  # admission: the prefills
+        entered = []
+        with engine_guard(lmmod, active, entered):
+            guarded_or_sites("guard lm warm-up", eng._step, lmmod)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+
+            def run():
+                with guards.compilation_budget(0, "guard lm"):
+                    for _ in range(GUARD_LM_STEPS):
+                        eng._step()
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            guarded_or_sites("guard lm", run, lmmod)
+            ms = (time.perf_counter() - t0) * 1e3 / GUARD_LM_STEPS
+            got = ops.launch_counts()
+        tokens[active] = [list(eng._gen[s]) for s in range(GUARD_SLOTS)]
+        out[f"{'guarded' if active else 'unguarded'}_ms"] = ms
+        if active:
+            expect = {name: 0 for name in got}
+            expect["rmsnorm"] = LM_LAUNCHES[LM_ARCH][0] * GUARD_LM_STEPS
+            if got != expect or len(entered) != GUARD_LM_STEPS + 1:
+                fail(f"guard lm: launches {got} != {expect}, or the guard "
+                     f"entered {len(entered)} times in {GUARD_LM_STEPS + 1} "
+                     f"steps")
+            out["counts"] = got
+        del eng
+    if tokens[True] != tokens[False]:
+        fail(f"guard lm: tokens under the guard {tokens[True]} != without "
+             f"it {tokens[False]}")
+    print(f"[analysis] guard lm {cfg.name} bf16: {GUARD_LM_STEPS} warmed "
+          f"decode steps of {GUARD_SLOTS} slots under the engine's guard "
+          f"(error mode), 0 builds or loads; tokens equal to the unguarded "
+          f"steps'; {out['guarded_ms']:.3f} / {out['unguarded_ms']:.3f} ms "
+          f"a step guarded / not", flush=True)
+    out["params"] = params
+    out["prompts"] = prompts
+    return out
+
+
+def guard_controls(dev) -> list:
+    """28(d): what the guard must refuse, inside it: an `.item()` on a
+    CUDA tensor and a blocking upload of pageable memory."""
+    x = torch.ones(4, device=dev)
+    host = np.zeros((1024,), np.float32)
+    raised = []
+    for name, fn in ((".item() on a CUDA tensor", lambda: x.sum().item()),
+                     ("a blocking upload of pageable memory",
+                      lambda: torch.from_numpy(host).to(dev))):
+        try:
+            with guards.no_implicit_transfers():
+                fn()
+        except RuntimeError as exc:
+            if SYNC_WARNING not in str(exc):
+                raise
+            raised.append(name)
+        else:
+            fail(f"guard control: {name} did not raise inside "
+                 f"no_implicit_transfers()")
+    torch.cuda.synchronize()
+    print(f"[analysis] controls raised inside no_implicit_transfers(): "
+          f"{raised}", flush=True)
+    return raised
+
+
+def sync_counts(dev, system, utts, lm_res) -> dict:
+    """28(e): synchronizing calls, counted under warn mode (not failures):
+    one LM prefill (a 1-row admission), one `slot_best` readout, one TDS
+    training step (forward, CTC loss, backward, AdamW)."""
+    cfg = get_config(LM_ARCH)
+    program = LmProgram(cfg, cache_len=GUARD_LM_BUCKETS[-1] + 2, max_new=2,
+                        prefill_buckets=GUARD_LM_BUCKETS)
+    eng = LmEngine(EngineConfig(program, n_slots=2,
+                                kernels=KernelPolicy("auto")),
+                   lm_res["params"], device=dev)
+    eng.open().push(lm_res["prompts"][0])              # warm-up admission
+    out = {}
+    sess = eng.open()
+    _, out["lm prefill"], sites_p = sync_sites(
+        lambda: sess.push(lm_res["prompts"][1]))
+    asr = full_engine(dev, system, KernelPolicy("auto"))
+    for s in range(GUARD_SLOTS):
+        asr.feed_slot(s, utts[s])
+    asr._step_slots(list(range(GUARD_SLOTS)), 1)
+    asr.slot_best(0)
+    _, out["slot_best"], sites_r = sync_sites(lambda: asr.slot_best(1))
+    words = system[1]
+    _, _, feats, labels = asr_train_batch(words, dev, 0, 2)
+    params = tree_to(tds.init_tds(torch.Generator().manual_seed(SEED),
+                                  TDS_CONFIG), dev)
+    ocfg = adamw.AdamWConfig(lr=ASR_TRAIN_LR, weight_decay=0.0)
+    opt = adamw.init(params, ocfg)
+
+    def step(p, o):
+        loss, g = value_and_grad(lambda q: asr_loss(q, feats, labels), p)
+        return adamw.update(g, o, p, ocfg)
+    params, opt = step(params, opt)                     # warm-up
+    torch.cuda.synchronize()
+    _, out["tds train step"], sites_t = sync_sites(lambda: step(params, opt))
+    torch.cuda.synchronize()
+    for what, sites in (("lm prefill", sites_p), ("slot_best", sites_r),
+                        ("tds train step", sites_t)):
+        print(f"[analysis] warn mode: {out[what]} synchronizing calls in "
+              f"one {what}: {sites}", flush=True)
+    out["sites"] = {"lm prefill": sites_p, "slot_best": sites_r,
+                    "tds train step": sites_t}
+    return out
+
+
+def analysis_phase(dev, smi) -> dict:
+    """Phase 28: (a) `lint_phase`, (b) `guard_asr` fp32 and int8, (c)
+    `guard_lm`, (d) `guard_controls`, (e) `sync_counts`; within
+    GUARD_PHASE_LIMIT_S."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_numerics()
+    out = {"lint": lint_phase()}
+    system = full_width_system(dev)
+    utts = full_width_utterances(system[1])
+    out["asr fp32"] = guard_asr(dev, system, utts, False)
+    out["asr int8"] = guard_asr(dev, system, utts, True)
+    lm_res = guard_lm(dev)
+    out["lm"] = {k: v for k, v in lm_res.items()
+                 if k not in ("params", "prompts")}
+    out["controls"] = guard_controls(dev)
+    out["syncs"] = sync_counts(dev, system, utts, lm_res)
+    del lm_res, system
+    counts = {name: out["asr fp32"]["counts"][name]
+              + out["asr int8"]["counts"][name] + out["lm"]["counts"][name]
+              for name in ops.KERNEL_MODULES}
+    out["counts"] = counts
+    phase_s = time.perf_counter() - t_phase
+    out["phase_s"] = phase_s
+    print(f"[analysis] phase 28 took {phase_s:.2f} s (limit "
+          f"{GUARD_PHASE_LIMIT_S:.0f} s); launches of the guarded steps "
+          f"{counts} ({smi})", flush=True)
+    if phase_s > GUARD_PHASE_LIMIT_S:
+        fail(f"analysis phase took {phase_s:.1f} s, more than "
+             f"{GUARD_PHASE_LIMIT_S} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--before", type=pathlib.Path, default=None,
                     help="a checkout of the parent commit: also time its "
                          "int8_matmul and hypothesis_unit kernels")
-    ap.add_argument("--only-phase", type=int, choices=(24, 25, 26, 27),
+    ap.add_argument("--only-phase", type=int, choices=(24, 25, 26, 27, 28),
                     default=None,
                     help="build, then run this phase alone (24: after "
                          "serving phase 5's system in process for its "
@@ -6573,6 +6940,9 @@ def main() -> None:
         return
     if args.only_phase == 27:
         roofline_phase(dev, smi)
+        return
+    if args.only_phase == 28:
+        analysis_phase(dev, smi)
         return
 
     if args.only_phase == 24:
@@ -6811,6 +7181,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     roof = roofline_phase(dev, smi)
+    # 28. the port's linter and registry on this build; the engines'
+    # steps under their host-sync guard
+    analysis = analysis_phase(dev, smi)
 
     kernels = []
     for name in KERNELS:
@@ -6822,11 +7195,12 @@ def main() -> None:
                    "trained asr fp32": asr_train["decode_fp32"]["counts"][name],
                    "trained asr int8": asr_train["decode_int8"]["counts"][name],
                    "asr mesh (all ranks)": mesh["counts"][name],
-                   "serve mesh (all ranks)": serve_mesh["counts"][name]}
+                   "serve mesh (all ranks)": serve_mesh["counts"][name],
+                   "guarded steps": analysis["counts"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name],
+            "replaces": replaces(name),
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": errs[name], "ms": r["ms"],
@@ -6886,12 +7260,13 @@ def main() -> None:
         by_path.update({path: c[name] for path, c in lm3_paths.items()})
         by_path["lm mesh (all ranks)"] = lm_mesh["counts"][name]
         by_path["roofline cells"] = roof["counts"][name]
+        by_path["guarded steps"] = analysis["counts"][name]
         lm_errs[name] = max(lm_errs[name], lm3_errs[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/"
                       f"{SOURCES.get(name, name)}.cu",
-            "replaces": REPLACES[name], "launches": sum(by_path.values()),
+            "replaces": replaces(name), "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": lm_errs[name], **r})
     for name in PRUNE_KERNELS:
@@ -6899,7 +7274,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": bp_counts[name],
+            "replaces": replaces(name), "launches": bp_counts[name],
             "max_abs_err": bp_err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -6942,7 +7317,7 @@ def main() -> None:
                 AUDIO_ARCH: audio, "int8": int8_lm}, "mesh": mesh,
         "lm_mesh": lm_mesh, "serve_mesh": serve_mesh,
         "train_mesh": train_mesh, "elastic": elastic_res,
-        "roofline": roof}, indent=1))
+        "roofline": roof, "analysis": analysis}, indent=1))
     print(f"[done] launches on the fp32 path: {counts}; on the int8 path: "
           f"{counts8}; on the LM path: {serve['counts']}; on the "
           + "; on the ".join(f"{arch} path: {sv['counts']}"
@@ -6958,7 +7333,8 @@ def main() -> None:
           f"case): {lm_mesh['counts']}; the mesh server (every rank, every "
           f"case): {serve_mesh['counts']}; training on the mesh, elastic "
           f"restart, compressed_psum and the pipeline: none; the roofline "
-          f"cells (phase 27): {roof['counts']}",
+          f"cells (phase 27): {roof['counts']}; the guarded steps (phase "
+          f"28): {analysis['counts']}",
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,6 +54,8 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = None       # wall time of the last build (None: loaded as is)
 build_log = ""             # nvcc's output of the last build (-Xptxas -v)
+builds = 0                 # libraries compiled in this process
+loads = 0                  # libraries loaded in this process (`lib`)
 
 
 def _nvcc() -> str:
@@ -81,7 +83,7 @@ def _digest() -> str:
 def build() -> pathlib.Path:
     """Compile the sources (in parallel) and link the library; returns
     its path.  Reuses a library built from identical sources."""
-    global build_seconds, build_log
+    global build_seconds, build_log, builds
     out = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
     if out.exists():
         return out
@@ -115,15 +117,17 @@ def build() -> pathlib.Path:
                                f"{link.stdout}")
         os.replace(tmp_so, out)        # atomic: readers never see half a file
     build_seconds = time.perf_counter() - t0
+    builds += 1
     return out
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
+            loads += 1
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import guards
 from repro_torch.device import rank_device
 
 # how long a collective (and the rendezvous) may wait for the other ranks
@@ -71,6 +72,25 @@ class _Done:
 
     def wait(self) -> bool:
         return True
+
+
+class _Lifted:
+    """The handle of an asynchronous collective issued inside an engine's
+    host-sync guard: the issuing thread's guard stays lifted
+    (`guards.lift`) until the collective's `wait()`, since gloo stages
+    a CUDA tensor through the host on its own thread while the caller
+    runs on."""
+
+    def __init__(self, work, owner):
+        self._work, self._owner = work, owner
+
+    def wait(self) -> bool:
+        try:
+            return self._work.wait()
+        finally:
+            if self._work is not None:
+                self._work = None
+                guards.unlift(self._owner)
 
 
 class Collective(NamedTuple):
@@ -170,15 +190,30 @@ class MeshAxis:
         self._reduce(dense, op, False)
         t.copy_(dense)
 
-    # the transport: what a collective sends and receives
+    # the transport: what a collective sends and receives.  Each is an
+    # explicit transfer (gloo stages CUDA tensors through the host), so
+    # it lifts an engine step's host-sync guard while it runs
     def _reduce(self, t: torch.Tensor, op, async_op: bool):
-        return dist.all_reduce(t, op=op, group=self.group, async_op=async_op)
+        if async_op:
+            owner = guards.lift()
+            work = None
+            try:
+                work = dist.all_reduce(t, op=op, group=self.group,
+                                       async_op=True)
+            finally:
+                if work is None:        # the issue raised: nothing to wait
+                    guards.unlift(owner)
+            return _Lifted(work, owner)
+        with guards.allow_transfers():
+            return dist.all_reduce(t, op=op, group=self.group)
 
     def _gather(self, parts: list, t: torch.Tensor) -> None:
-        dist.all_gather(parts, t, group=self.group)
+        with guards.allow_transfers():
+            dist.all_gather(parts, t, group=self.group)
 
     def _exchange(self, out: torch.Tensor, t: torch.Tensor) -> None:
-        dist.all_to_all_single(out, t, group=self.group)
+        with guards.allow_transfers():
+            dist.all_to_all_single(out, t, group=self.group)
 
     def _shift(self, t: torch.Tensor, dst: int, src: int) -> torch.Tensor:
         """Send `t` to global rank `dst` and return what `src` sent.  Under
@@ -186,13 +221,14 @@ class MeshAxis:
         point-to-point ops read a host pointer."""
         staged = (t.device.type != "cpu"
                   and dist.get_backend(self.group) == "gloo")
-        send = (t.detach().to("cpu") if staged else t).contiguous()
-        recv = torch.empty_like(send)
-        reqs = [dist.isend(send, dst, group=self.group),
-                dist.irecv(recv, src, group=self.group)]
-        for r in reqs:
-            r.wait()
-        return recv.to(t.device) if staged else recv
+        with guards.allow_transfers():
+            send = (t.detach().to("cpu") if staged else t).contiguous()
+            recv = torch.empty_like(send)
+            reqs = [dist.isend(send, dst, group=self.group),
+                    dist.irecv(recv, src, group=self.group)]
+            for r in reqs:
+                r.wait()
+            return recv.to(t.device) if staged else recv
 
     def all_reduce_max(self, t: torch.Tensor):
         """Elementwise maximum of `t` in place over the axis (the
@@ -259,8 +295,9 @@ class MeshAxis:
         if self.size == 1:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=self.ranks[src_index],
-                                   group=self.group)
+        with guards.allow_transfers():
+            dist.broadcast_object_list(box, src=self.ranks[src_index],
+                                       group=self.group)
         return box[0]
 
 

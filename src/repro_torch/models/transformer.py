@@ -409,9 +409,12 @@ class LM:
         # evicted entry, and the new token is attended as its own column
         kpos_m = kpos.clone()
         if per_slot:
-            rows = torch.arange(kpos.shape[0], device=kpos.device)
-            kpos[rows, slot] = offset
-            kpos_m[rows, slot] = -1
+            # row b's slot[b], by a scatter: `kpos[rows, slot] = offset`
+            # (an index_put_ of every dimension) waits on the host on the
+            # card (chip_smoke.py phase 28, under the engine's guard)
+            at = slot.long()[:, None]
+            kpos.scatter_(1, at, offset[:, None].to(kpos.dtype))
+            kpos_m.scatter_(1, at, -1)
         else:
             # a 1-element index: a 0-d one is read back to the host
             at = slot.long().reshape(1)

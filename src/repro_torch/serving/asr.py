@@ -41,6 +41,11 @@ after the whole step succeeded, so a step that raises leaves pool state,
 sample buffers and metrics as they were — the invariant the
 probe-bisection quarantine (`_step_isolated`) replays depend on.
 
+Transfer discipline: the step runs inside `no_implicit_transfers()`
+(`analysis.guards`; on the card the sync debug mode in error), so a
+host read in it raises.  Its only host-to-device traffic is the batch
+and slot uploads, through pinned memory with `non_blocking=True`.
+
 Two API layers:
   * slot level — `feed_slot` / `pump` / `slot_best` / `reset_slot`
     (what the deprecated ASRPU command shims in core/scheduler drive).
@@ -56,6 +61,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import no_implicit_transfers
 from repro_torch.core import decoder as dec
 from repro_torch.core import features, treeutil
 from repro_torch.device import resolve_device
@@ -117,6 +123,9 @@ class AsrEngine(Engine):
             params, self.device, mesh)
         self._lex = self.program.lex.to(self.device)
         self._lm = self.program.lm.to(self.device)
+        # the MFCC's tables go to the device now, not in a first step
+        # (which runs under the host-sync guard)
+        features._tables(fc, self.device)
         self._reset_pool()
 
     # ---- the fused decoding step -------------------------------------
@@ -156,11 +165,13 @@ class AsrEngine(Engine):
         """One slot-batched decoding step over a GATHERED sub-batch.
         samples: (b, w, need) — w buffered windows for each of the b
         gathered slots; slots: (b,) pool rows.  `write` (data-sharded
-        pools): the batch rows to write back, this shard's real ones; the
-        pad rows (which read pool row 0) write nothing.  Index -1 cannot
-        mark them, as in the reference's drop-mode scatter: torch wraps
-        it to the last row.  Returns NEW pool tensors; the inputs are
-        not modified."""
+        pools): a (n,) tensor of the batch rows to write back, this
+        shard's real ones; the pad rows (which read pool row 0) write
+        nothing.  Index -1 cannot mark them, as in the reference's
+        drop-mode scatter: torch wraps it to the last row.  Every input
+        is on the engine's device already (`_step_slots` uploads them),
+        so nothing here moves data to or from the host.  Returns NEW
+        pool tensors; the inputs are not modified."""
         prog = self.program
         ss = treeutil.tree_map(lambda a: a[slots], stream_state)
         bs = treeutil.tree_map(lambda a: a[slots], beam_state)
@@ -179,11 +190,10 @@ class AsrEngine(Engine):
             def put(full, new):
                 return full.index_put((slots,), new)
         else:
-            rows = torch.from_numpy(write).to(self.device)
-            dst = slots[rows]
+            dst = slots[write]
 
             def put(full, new):
-                return full.index_put((dst,), new[rows])
+                return full.index_put((dst,), new[write])
         return (treeutil.tree_map(put, stream_state, new_ss),
                 treeutil.tree_map(put, beam_state, bs))
 
@@ -355,24 +365,26 @@ class AsrEngine(Engine):
                 "asr_step", slots=tuple(slots),
                 sids=tuple(self._owner[s].sid for s in slots
                            if self._owner[s] is not None))
-        if self._data_axis is None:
-            samples = torch.from_numpy(batch).to(self.device)
-            slots_t = torch.from_numpy(idx).to(self.device)
-            new_ss, new_beam = self._run_step(self._stream_state, self._beam,
-                                              samples, slots_t)
-        else:
+        write = None
+        if self._data_axis is not None:
             # this shard's rows of the shard-aligned batch; pad rows
             # (index -1) read pool row 0 and write nothing
             bloc = b // self._n_data
             mine = slice(self._data_axis.index * bloc,
                          (self._data_axis.index + 1) * bloc)
             valid = idx[mine] >= 0
-            rows = np.where(valid, idx[mine] - self._slot0, 0)
-            samples = torch.from_numpy(batch[mine]).to(self.device)
-            slots_t = torch.from_numpy(rows).to(self.device)
+            batch = batch[mine]
+            idx = np.where(valid, idx[mine] - self._slot0, 0)
+            write = np.flatnonzero(valid)
+        # transfer-guarded: the uploads are the only host-to-device
+        # traffic of a step, and nothing in it may wait on the card (a
+        # host read inside raises; the mesh's collectives lift the guard
+        # for their own staging)
+        with no_implicit_transfers():
+            kw = {} if write is None else {"write": self._upload(write)}
             new_ss, new_beam = self._run_step(
-                self._stream_state, self._beam, samples, slots_t,
-                write=np.flatnonzero(valid))
+                self._stream_state, self._beam, self._upload(batch),
+                self._upload(idx), **kw)
         if not commit:
             return
         self._stream_state, self._beam = new_ss, new_beam
@@ -384,6 +396,15 @@ class AsrEngine(Engine):
         for s in slots:
             if self._owner[s] is not None:      # slot-level API has no owner
                 self.metrics.on_first_result(self._owner[s])
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without a host wait: on
+        the card through pinned memory, `non_blocking` (a blocking copy
+        of pageable memory synchronises)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _assemble_batch(self, slots, w):
         """Gather each eligible slot's next `w` buffered windows into a

@@ -24,6 +24,11 @@ prefill succeeded (isolation probes write nothing).  An attention-free
 model (mamba2) keeps the per-slot position metadata all the same: its
 ring width is the program's cache length, and no layer reads it.
 
+Each decode step runs inside `no_implicit_transfers()`
+(`analysis.guards`; on the card the sync debug mode in error): its
+inputs live on the device, and its one host read, the step's tokens,
+comes after the guarded block.
+
 Session protocol: `push(prompt)` submits the request (prefill happens at
 admission); `poll()` drives the engine — admitted requests generate
 their full `program.max_new` tokens, batched across slots — and returns
@@ -38,6 +43,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.guards import no_implicit_transfers
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import LM, params_from_numpy
 from repro_torch.serving.config import EngineConfig, LmProgram
@@ -274,8 +280,9 @@ class LmEngine(Engine):
                 if self._owner[s] is not None and self._rem[s] > 0]
         if not live:
             return False
-        _, tok, self.cache = self.lm.decode_step(
-            self.params, self.cache, {"tokens": self._tokens})
+        with no_implicit_transfers():   # decode inputs live on device
+            _, tok, self.cache = self.lm.decode_step(
+                self.params, self.cache, {"tokens": self._tokens})
         self._tokens = tok[:, None]
         self.n_steps += 1
         self.metrics.on_step(len(live), self.n_slots)

@@ -42,7 +42,14 @@ Device: an engine on a card is built on the caller's thread and then
 driven only from its `EngineWorker` thread.  PyTorch's current device is
 per thread, so the worker binds its thread to the engine's card before
 its first pump; the event loop never touches a tensor (everything a
-worker hands back is host data: numpy arrays, lists, numbers).
+worker hands back is host data: numpy arrays, lists, numbers).  The
+engines' steps run under the host-sync guard
+(`analysis.guards.no_implicit_transfers`), which on a card is one
+setting of the process: the workers of engines on a card take turns
+(`guards.card_turn`), one iteration (commands, pump round) at a time,
+so that the ASR worker's guarded step never overlaps the LM worker's
+readouts or prefills, nor the other way round.  A worker abandoned by
+the supervisor gives up its turn and its open guard (`guards.release`).
 
 Commands: the handlers change an engine only through the named commands
 of `serving.engine.COMMANDS` (`EngineWorker.command` / `run`: open,
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import json
 import queue
 import random
@@ -90,6 +98,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.analysis import guards
 from repro_torch.serving.engine import (COMMANDS, AdmissionRejected, Engine,
                                         SessionFaulted, check_owner,
                                         copy_result)
@@ -376,6 +385,14 @@ def follow(engine: Engine, channel) -> dict:
         stats["commands"] += len(cmds)
 
 
+def takes_turns(engine: Engine) -> bool:
+    """Whether `engine`'s worker takes turns on the card with the other
+    workers of the process: an engine on a card, where the host-sync
+    guard of its steps is the process's sync debug mode."""
+    device = getattr(engine, "device", None)
+    return device is not None and device.type == "cuda"
+
+
 class EngineWorker:
     """Dedicated thread owning ONE engine: the only code that ever calls
     into the engine.  Submitted commands (`command`: the engine's named
@@ -493,6 +510,9 @@ class EngineWorker:
         self._death = exc
         self._dead = True
         self._stopping.set()
+        # a thread wedged inside a step holds its turn on the card and
+        # its open guard: both would outlive it
+        guards.release(self._thread)
         self._fail_pending(exc)
 
     def _fail_pending(self, exc: BaseException) -> None:
@@ -534,18 +554,31 @@ class EngineWorker:
             self._crash(exc)
 
     def _iterate(self, busy: bool) -> bool:
-        """One iteration: the queued items in order, then a pump round."""
+        """One iteration: the queued items in order, then a pump round,
+        on the card's turn."""
         try:
             item = self._cmds.get(timeout=0.001 if busy else self._idle_wait)
         except queue.Empty:
             item = None
-        while item is not None:
-            self._exec(*item)
-            try:
-                item = self._cmds.get_nowait()
-            except queue.Empty:
-                item = None
-        return self._pump()
+        with self._card_turn():
+            while item is not None:
+                self._exec(*item)
+                try:
+                    item = self._cmds.get_nowait()
+                except queue.Empty:
+                    item = None
+            return self._pump()
+
+    def _card_turn(self):
+        """The card's turn for one iteration (`guards.card_turn`), for an
+        engine on a card; waiting for it is not being wedged, so the wait
+        keeps the heartbeat."""
+        if not takes_turns(self.engine):
+            return contextlib.nullcontext()
+        return guards.card_turn(self._beat)
+
+    def _beat(self) -> None:
+        self.heartbeat = time.monotonic()
 
     def _lead(self, busy: bool) -> bool:
         """One iteration of rank 0's worker on a mesh.  The pump's fault
@@ -563,7 +596,8 @@ class EngineWorker:
             faults.check("pump", worker=self._thread.name)
         items = self._take(0.001 if busy else self._idle_wait)
         try:
-            return self._lead_items(items, busy)
+            with self._card_turn():
+                return self._lead_items(items, busy)
         except BaseException as exc:
             # the stream broke or the thread was fenced out: the items it
             # claimed will never run

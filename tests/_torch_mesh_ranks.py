@@ -199,7 +199,54 @@ def serve(payload):
     return out
 
 
-JOBS = {"layout": layout, "forward": forward, "serve": serve}
+def guarded_step(payload):
+    """A warmed step of the demo engine on each mesh of `payload["meshes"]`
+    (the 2x1 'data'-sharded pool, the 2-rank 'model' contraction) under
+    the engine's own guard made strict (`no_implicit_transfers(strict=
+    True)`): the number of guarded blocks the engine opened, and the
+    slot's words, beside the same steps with the guard taken out."""
+    import contextlib
+    import functools
+
+    from repro_torch.analysis import guards
+    from repro_torch.launch.serve import asr_demo_engine
+    from repro_torch.serving import asr as asrmod
+    real = asrmod.no_implicit_transfers
+    out = {}
+    for spec in payload["meshes"]:
+        mesh = parse_mesh(spec)
+        words = {}
+        for strict in (True, False):
+            eng, _ = asr_demo_engine(4, device="cpu", mesh=mesh)
+            for s in range(4):
+                eng.feed_slot(s, payload["utts"][s])
+            eng._step_slots([0, 1, 2, 3], 1)            # warm-up
+            entered = []
+
+            def guard(strict=strict, entered=entered):
+                entered.append(1)
+                return (functools.partial(real, strict=True)()
+                        if strict else contextlib.nullcontext())
+            asrmod.no_implicit_transfers = guard
+            try:
+                eng._step_slots([0, 1, 2, 3], 1)
+            finally:
+                asrmod.no_implicit_transfers = real
+            words[strict] = [eng.slot_best(s)["words"].tolist()
+                             for s in range(4)]
+            if strict:
+                out[spec] = {"entered": len(entered),
+                             "blocks_left": sum(
+                                 b for b, _ in guards._owners.values()),
+                             "lifts_left": sum(
+                                 n for _, n in guards._owners.values())}
+        out[spec]["words"] = words[True]
+        out[spec]["unguarded_words"] = words[False]
+    return out
+
+
+JOBS = {"layout": layout, "forward": forward, "serve": serve,
+        "guarded_step": guarded_step}
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ ownership fence stops it: the reference's semantics).
 """
 import asyncio
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -424,6 +425,74 @@ def test_server_wedged_worker_watchdog_restart():
     _same(_as_result(final), ref)
     assert engine.metrics.worker_restarts >= 1
 
+
+
+def test_worker_wedged_inside_the_guard_is_released_on_restart(
+        monkeypatch):
+    """A worker wedged INSIDE its guarded step (the engines' workers
+    taking turns as on a card, the card's sync debug mode recorded):
+    while it hangs the mode is error and it holds the card's turn; the
+    watchdog restart releases both, so the new worker serves and the
+    mode comes back once it is idle, and the zombie, woken, changes
+    neither."""
+    from repro_torch.analysis import guards
+    mode = ["default"]
+    monkeypatch.setattr(guards, "_has_cuda", lambda: True)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode",
+                        lambda m: mode.__setitem__(0, m))
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: mode[0])
+    monkeypatch.setattr(tserver, "takes_turns", lambda engine: True)
+    watchdog = 2.0
+    engine, words = _asr_engine(1, worker_watchdog=watchdog)
+    audio = SyntheticASR(words).utterance(2)["audio"]
+    arm, wedged, wake = {"on": False}, threading.Event(), threading.Event()
+    real_run = engine._run_step
+
+    def run_step(*args, **kw):            # inside no_implicit_transfers
+        if arm["on"]:
+            arm["on"] = False
+            wedged.set()
+            wake.wait(60)
+        return real_run(*args, **kw)
+    engine._run_step = run_step
+
+    async def go(server):
+        old = server._asr_worker
+        warm = await AsrClient.open(server.host, server.port)
+        await warm.push(audio)
+        assert not (await warm.finish()).get("error")
+        await _suspend_supervisor(server)
+        arm["on"] = True
+        inflight = await AsrClient.open(server.host, server.port)
+        await inflight.push(audio[:8000])
+        await _poll_until(lambda: asyncio.sleep(0, wedged.is_set()),
+                          timeout=30.0)
+        assert mode == ["error"] and guards._turn is old._thread
+        await _poll_until(lambda: asyncio.sleep(
+            0, old.heartbeat_age() > watchdog), timeout=30.0)
+        _resume_supervisor(server)
+        await _poll_until(lambda: asyncio.sleep(
+            0, server._asr_worker is not old), timeout=30.0)
+        assert old._thread not in guards._owners
+        assert guards._turn is not old._thread
+        await inflight.aclose()
+        fresh = await AsrClient.open(server.host, server.port)
+        await fresh.push(audio)
+        final = await fresh.finish()
+        await _poll_until(lambda: asyncio.sleep(0, mode == ["default"]),
+                          timeout=30.0)
+        wake.set()                         # the zombie wakes
+        await _poll_until(lambda: asyncio.sleep(
+            0, not old._thread.is_alive()), timeout=30.0)
+        assert mode == ["default"] and old._thread not in guards._owners
+        return final
+
+    final = asyncio.run(_with_server(
+        EngineServer(asr_engine=engine, watch_interval=0.05), go))
+    assert guards._owners == {} and guards._turn is None
+    ref = _asr_engine(1)[0].open().push(audio).finish()
+    _same(_as_result(final), ref)
+    assert engine.metrics.worker_restarts == 1
 
 def test_server_poison_session_errors_in_stream_others_unaffected():
     """Over the wire: the poisoned session gets an in-stream `faulted`

@@ -249,3 +249,45 @@ def test_tooling_modules_have_port_counterparts(module):
         if obj is None:
             missing.append(name)
     assert not missing, (module, missing)
+
+
+# the reference's analysis modules with a counterpart of the same path.
+# `compat.py` has none: it maps jax API names across jax versions
+# (`shard_map`, pallas `CompilerParams`, `AbstractMesh`), and the port
+# calls no jax
+ANALYSIS = ["analysis/core", "analysis/guards", "analysis/__init__"]
+
+
+def _dunder_all(path):
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in n.targets):
+            return set(ast.literal_eval(n.value))
+    return set()
+
+
+@pytest.mark.parametrize("module", ANALYSIS)
+def test_analysis_modules_have_port_counterparts(module):
+    """Every public function, class and method (and `__all__` name) of
+    the reference's analysis modules has one of the same name in the
+    port's module of the same path."""
+    import importlib
+    name = module.replace("/__init__", "").replace("/", ".")
+    port = importlib.import_module("repro_torch." + name)
+    path = ROOT / "src" / "repro" / f"{module}.py"
+    want = _top_level_public(path) | _dunder_all(path)
+    assert want
+    missing = []
+    for name in sorted(want):
+        obj = port
+        for part in name.split("."):
+            obj = getattr(obj, part, None)
+        if obj is None:
+            missing.append(name)
+    assert not missing, (module, missing)
+
+
+def test_kernel_registry_keys_are_the_cuda_sources():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.policy import KERNEL_REGISTRY
+    assert set(KERNEL_REGISTRY) == {f.stem for f in _build.sources()}

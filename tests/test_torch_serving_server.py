@@ -18,7 +18,9 @@ the port against the JAX package:
   (d) nothing the engine worker hands the event loop is a
       `torch.Tensor`;
   (e) `python -m repro_torch.launch.serve --serve --port 0 --device cpu`
-      serves, and SIGTERM drains it: "drained; server stopped", rc 0.
+      serves, and SIGTERM drains it: "drained; server stopped", rc 0;
+  (f) the workers of engines on a card take turns (forced on here):
+      each guarded step runs on its worker's turn.
 
 Both packages get the same weights: the reference's tiny TDS system
 (`test_serving._asr_system`) and `LM.init` parameters, carried across
@@ -27,6 +29,7 @@ through numpy.  The port's results are held to `test_serving._same`
 own.
 """
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import json
@@ -35,6 +38,7 @@ import pathlib
 import signal
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -706,3 +710,55 @@ def test_engine_device_names_the_card_index(monkeypatch):
     assert resolve_device("cuda") == torch.device("cuda", 3)
     assert resolve_device("cuda:1") == torch.device("cuda", 1)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_workers_on_a_card_take_turns_around_guarded_steps(monkeypatch):
+    """(f) The host-sync guard is one setting of the process on a card,
+    so the ASR and LM workers of one server take turns there: every
+    guarded step (an ASR step, an LM decode) runs while its worker holds
+    the card's turn, and so never beside the other worker's readouts.
+    Turns forced on the CPU; two ASR streams and two LM requests at
+    once, each result equal to its in-process run."""
+    from repro_torch.analysis import guards
+    from repro_torch.serving import asr as asrmod, lm as lmmod
+
+    monkeypatch.setattr(tserver, "takes_turns", lambda engine: True)
+    steps = {"asr-worker": 0, "lm-worker": 0}
+
+    def turn_checked(module):
+        real = module.no_implicit_transfers
+
+        @contextlib.contextmanager
+        def guard(strict=False):
+            me = threading.current_thread()
+            if me.name in steps:            # a server's worker
+                assert guards._turn is me, f"{me.name}: a step off its turn"
+                steps[me.name] += 1
+            with real(strict):
+                yield
+        monkeypatch.setattr(module, "no_implicit_transfers", guard)
+    turn_checked(asrmod)
+    turn_checked(lmmod)
+    engine, words = _asr_engine(2)
+    data = SyntheticASR(words)
+    utts = [data.utterance(i)["audio"] for i in range(2)]
+    prompts = [[4, 5, 6], [7, 8, 9, 10]]
+
+    async def go(server):
+        return await asyncio.gather(
+            *[_stream(AsrClient, server.host, server.port, audio, 0.01 * i)
+              for i, audio in enumerate(utts)],
+            *[lm_generate(server.host, server.port, p) for p in prompts])
+
+    outs = asyncio.run(_with_server(
+        EngineServer(asr_engine=engine, lm_engine=_lm_engine(2)[0]), go))
+    assert steps["asr-worker"] > 0 and steps["lm-worker"] > 0, steps
+    assert guards._turn is None and guards._owners == {}
+    single, _ = _asr_engine(1)
+    for audio, final in zip(utts, outs[:2]):
+        _same(_as_result(final), single.open().push(audio).finish())
+    ref_lm, _ = _lm_engine(1)
+    for prompt, out in zip(prompts, outs[2:]):
+        assert out["done"]
+        assert out["tokens"] == ref_lm.serve(
+            [np.asarray(prompt, np.int32)])[0]
