@@ -90,8 +90,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                512 and 2048 at 1 and 2 rows; rmsnorm at D = 2560, 2048
                and 4096 (mamba2's gated norm over d_inner), rows 1 to
                8192.  bf16 flash runs on the tensor cores (wgmma, P
-               rounded to bf16 before P·V), fp32 flash on the CUDA cores;
-               rmsnorm keeps the row in registers with 16-byte loads.
+               rounded to bf16 before P·V: at D = 64 and 128 the TMA
+               design, at D = 80 the cp.async one; each check names its
+               design), fp32 flash on the CUDA cores; rmsnorm keeps the
+               row in registers with 16-byte loads.
   8. lm serve — bf16 `LmEngine` for h2o-danube-1.8b (4 slots, buckets
                512/2048/6144, 32 new tokens) serves 8 prompts of
                100-6144 tokens, three longer than the 4096 window; launch
@@ -103,8 +105,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                tokens, prefill logits close; bf16 prefill logits close.
  10. lm timing — each LM kernel, its plain version and the library call
                at the three paths' bf16 prefill and decode shapes, bounds,
-               each flash time as a share of the bf16 peak and against
-               SDPA, each rmsnorm time as a share of its bytes bound and
+               each flash time with its design, as a share of its bound
+               and of the bf16 peak and against SDPA (kernel/sdpa), each
+               rmsnorm time as a share of its bytes bound and
                against F.rms_norm; a profiler breakdown of an h2o-danube
                prefill and decode step.
  11. mamba serve — bf16 `LmEngine` for mamba2-1.3b (48 Mamba-2 layers,
@@ -207,7 +210,9 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                rmsnorm at D = 3584, bf16 and fp32; layernorm on bf16 rows
                at D = 1536 (1 to 8192 rows, a misaligned row and D =
                1540: the scalar kernel) and on the TDS model's fp32 rows
-               with its bias + residual; each against its plain version,
+               with its bias + residual; each against its plain version
+               (each bf16 flash launch must run the TMA design, and only
+               it, as the C library records the kernel it launched),
                then timed beside it, the library call (SDPA with
                `enable_gqa`, F.rms_norm, F.layer_norm) and its bound.
  20. vlm      — qwen2-vl-7b (28 layers, d_model 3584, 28/4 heads of 128,
@@ -1975,7 +1980,7 @@ def check_lm_kernels(dev) -> dict:
             d_ = (got.float() - want.float()).abs().max().item()
             err["flash_attention"] = max(err.get("flash_attention", 0.0), d_)
             label = (f"{tag} B={b} H={h}/{kv} Sq={sq} Skv={skv} D={d} "
-                     f"w={win}")
+                     f"w={win} ({kfa.design(d, dtype)})")
             try:
                 torch.testing.assert_close(got, want, **LM_TOL[dtype])
             except AssertionError as e:
@@ -2326,6 +2331,8 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
              "pairs": pairs, "flops": flops, "bytes": nbytes,
              "library_max_abs_err": lib_err}
         r["peak_share"] = flops / (r["ms"] * 1e-3) / PEAK_BF16
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["design"] = kfa.design(D, torch.bfloat16)
         r["vs_library"] = (None if r["library_ms"] is None
                            else r["ms"] / r["library_ms"])
         out["flash_attention"][flash_key(H, K, S, D, B)] = r
@@ -2333,7 +2340,9 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
                else f"{r['library_ms'] * 1e3:.1f} us, kernel/sdpa "
                     f"{r['vs_library']:.3f}")
         print(f"[{tag}] flash_attention bf16 ({B}, {H}/{K}, {S}, {D}) "
-              f"w={win}: kernel {r['ms'] * 1e3:.1f} us, plain "
+              f"w={win}, design {r['design']}: kernel "
+              f"{r['ms'] * 1e3:.1f} us ({100 * r['bound_share']:.1f}% of "
+              f"its bound), plain "
               f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib} "
               f"(max|diff| {lib_err}), bound {r['bound_ms'] * 1e3:.1f} us "
               f"({r['bound_by']}; {pairs} pairs/head); "
@@ -3492,8 +3501,16 @@ def check_lm3_kernels(dev) -> dict:
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         for b, h, kv, sq, skv, d, causal, win in LM3_FLASH_CASES:
             q, k, v = attn_inputs(dev, gen, b, h, kv, sq, skv, d, dtype)
-            hold("flash_attention", f"{tag} B={b} H={h}/{kv} S={sq} D={d}",
-                 kfa.flash_attention(q, k, v, causal=causal, window=win),
+            before = dict(kfa.launches_by_design)
+            got = kfa.flash_attention(q, k, v, causal=causal, window=win)
+            ran = [n for n in kfa.DESIGNS
+                   if kfa.launches_by_design[n] != before[n]]
+            # D = 64 and 128 in bf16 run the TMA design, and only it
+            if ran != [kfa.design(d, dtype)] or (
+                    dtype == torch.bfloat16 and ran != ["bf16 tma"]):
+                fail(f"flash_attention {tag} D={d}: launched {ran}")
+            hold("flash_attention", f"{tag} B={b} H={h}/{kv} S={sq} D={d} "
+                 f"({ran[0]})", got,
                  ref.flash_attention(q, k, v, causal=causal, window=win),
                  LM_TOL[dtype])
             del q, k, v

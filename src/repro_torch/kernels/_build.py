@@ -35,7 +35,9 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 # C signature of every entry point: (argtypes); each returns an int, the
-# launch's cudaError_t (beam_prune_capacity: a count, or minus an error)
+# launch's cudaError_t (beam_prune_capacity: a count, or minus an error;
+# flash_attention_design: which of the flash kernels a launch runs;
+# flash_attention_ran: which one the last launch ran, or -1)
 SIGNATURES = {
     "logmel_launch": (P, P, P, P, I, I, I, I, P),
     "mfcc_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
@@ -44,6 +46,8 @@ SIGNATURES = {
     "layernorm_launch": (P, P, P, P, P, P, I, I, F, I, P),
     "rmsnorm_launch": (P, P, P, I, I, F, I, P),
     "flash_attention_launch": (P, P, P, P, I, I, I, I, I, I, I, I, I, F, P),
+    "flash_attention_design": (I, I),
+    "flash_attention_ran": (),
     "hypothesis_unit_launch": (P, P, P, P, P, P, P, P, I, I, I, F, P),
     "int8_matmul_launch": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "beam_prune_launch": (P, P, P, I, F, P),

@@ -16,63 +16,84 @@
 // 4·D flops per unmasked (q, k) pair and head against O(S·D) bytes, far
 // above the card's 295 flops per byte, so only the tensor cores (989
 // TFLOP/s in bf16, against 67 TFLOP/s of fp32 FMAs on the CUDA cores)
-// can reach the bound.
+// can reach the bound.  Beside the products, every pair costs one MUFU
+// exp2 and a few fp32 operations on the CUDA cores (the softmax), which
+// the tensor cores do not wait for only if the two overlap: at D = 64 a
+// 128 x 128 tile's two products take about as many SM cycles as its
+// 16,384 exp2 at 16 a cycle, so there the softmax is the other bound.
 //
-// bf16 (`fa_wgmma_kernel`): both products on the tensor cores.
-//   * One block per (b, h, q tile of 128 rows): two consumer warpgroups
-//     of 64 q rows each and one producer warp.  The block walks the kv
-//     tiles of 128 rows that its causal / window band touches; fully
-//     masked tiles are never loaded.  The heaviest q tiles (the latest,
-//     whose band is longest) are launched first.
-//   * Copies: the producer warp moves Q once and each K/V tile into a
-//     three-stage ring with `cp.async` (16 bytes a lane, zero-filled past
-//     S and in the depth padding), and `cp.async.mbarrier.arrive` marks a
-//     stage full when its copies land; consumers release a stage through
-//     an `empty` mbarrier once their products have read it.  Two tiles'
-//     copies are in flight while the current tile's products and softmax
-//     run, and the loop has no block-wide barrier.  cp.async rather than
-//     TMA: it needs no tensor map encoded on the host per call, and it
-//     writes the layout below directly.
-//   * Layout: no swizzle.  Rows are cut into 8 x 16-byte core matrices
-//     (8 rows x 8 values), stored 128 contiguous bytes each, chunk-major
-//     within a group of 8 rows: chunk (r, c) at ((r/8)·DP/8 + c)·128 +
-//     (r%8)·16.  A core matrix spans all 32 banks, so neither the copies
-//     nor the tensor cores' reads conflict, and a depth D = 80 (160-byte
-//     rows, which fill no 128-byte swizzle atom) needs no split into
-//     swizzle widths.  The depth is padded with zeros to DP, a multiple
-//     of 16 (exact for Q·Kᵀ; the padded output columns of P·V are never
-//     stored).
-//   * S = Q·Kᵀ: `wgmma.mma_async` m64n128k16, Q and K both K-major from
-//     shared memory, fp32 accumulators, DP/16 steps.
-//   * O += P·V: P is rounded to bf16 and packed straight from the S
-//     accumulators into A fragments in registers (the m64nNk16
-//     accumulator layout is the register A layout), then `wgmma`
-//     m64nDPk16 reads V (kv rows x D, D contiguous: MN-major) with the
-//     transpose bit, 8 steps per tile.  The next tile's S is issued right
-//     behind it, so the tensor cores run the two back to back.
-//   * Scheduling is left to the warp schedulers: one warpgroup's softmax
-//     overlaps the other's products.  (Forcing the two to take turns at
-//     issuing them with named barriers, as FlashAttention-3 does, was no
-//     faster on the H100 at D = 80.)
-//   * Masks: only tiles that straddle the causal diagonal, the window's
-//     lower edge or the end of kv evaluate the per-element mask; the
-//     interior tiles take a branch without it, where p = 2^(s·scale·
-//     log2(e) - max) is one FMA and one MUFU ex2.
-//   * The one numeric departure from the fp32 reference: P is rounded to
-//     bf16 before P·V (as SDPA's flash backend and FlashAttention-2/3
-//     do); the relative error per probability is at most 2^-9, so the
-//     output moves by at most 2^-9·max|v| before its own rounding.  l
-//     sums the unrounded fp32 probabilities.
-//   * Registers: 64 fp32 S, DP/2 fp32 O and 32 packed P values per
-//     thread, within the 168 a thread that one 288-thread block per SM
-//     leaves: `-Xptxas -v` reports no spill up to DP = 112 and 24 bytes
-//     at DP = 128.
+// Three designs; `flash_attention_design` says which one a launch runs.
 //
-// fp32 (`flash_attention_kernel`): the port's fp32 contract is "no
-// TF32", and the tensor cores take fp32 only as TF32, so fp32 keeps the
-// CUDA-core design: one block of 256 threads per (b, h, 64-row q tile)
-// walks the kv tiles of 64 rows that its band touches.  Q and each K
-// tile are staged in shared memory transposed, so that the score loop
+// bf16 at D = 64 and 128 (`fa_tma_kernel`, design 2): both products on
+// the tensor cores, as FlashAttention-3 arranges them.
+//   * A persistent grid, one block an SM: the q tiles of 128 rows are
+//     ranked heaviest first across all (b, h) (the latest rows see the
+//     longest causal band) and dealt out in a snake (block b takes ranks
+//     b, 2G-1-b, 2G+b, ...), so a block's heavy and light tiles even
+//     out.  A block is two consumer warpgroups of 64 q rows each and one
+//     producer warpgroup, which gives its registers away (`setmaxnreg.dec`
+//     to 24) to the consumers (`setmaxnreg.inc` to 240): a thread's 64
+//     fp32 scores, D/2 fp32 outputs and 32 packed bf16 probabilities fit
+//     at D = 128 without a spill.
+//   * Copies: one producer thread issues TMA loads (`cp.async.bulk.tensor
+//     .3d`) of each tile's Q and of its K and V tiles of 128 rows into two
+//     rings of two stages, each stage with a full and an empty mbarrier
+//     (each consumer warpgroup frees a stage with one arrival); K and V
+//     have rings of their own, so a K stage is free as soon as its scores
+//     are done, and Q has its own pair, freed by the tile's last S.  The
+//     rings run on across a block's tiles: the next tile's Q and first
+//     K/V load while this one ends.  The tensor maps are encoded on the
+//     host for each call (`cuTensorMapEncodeTiled`, reached through
+//     `cudaGetDriverEntryPoint`: nothing links the driver library) over
+//     (D, S, B·heads), so rows past S belong to no head and TMA fills them
+//     with zeros (or, storing, skips them).  A call whose maps cannot be
+//     encoded returns the error; nothing falls back to another design.
+//   * Layout: TMA's 128-byte swizzle, one 64-column atom (a 128-byte row)
+//     at D = 64 and two at D = 128, read by `wgmma` through descriptors in
+//     the same swizzle mode: Q and K K-major, V MN-major (transpose bit).
+//   * The softmax under the products: each iteration issues S(it) =
+//     Q·K(it)ᵀ and then O += P(it-1)·V(it-1), waits only for S(it), and
+//     runs the softmax of tile it on the CUDA cores while P·V still runs
+//     on the tensor cores; then it waits for P·V, rescales O and packs
+//     P(it).  P(it-1) in bf16 registers and S(it) in fp32 live side by
+//     side.  The two consumer warpgroups take turns at issuing their
+//     products (named barriers, FlashAttention-3's ping-pong), so one's
+//     softmax runs under the other's products.
+//   * Epilogue: O / max(l, 1e-30) (the IEEE quotient, computed with one
+//     reciprocal a row and an FMA correction, see `tm_store`) rounded to
+//     bf16 into a staging tile in the same swizzle, stored with one TMA
+//     store a warpgroup.
+//   On the H100 the turns were faster at both widths, and a 192-row q
+//   tile of three consumer warpgroups at D = 64 was not (PERF.md).
+//
+// bf16 at other widths (`fa_wgmma_kernel`, design 1; h2o-danube's D = 80):
+// a producer warp moves Q and each K/V tile with 16-byte `cp.async` into
+// a three-stage ring in an unswizzled core-matrix layout (chunk (r, c) at
+// ((r/8)·DP/8 + c)·128 + (r%8)·16, depth padded with zeros to DP, a
+// multiple of 16): a D = 80 row of 160 bytes fills no 128-byte swizzle
+// atom, which TMA's swizzled tiles and the swizzled `wgmma` descriptors
+// would need, and the unswizzled layout needs no tensor map.  Two
+// consumer warpgroups wait for S, run the softmax, then issue P·V and the
+// next tile's S back to back.  `-Xptxas -v` reports no spill up to DP =
+// 112 (168 registers a thread in a 288-thread block).
+//
+// Shared by both bf16 designs: S = Q·Kᵀ is `wgmma` m64n128k16 from shared
+// memory; O += P·V packs P to bf16 straight from the S accumulators into
+// A fragments in registers (the m64nNk16 accumulator layout is the
+// register A layout) for m64nDk16.  Only tiles that straddle the causal
+// diagonal, the window's lower edge or the end of kv evaluate the
+// per-element mask; interior tiles compute p = 2^(s·scale·log2(e) - max)
+// in one FMA and one MUFU ex2.  The one numeric departure from the fp32
+// reference: P is rounded to bf16 before P·V (as SDPA's flash backend and
+// FlashAttention-2/3 do); the relative error per probability is at most
+// 2^-9, so the output moves by at most 2^-9·max|v| before its own
+// rounding.  l sums the unrounded fp32 probabilities.
+//
+// fp32 (`flash_attention_kernel`, design 0): the port's fp32 contract is
+// "no TF32", and the tensor cores take fp32 only as TF32, so fp32 keeps
+// the CUDA-core design: one block of 256 threads per (b, h, 64-row q
+// tile) walks the kv tiles of 64 rows that its band touches.  Q and each
+// K tile are staged in shared memory transposed, so that the score loop
 // reads one float4 of Q and one of K per d for 16 FMAs; a thread owns a
 // 4 x 4 block of scores, a row's 64 scores live in 16 adjacent lanes
 // (shuffle reductions), and the probabilities go through shared memory
@@ -81,13 +102,19 @@
 // Global loads are 16 bytes (8 bf16 or 4 fp32), so D must be a multiple
 // of 8 and at most 128, and the base pointers 16-byte aligned: the
 // wrapper checks all of it.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include "smem.cuh"
 
 namespace {
+
+// The design of the kernel the last call launched (see
+// flash_attention_design), -1 if it launched none.
+int ran_design = -1;
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma with cp.async-fed tiles
@@ -352,6 +379,86 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The online softmax of one 64 x 128 tile of scores in the m64n128
+// accumulator layout (accumulator j: row row0 + 8·((j>>1)&1), column
+// 8·(j>>2) + 2·(lane&3) + (j&1)), in place: s becomes p, (m, l) the new
+// running max and this thread's partial sum (reduced over the row's 4
+// lanes at the end); a0 and a1 rescale the earlier accumulators.
+// masked: the tile straddles the diagonal, the window's edge or the end
+// of kv, so each pair is tested; else the max of the raw scores (scale >
+// 0), then p = 2^(s·scale·log2(e) - max) in one FMA and one MUFU op.
+__device__ __forceinline__ void fw_softmax(float (&s)[64], float& m0,
+                                           float& m1, float& l0, float& l1,
+                                           float& a0, float& a1, bool masked,
+                                           int k0, int qpos0, int qpos1,
+                                           int lane, int Skv, int causal,
+                                           int window, float sl2) {
+  float n0, n1, sum0 = 0.f, sum1 = 0.f;
+  if (masked) {
+    // kpos = base + c with c = 8·(j>>2) + (j&1) a constant: a row keeps
+    // kpos < Skv, kpos <= qpos (causal) and qpos - kpos < window, i.e.
+    // the c in [lo, hi]
+    const int base = k0 + 2 * (lane & 3);
+    const int hi0 = (causal ? min(qpos0, Skv - 1) : Skv - 1) - base;
+    const int hi1 = (causal ? min(qpos1, Skv - 1) : Skv - 1) - base;
+    const int lo0 = window > 0 ? qpos0 - window + 1 - base : INT_MIN;
+    const int lo1 = window > 0 ? qpos1 - window + 1 - base : INT_MIN;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int c = 8 * (j >> 2) + (j & 1);
+      const bool ok = (j & 2) ? c <= hi1 && c >= lo1 : c <= hi0 && c >= lo0;
+      s[j] = ok ? s[j] * sl2 : FW_MASK;
+      if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
+    }
+    fw_row_max(mx0, mx1);
+    n0 = fmaxf(m0, mx0);
+    n1 = fmaxf(m1, mx1);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int c = 8 * (j >> 2) + (j & 1);
+      const bool ok = (j & 2) ? c <= hi1 && c >= lo1 : c <= hi0 && c >= lo0;
+      const float p = ok ? fast_exp2(s[j] - ((j & 2) ? n1 : n0)) : 0.f;
+      s[j] = p;
+      if (j & 2) sum1 += p; else sum0 += p;
+    }
+  } else {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
+    }
+    fw_row_max(mx0, mx1);
+    n0 = fmaxf(m0, mx0 * sl2);
+    n1 = fmaxf(m1, mx1 * sl2);
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float p = fast_exp2(fmaf(s[j], sl2, (j & 2) ? -n1 : -n0));
+      s[j] = p;
+      if (j & 2) sum1 += p; else sum0 += p;
+    }
+  }
+  a0 = fast_exp2(m0 - n0);
+  a1 = fast_exp2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// P rounded to bf16 and packed into the A fragments of the 8 m64nNk16
+// steps over a tile's 128 kv rows.
+__device__ __forceinline__ void fw_pack_p(const float (&s)[64],
+                                          uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
 // S = Q·Kᵀ of tile `it` over the padded depth, issued once its K/V stage
 // is full; committed, not waited for.
 template <int DP>
@@ -465,71 +572,17 @@ fa_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();              // S of tile it (and P·V of tile it-1)
     fence_regs<NS>(s);
 
-    // accumulator j: row row0 + 8·((j>>1)&1), column 8·(j>>2) + 2·(lane&3)
-    // + (j&1)
     const bool masked = k0 + FW_BK > Skv || (causal && k0 + FW_BK - 1 > wlo) ||
                         (window > 0 && whi - k0 >= window);
-    float n0, n1, sum0 = 0.f, sum1 = 0.f;
-    if (masked) {
-      // an edge tile: scores scaled, masked to -1e30, masked p zeroed
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-        const int qpos = (j & 2) ? qpos1 : qpos0;
-        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
-                        (window <= 0 || qpos - kpos < window);
-        s[j] = ok ? s[j] * sl2 : FW_MASK;
-        if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
-      }
-      fw_row_max(mx0, mx1);
-      n0 = fmaxf(m0, mx0);
-      n1 = fmaxf(m1, mx1);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-        const int qpos = (j & 2) ? qpos1 : qpos0;
-        const bool ok = kpos < Skv && (!causal || kpos <= qpos) &&
-                        (window <= 0 || qpos - kpos < window);
-        const float p = ok ? fast_exp2(s[j] - ((j & 2) ? n1 : n0)) : 0.f;
-        s[j] = p;
-        if (j & 2) sum1 += p; else sum0 += p;
-      }
-    } else {
-      // an interior tile: the max of the raw scores (scale > 0), then
-      // p = 2^(s·scale·log2(e) - max) in one FMA and one MUFU op
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        if (j & 2) mx1 = fmaxf(mx1, s[j]); else mx0 = fmaxf(mx0, s[j]);
-      }
-      fw_row_max(mx0, mx1);
-      n0 = fmaxf(m0, mx0 * sl2);
-      n1 = fmaxf(m1, mx1 * sl2);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float p = fast_exp2(fmaf(s[j], sl2, (j & 2) ? -n1 : -n0));
-        s[j] = p;
-        if (j & 2) sum1 += p; else sum0 += p;
-      }
-    }
-    const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    l0 = l0 * a0 + sum0;     // per-thread partial sums, reduced at the end
-    l1 = l1 * a1 + sum1;
+    float a0, a1;
+    fw_softmax(s, m0, m1, l0, l1, a0, a1, masked, k0, qpos0, qpos1, lane, Skv,
+               causal, window, sl2);
 #pragma unroll
     for (int j = 0; j < NO; ++j) o[j] *= (j & 2) ? a1 : a0;
 
     // P (bf16, registers) · V
     uint32_t pa[FW_BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < FW_BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    fw_pack_p(s, pa);
     fence_regs<NO>(o);
     wgmma_fence();
 #pragma unroll
@@ -584,6 +637,7 @@ int fw_launch(const void* q, const void* k, const void* v, void* out, int B,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, K, Sq, Skv, D, causal,
       window, scale);
+  ran_design = 1;
   return (int)cudaGetLastError();
 }
 
@@ -601,6 +655,489 @@ int fw_dispatch(const void* q, const void* k, const void* v, void* out,
     case 8: return fw_launch<128>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D = 64 and 128: TMA tiles, a producer warpgroup, the softmax
+// under the products
+// ---------------------------------------------------------------------------
+constexpr int TM_BK = 128;     // kv rows per tile
+constexpr int TM_STAGES = 2;   // stages of the K ring, and of the V ring
+constexpr int TM_NWG = 2;      // consumer warpgroups a block
+constexpr int TM_BQ = 64 * TM_NWG;              // q rows a tile
+constexpr int TM_THREADS = 128 * (TM_NWG + 1);  // + the producer
+
+template <int D>
+struct Tm {
+  static constexpr int ATOMS = D / 64;             // 128-byte atoms a row
+  static constexpr int Q_ATOM = TM_BQ * 128;       // bytes of a Q atom
+  static constexpr int T_ATOM = TM_BK * 128;       // ... of a K or V atom
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;   // Q, and O's staging
+  static constexpr int T_BYTES = ATOMS * T_ATOM;   // one K or V tile
+  static constexpr int K_OFF = 2 * Q_BYTES;        // [stage] K tiles
+  static constexpr int V_OFF = K_OFF + TM_STAGES * T_BYTES;
+  static constexpr int BARS = V_OFF + TM_STAGES * T_BYTES;
+  // 1024 bytes to align the swizzled tiles; 2 + 4·stages mbarriers
+  static constexpr int SMEM = 1024 + BARS + 8 * (2 + 4 * TM_STAGES);
+  static_assert(SMEM <= 232448, "more shared memory than a block has");
+};
+// FlashAttention-3's split of the 64 K registers, 24 + 2·240 for each of
+// 128 threads
+constexpr int TM_PRODUCER_REGS = 24;
+constexpr int TM_CONSUMER_REGS = 240;
+
+// One q tile of the grid's walk.  Tiles are ranked heaviest first across
+// every (b, h) (the latest q rows see the longest causal band), and the
+// G persistent blocks deal the ranks out in a snake: block b takes ranks
+// b, 2G-1-b, 2G+b, 4G-1-b, ..., so that a block's heavy and light tiles
+// even out.  Ranks grow with the round: a block stops at its first rank
+// past the last.
+struct TmTile {
+  int q0, bh, zkv, t_lo, nt;   // first q row, plane of q, of k/v; kv tiles
+};
+
+__device__ __forceinline__ bool tm_tile(int round, int nq, int BH, int H,
+                                        int K, int Sq, int Skv, int causal,
+                                        int window, TmTile& t) {
+  const int G = gridDim.x, b = blockIdx.x;
+  const int rank = round * G + ((round & 1) ? G - 1 - b : b);
+  if (rank >= nq * BH) return false;
+  t.bh = rank % BH;
+  t.q0 = (nq - 1 - rank / BH) * TM_BQ;
+  t.zkv = t.bh / H * K + t.bh % H / (H / K);
+  // the kv band this q tile can see: [kv_lo, kv_hi)
+  const int q_offset = Skv - Sq;
+  const int qlo = t.q0 + q_offset, qhi = min(t.q0 + TM_BQ, Sq) - 1 + q_offset;
+  int kv_lo = 0, kv_hi = Skv;
+  if (causal) kv_hi = min(Skv, qhi + 1);
+  if (window > 0) kv_lo = max(0, qlo - window + 1);
+  t.t_lo = kv_lo / TM_BK;
+  t.nt = kv_hi > kv_lo ? (kv_hi + TM_BK - 1) / TM_BK - t.t_lo : 0;
+  return true;
+}
+
+// wgmma descriptor of a tile in TMA's 128-byte swizzle: 8 rows of 128
+// bytes an atom (SBO 1024); lbo, the stride between 64-column atoms, is
+// read only for MN-major operands.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One TMA box (64 columns x rows x 1 plane) to `dst`; its bytes complete
+// on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(plane)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the A fragments live until the product that reads them is done.
+__device__ __forceinline__ void hold_frags(uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
+}
+
+// S = Q·K(tile)ᵀ over D: D/16 steps of m64n128k16, K-major in the swizzled
+// atoms (a step advances 32 bytes inside an atom).
+template <int D>
+__device__ __forceinline__ void tm_issue_s(float* s, uint32_t qwg,
+                                           uint32_t kt) {
+  using C = Tm<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(s,
+                  sw128_desc(qwg + (kk >> 2) * C::Q_ATOM + (kk & 3) * 32, 16),
+                  sw128_desc(kt + (kk >> 2) * C::T_ATOM + (kk & 3) * 32, 16),
+                  kk > 0);
+}
+
+// O += P·V(tile): 8 steps of m64nDk16 over the tile's kv rows, V MN-major
+// (16 rows = 2048 bytes a step; the two atoms of D = 128 T_ATOM apart).
+template <int D>
+__device__ __forceinline__ void tm_issue_pv(float* o, uint32_t (&pa)[8][4],
+                                            uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_rs<D>(o, pa[kk], sw128_desc(vt + kk * 2048, Tm<D>::T_ATOM));
+}
+
+// The epilogue: l summed over a row's 4 lanes, O / max(l, 1e-30) rounded
+// once to bf16 into this warpgroup's 64 rows of the staging tile `so` (the
+// 128-byte swizzle: 8 rows of a warp's store land in 8 distinct 16-byte
+// chunks, no bank conflict), then one thread stores them with TMA at
+// (row, plane) of the output's map, which skips rows past Sq.  The store
+// is waited for (its reads of `so`) only before the next tile's epilogue
+// writes there, and at the end.
+//
+// The quotient is the IEEE division's, without a division a value: y =
+// 1/den once, q = o·y, then q + (o - q·den)·y with FMAs, which is the
+// correctly rounded o/den when y is the correctly rounded 1/den and
+// nothing under- or overflows (Markstein's theorem).  den is 1e-30 with o
+// = 0, or at least ~1 (the row's max contributes 2^0) and at most Skv; a
+// thread holding any o outside [2^-64, 2^64] (0 aside: inf, NaN, a value
+// near underflow) divides instead.
+template <int D>
+__device__ __forceinline__ void tm_store(float (&o)[D / 2], float l0,
+                                         float l1, uint32_t so, int row0,
+                                         int lane, int wg,
+                                         const CUtensorMap* to, int row,
+                                         int plane) {
+  if ((threadIdx.x & 127) == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // the range test on the bits of |o|, in 2 independent chains: NaN and
+  // inf are above 2^64's bits, and 0 - 1 wraps above everything
+  uint32_t hi[2] = {0, 0}, lo[2] = {~0u, ~0u};
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) {
+    const uint32_t u = __float_as_uint(o[j]) & 0x7fffffffu;
+    hi[j & 1] = max(hi[j & 1], u);
+    lo[j & 1] = min(lo[j & 1], u - 1u);
+  }
+  const bool fast = max(hi[0], hi[1]) <= 0x5f800000u &&
+                    min(lo[0], lo[1]) >= 0x1f7fffffu;
+  if (fast) {
+    const float y0 = 1.f / d0, y1 = 1.f / d1;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) {
+      const float den = (j & 2) ? d1 : d0, y = (j & 2) ? y1 : y0;
+      const float q = o[j] * y;
+      o[j] = fmaf(fmaf(-q, den, o[j]), y, q);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] /= (j & 2) ? d1 : d0;
+  }
+#pragma unroll
+  for (int j = 0; j < D / 2; j += 2) {
+    const int r = (j & 2) ? row0 + 8 : row0;
+    const int c = 8 * (j >> 2) + 2 * (lane & 3);
+    const uint32_t at = so + (c / 64) * Tm<D>::Q_ATOM + r * 128 +
+                        ((((c % 64) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
+                 "r"(pack_bf16(o[j], o[j + 1]))
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int a = 0; a < D / 64; ++a)
+      asm volatile(
+          "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+          " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(to)),
+          "r"(so + a * Tm<D>::Q_ATOM), "r"(64 * a), "r"(row), "r"(plane)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// Warpgroups 0 and 1 consume, warpgroup 2 produces; the block walks its
+// q tiles (`tm_tile`) and the K/V rings run on across them, so the next
+// tile's Q and first K/V tiles load while this one ends.  The two
+// consumer warpgroups take turns at issuing their products (named
+// barriers 1 and 2; 3 and 4 order each warpgroup's epilogue).
+template <int D>
+__global__ void __launch_bounds__(TM_THREADS, 1)
+fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap to, int BH, int H, int K,
+              int Sq, int Skv, int causal, int window, float scale) {
+  using C = Tm<D>;
+  extern __shared__ unsigned char tm_smem[];
+  const uint32_t sq = (smem_addr(tm_smem) + 1023) & ~1023u;
+  const uint32_t so = sq + C::Q_BYTES;
+  const uint32_t sk = sq + C::K_OFF, sv = sq + C::V_OFF;
+  const uint32_t qfull = sq + C::BARS, qempty = qfull + 8;
+  const uint32_t kfull = qempty + 8, kempty = kfull + 8 * TM_STAGES;
+  const uint32_t vfull = kempty + 8 * TM_STAGES;
+  const uint32_t vempty = vfull + 8 * TM_STAGES;
+  const int nq = (Sq + TM_BQ - 1) / TM_BQ;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    mbar_init(qempty, TM_NWG);
+    for (int st = 0; st < TM_STAGES; ++st) {
+      mbar_init(kfull + 8 * st, 1);
+      mbar_init(kempty + 8 * st, TM_NWG);
+      mbar_init(vfull + 8 * st, 1);
+      mbar_init(vempty + 8 * st, TM_NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == TM_NWG) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        TM_PRODUCER_REGS));
+    if (threadIdx.x == 128 * TM_NWG) {
+      TmTile t;
+      int g = 0;                       // kv tiles loaded so far
+      for (int round = 0;
+           tm_tile(round, nq, BH, H, K, Sq, Skv, causal, window, t);
+           ++round) {
+        if (round > 0) mbar_wait(qempty, (round - 1) & 1);
+        mbar_expect_tx(qfull, C::Q_BYTES);
+#pragma unroll
+        for (int a = 0; a < C::ATOMS; ++a)
+          tma_load(sq + a * C::Q_ATOM, &tq, qfull, 64 * a, t.q0, t.bh);
+        for (int it = 0; it < t.nt; ++it, ++g) {
+          const int st = g % TM_STAGES;
+          const uint32_t freed = ((g / TM_STAGES) & 1) ^ 1;
+          const int k0 = (t.t_lo + it) * TM_BK;
+          if (g >= TM_STAGES) mbar_wait(kempty + 8 * st, freed);
+          mbar_expect_tx(kfull + 8 * st, C::T_BYTES);
+#pragma unroll
+          for (int a = 0; a < C::ATOMS; ++a)
+            tma_load(sk + st * C::T_BYTES + a * C::T_ATOM, &tk,
+                     kfull + 8 * st, 64 * a, k0, t.zkv);
+          if (g >= TM_STAGES) mbar_wait(vempty + 8 * st, freed);
+          mbar_expect_tx(vfull + 8 * st, C::T_BYTES);
+#pragma unroll
+          for (int a = 0; a < C::ATOMS; ++a)
+            tma_load(sv + st * C::T_BYTES + a * C::T_ATOM, &tv,
+                     vfull + 8 * st, 64 * a, k0, t.zkv);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        TM_CONSUMER_REGS));
+    const int lane = threadIdx.x & 31;
+    const int row0 = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);
+    const float sl2 = scale * FW_LOG2E;
+    const uint32_t qwg = sq + wg * 64 * 128, owg = so + wg * 64 * 128;
+    // one arrival a warpgroup frees a stage: a warpgroup's product is one
+    // operation of its four warps, read the stage once one thread has
+    // waited for it (the arrival count of TMA pipelines on Hopper)
+    const auto release = [&](uint32_t bar) {
+      if ((threadIdx.x & 127) == 0) mbar_arrive(bar);
+    };
+    // a turn: issuing one batch of products; warpgroup w waits on barrier
+    // 1 + w and hands the turn on through the other's.  In each tile
+    // warpgroup 1 opens by handing the first turn to 0 and skips its last
+    // hand-on, so every arrival meets its wait.
+    const auto turn = [&]() {
+      asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg));
+    };
+    const auto hand_on = [&](bool last) {
+      if (!(last && wg == 1))
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg));
+    };
+
+    float o[D / 2], s[64];
+    uint32_t pa[8][4];
+    TmTile t;
+    int g = 0;                         // kv tiles consumed so far
+    for (int round = 0;
+         tm_tile(round, nq, BH, H, K, Sq, Skv, causal, window, t);
+         ++round) {
+      const int q_offset = Skv - Sq;
+      const int qpos0 = t.q0 + wg * 64 + row0 + q_offset, qpos1 = qpos0 + 8;
+      // this warpgroup's rows, for the choice of masked tiles
+      const int wlo = t.q0 + wg * 64 + q_offset;
+      const int whi = min(t.q0 + wg * 64 + 64, Sq) - 1 + q_offset;
+      const int nt = t.nt, t_lo = t.t_lo;
+      // tile it straddles a mask edge for this warpgroup's rows
+      const auto masked = [=](int it) {
+        const int k0 = (t_lo + it) * TM_BK;
+        return k0 + TM_BK > Skv || (causal && k0 + TM_BK - 1 > wlo) ||
+               (window > 0 && whi - k0 >= window);
+      };
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+      mbar_wait(qfull, round & 1);
+      if (nt == 0) release(qempty);
+      if (nt > 0) {
+        if (wg == 1) asm volatile("bar.arrive 1, 256;\n");
+        float a0, a1;
+        // kv tile 0: S, its softmax, P packed
+        turn();
+        mbar_wait(kfull + 8 * (g % TM_STAGES), (g / TM_STAGES) & 1);
+        wgmma_fence();
+        tm_issue_s<D>(s, qwg, sk + (g % TM_STAGES) * C::T_BYTES);
+        wgmma_commit();
+        hand_on(false);
+        wgmma_wait<0>();
+        fence_regs<64>(s);
+        release(kempty + 8 * (g % TM_STAGES));
+        if (nt == 1) release(qempty);
+        fw_softmax(s, m0, m1, l0, l1, a0, a1, masked(0), t_lo * TM_BK, qpos0,
+                   qpos1, lane, Skv, causal, window, sl2);
+        fw_pack_p(s, pa);
+        for (int it = 1; it < nt; ++it) {
+          const int gi = g + it;
+          const int st = gi % TM_STAGES, pst = (gi - 1) % TM_STAGES;
+          // S(it) first, then P(it-1)·V(it-1) behind it
+          turn();
+          mbar_wait(kfull + 8 * st, (gi / TM_STAGES) & 1);
+          fence_regs<D / 2>(o);
+          wgmma_fence();
+          tm_issue_s<D>(s, qwg, sk + st * C::T_BYTES);
+          wgmma_commit();
+          mbar_wait(vfull + 8 * pst, ((gi - 1) / TM_STAGES) & 1);
+          tm_issue_pv<D>(o, pa, sv + pst * C::T_BYTES);
+          wgmma_commit();
+          hand_on(false);
+          // the softmax of tile it while P·V runs
+          wgmma_wait<1>();
+          fence_regs<64>(s);
+          release(kempty + 8 * st);
+          if (it == nt - 1) release(qempty);   // the tile's last S is done
+          fw_softmax(s, m0, m1, l0, l1, a0, a1, masked(it),
+                     (t_lo + it) * TM_BK, qpos0, qpos1, lane, Skv, causal,
+                     window, sl2);
+          wgmma_wait<0>();
+          fence_regs<D / 2>(o);
+          hold_frags(pa);
+          release(vempty + 8 * pst);
+#pragma unroll
+          for (int j = 0; j < D / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
+          fw_pack_p(s, pa);
+        }
+        // the last kv tile's P·V
+        const int gl = g + nt - 1, lst = gl % TM_STAGES;
+        turn();
+        mbar_wait(vfull + 8 * lst, (gl / TM_STAGES) & 1);
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+        tm_issue_pv<D>(o, pa, sv + lst * C::T_BYTES);
+        wgmma_commit();
+        hand_on(true);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        hold_frags(pa);
+        release(vempty + 8 * lst);
+        g += nt;
+      }
+      tm_store<D>(o, l0, l1, owg, row0, lane, wg, &to, t.q0 + wg * 64,
+                  t.bh);
+    }
+    if ((threadIdx.x & 127) == 0)
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver the runtime has loaded (the
+// library links no -lcuda); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of a contiguous (planes, rows, D) bf16 tensor as (D, rows,
+// planes), boxes of 64 columns x box_rows x 1 in the 128-byte swizzle;
+// out-of-range rows read as zeros.
+CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
+                     int D, int rows, int planes, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)D * 2 * rows};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int tm_launch(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int K, int Sq, int Skv, int causal, int window,
+              float scale, cudaStream_t stream) {
+  using C = Tm<D>;
+  if (Skv == 0)      // no key: every row is 0, and there is nothing to map
+    return (int)cudaMemsetAsync(out, 0, (size_t)B * H * Sq * D * 2, stream);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, to;
+  if (encode_rows(fn, &tq, q, D, Sq, B * H, TM_BQ) != CUDA_SUCCESS ||
+      encode_rows(fn, &tk, k, D, Skv, B * K, TM_BK) != CUDA_SUCCESS ||
+      encode_rows(fn, &tv, v, D, Skv, B * K, TM_BK) != CUDA_SUCCESS ||
+      encode_rows(fn, &to, out, D, Sq, B * H, 64) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  static size_t allowed = 0;             // dynamic smem opted in so far
+  cudaError_t e = allow_smem(fa_tma_kernel<D>, C::SMEM, &allowed);
+  if (e != cudaSuccess) return (int)e;
+  // one persistent block an SM (the device's count, asked once a device)
+  static int sms[64] = {0};
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if (dev < 64 && sms[dev] == 0 &&
+      (e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  const int n_sm = dev < 64 ? sms[dev] : 132;
+  const int tiles = (Sq + TM_BQ - 1) / TM_BQ * B * H;
+  fa_tma_kernel<D>
+      <<<tiles < n_sm ? tiles : n_sm, TM_THREADS, C::SMEM, stream>>>(
+          tq, tk, tv, to, B * H, H, K, Sq, Skv, causal, window, scale);
+  ran_design = 2;
+  return (int)cudaGetLastError();
+}
+
+int tm_dispatch(const void* q, const void* k, const void* v, void* out,
+                int B, int H, int K, int Sq, int Skv, int D, int causal,
+                int window, float scale, cudaStream_t s) {
+  if (D == 64)
+    return tm_launch<64>(q, k, v, out, B, H, K, Sq, Skv, causal, window,
+                         scale, s);
+  return tm_launch<128>(q, k, v, out, B, H, K, Sq, Skv, causal, window,
+                        scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -802,6 +1339,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<T, NC><<<grid, FA_THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, H, K, Sq, Skv, D,
       causal, window, scale);
+  ran_design = 0;
   return (int)cudaGetLastError();
 }
 
@@ -824,6 +1362,19 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+
+// The design a launch at head width D runs: 0 the fp32 CUDA-core kernel,
+// 1 the bf16 cp.async-fed wgmma kernel, 2 the bf16 TMA kernel.
+extern "C" int flash_attention_design(int D, int bf16) {
+  if (!bf16) return 0;
+  return D == 64 || D == 128 ? 2 : 1;
+}
+
+// The design of the kernel that the last flash_attention_launch launched,
+// recorded where it launched it; -1 if it launched none (no q row, no key
+// in the TMA design, or an error before the launch).
+extern "C" int flash_attention_ran(void) { return ran_design; }
+
 // window <= 0: no sliding window.  bf16: the four tensors are bf16, else
 // fp32.  The wrapper has checked shapes, D % 8 == 0, D <= 128, K | H and
 // 16-byte alignment.
@@ -832,11 +1383,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int K, int Sq, int Skv, int D,
                                       int causal, int window, int bf16,
                                       float scale, void* stream) {
+  ran_design = -1;
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return fw_dispatch(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
-                       scale, s);
-  return dispatch<float>(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
+  switch (flash_attention_design(D, bf16)) {
+    case 2:
+      return tm_dispatch(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
                          scale, s);
+    case 1:
+      return fw_dispatch(q, k, v, out, B, H, K, Sq, Skv, D, causal, window,
+                         scale, s);
+    default:
+      return dispatch<float>(q, k, v, out, B, H, K, Sq, Skv, D, causal,
+                             window, scale, s);
+  }
 }

@@ -10,23 +10,36 @@ dtype (bf16 or fp32).  Query head h reads kv head h // (H // K), so
 grouped-query attention needs no expanded copy of k and v (K = H is the
 reference's pre-expanded layout).  q positions are right-aligned to the
 end of kv.  Scores, softmax statistics and the accumulator are fp32;
-the mask value is -1e30 and fully masked kv tiles are skipped.
+the mask value is -1e30, masked probabilities are 0, a row that sees no
+key outputs 0, fully masked kv tiles are skipped, and the output is
+acc / max(l, 1e-30) rounded once.
 
 What bounds it on the H100: operations (4·D flops per unmasked (q, k)
-pair and head, far above the card's bytes-to-flops balance).  bf16, the
-LM's type, runs both products on the tensor cores: `wgmma` m64n128k16
-for S = Q·Kᵀ from shared memory, and m64nDk16 for O += P·V with P
-rounded to bf16 and packed from the S accumulators into registers (the
-one departure from the fp32 reference, as in SDPA's flash backend:
-at most 2^-9 relative per probability).  One block per (b, h, 128-row
-q tile): two consumer warpgroups and a producer warp that streams K/V
-tiles of 128 rows into a three-stage ring with `cp.async` and mbarriers,
-in an unswizzled core-matrix layout (a D = 80 row of 160 bytes fills no
-128-byte swizzle atom; the depth is zero-padded to a multiple of 16).
-Only tiles on the causal diagonal, the window's lower edge or the end
-of kv evaluate the mask.  fp32 keeps the CUDA-core kernel (fp32 FMAs,
-one block per (b, h, 64-row q tile)): the tensor cores take fp32 only
-as TF32, which the port's fp32 contract excludes.  See the source.
+pair and head, far above the card's bytes-to-flops balance), and beside
+them one exp2 a pair on the CUDA cores, which at D = 64 costs about as
+much as the products.  bf16, the LM's type, runs both products on the
+tensor cores (`wgmma`; P rounded to bf16 from the score registers
+before P·V, as in SDPA's flash backend: at most 2^-9 relative per
+probability, the one departure from the fp32 reference), in one of two
+designs (`design(D, dtype)`, the C library's own choice):
+
+* "bf16 tma", at D = 64 and 128 (six of the port's eight attention
+  architectures, and musicgen-medium): FlashAttention-3's shape.  One
+  persistent block an SM walks q tiles of 128 rows heaviest first; a
+  producer warpgroup that gave its registers to the two consumer
+  warpgroups (`setmaxnreg`) streams Q and each K/V tile with TMA into
+  128-byte-swizzled rings; each consumer issues S(it) = Q·K(it)ᵀ and
+  P(it-1)·V(it-1) together and runs the softmax of tile it while P·V
+  still runs, and the two consumers take turns at issuing.  The tensor
+  maps are encoded on the host each call; a call that cannot encode
+  them raises, and nothing falls back to another design.
+* "bf16 cp.async", at the other widths (h2o-danube's D = 80, whose
+  160-byte rows fill no 128-byte swizzle atom): the earlier design, a
+  producer warp copying with `cp.async` into an unswizzled layout.
+
+fp32 ("fp32") keeps the CUDA-core kernel (fp32 FMAs, one block per
+(b, h, 64-row q tile)): the tensor cores take fp32 only as TF32, which
+the port's fp32 contract excludes.  See the source.
 
 The kernel takes contiguous (B, H, S, D) operands; `ops.flash_attention`
 makes them contiguous (the model's (B, S, H, D) activations are
@@ -42,8 +55,22 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0        # kernel launches made by this wrapper
+DESIGNS = ("fp32", "bf16 cp.async", "bf16 tma")   # by the C library's code
+# launches by the design of the kernel launched, as the C library records
+# it at the launch (`flash_attention_ran`)
+launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 MAX_D = 128
+_designs: dict = {}
+
+
+def design(D: int, dtype) -> str:
+    """The kernel design a CUDA launch at head width D and `dtype` runs
+    (`flash_attention_design` of the C library, which its dispatch uses)."""
+    key = (D, dtype == torch.bfloat16)
+    if key not in _designs:
+        _designs[key] = DESIGNS[_build.lib().flash_attention_design(*key)]
+    return _designs[key]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -82,4 +109,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(dt == torch.bfloat16), 1.0 / (D ** 0.5), _build.stream(dev))
     _build.check(err, "flash_attention")
     launches += 1
+    ran = _build.lib().flash_attention_ran()
+    if ran >= 0:
+        launches_by_design[DESIGNS[ran]] += 1
     return out

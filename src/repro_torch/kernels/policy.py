@@ -125,7 +125,8 @@ KERNEL_REGISTRY = {
     },
     "flash_attention": {
         "replaces": "src/repro/kernels/flash_attention.py:80",
-        "entry_points": ["flash_attention_launch"],
+        "entry_points": ["flash_attention_launch", "flash_attention_design",
+                         "flash_attention_ran"],
         "wrapper": "flash_attention",
         "counters": ["launches"],
         "entry": ["flash_attention"],

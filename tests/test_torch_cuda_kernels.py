@@ -757,6 +757,85 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
                                **_TOL[dtype])
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,kv,sq,skv,causal,window,qscale,late", [
+    (1, 28, 4, 1100, 1100, True, None, 1.0, False),  # GQA 7, ragged S
+    (2, 28, 4, 300, 300, True, None, 8.0, False),    # B = 2, peaky
+    (1, 8, 8, 300, 1100, True, None, 1.0, False),    # Sq < Skv
+    (2, 8, 2, 1100, 300, True, None, 1.0, False),    # Sq > Skv: blind rows
+    (1, 8, 2, 1100, 1100, True, 1, 1.0, False),      # window 1
+    (1, 8, 2, 1100, 1100, True, 128, 1.0, False),    # windows on tile edges
+    (1, 8, 2, 1100, 1100, True, 256, 1.0, True),
+    (3, 4, 4, 100, 100, False, 30, 1.0, False),      # a window, not causal
+    (1, 4, 4, 300, 300, True, None, 1.0, False),     # 12 q tiles, < 132
+    (2, 28, 4, 2048, 2048, True, None, 1.0, False),  # 896 q tiles, >> 132
+    (1, 32, 8, 1100, 1100, True, None, 8.0, True),   # the max moves late
+    (1, 4, 4, 200, 0, True, None, 1.0, False),       # no key at all
+])
+def test_flash_attention_tma_design_edges(cuda, d, b, h, kv, sq, skv, causal,
+                                          window, qscale, late):
+    """The bf16 design at D = 64 and 128 (TMA tiles, a persistent grid of
+    one block an SM): against the plain version at the bf16 tolerance,
+    rows that see no key exactly 0.  `late`: the last 37 keys are scaled
+    by 4, so each row's max arrives in its last kv tile."""
+    dt = torch.bfloat16
+    q = _t(cuda, 1, b, h, sq, d, scale=qscale).to(dt)
+    k = _t(cuda, 2, b, kv, skv, d)
+    if late:
+        k[:, :, -37:] *= 4
+    k, v = k.to(dt), _t(cuda, 3, b, kv, skv, d).to(dt)
+    assert tfa.design(d, dt) == "bf16 tma"
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    blind = max(sq - skv, 0) if causal else 0
+    assert torch.equal(got[:, :, :blind], torch.zeros_like(got[:, :, :blind]))
+    torch.testing.assert_close(got[:, :, blind:], want[:, :, blind:],
+                               **_TOL[dt])
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_tma_design_launches_once_or_raises(cuda, d):
+    """A bf16 call at D = 64 / 128 is one launch of the TMA design and of
+    no other (as the C library records the kernel it launched); a call
+    whose tensor maps cannot be encoded (q 2 bytes past a 16-byte
+    boundary, which only the C entry point can be handed: the wrapper
+    refuses it first) returns the error and launches nothing in its
+    place, and `_build.check` raises it."""
+    from repro_torch.kernels import _build
+    dt = torch.bfloat16
+    q = _t(cuda, 1, 1, 4, 300, d).to(dt)
+    k, v = _t(cuda, 2, 1, 4, 300, d).to(dt), _t(cuda, 3, 1, 4, 300, d).to(dt)
+    assert (tfa.design(d, dt), tfa.design(80, dt),
+            tfa.design(d, torch.float32)) == ("bf16 tma", "bf16 cp.async",
+                                              "fp32")
+    ops.reset_launch_counts()
+    before = dict(tfa.launches_by_design)
+    tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert {n: tfa.launches_by_design[n] - before[n]
+            for n in tfa.DESIGNS} == {"fp32": 0, "bf16 cp.async": 0,
+                                      "bf16 tma": 1}
+    buf = torch.empty(q.numel() + 8, dtype=dt, device=cuda)
+    qm = buf[1:1 + q.numel()].view(q.shape)
+    qm.copy_(q)
+    out = torch.full_like(q, float("nan"))
+    torch.cuda.synchronize()
+    err = _build.lib().flash_attention_launch(
+        qm.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 4, 4,
+        300, 300, d, 1, 0, 1, 1.0 / d ** 0.5, _build.stream(cuda))
+    assert err != 0 and _build.lib().flash_attention_ran() == -1
+    with pytest.raises(RuntimeError):
+        _build.check(err, "flash_attention")
+    torch.cuda.synchronize()
+    assert torch.isnan(out).all()
+    with pytest.raises(ValueError):
+        tfa.flash_attention(qm, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
 def test_lm_kernel_wrappers_count_and_refuse_bad_input(cuda):
     ops.reset_launch_counts()
     x = _t(cuda, 0, 4, 64).to(torch.bfloat16)
