@@ -90,15 +90,17 @@ Phases, in order; any failure exits non-zero (no phase is caught):
                512 and 2048 at 1 and 2 rows; rmsnorm at D = 2560, 2048
                and 4096 (mamba2's gated norm over d_inner), rows 1 to
                8192.  bf16 flash runs on the tensor cores (wgmma, P
-               rounded to bf16 before P·V: at D = 64 and 128 the TMA
-               design, at D = 80 the cp.async one; each check names its
-               design), fp32 flash on the CUDA cores; rmsnorm keeps the
-               row in registers with 16-byte loads.
+               rounded to bf16 before P·V) in the TMA design at D = 64,
+               80 and 128: each bf16 check must launch it and only it, as
+               the C library records the kernel it launched, and names
+               it; fp32 flash on the CUDA cores; rmsnorm keeps the row
+               in registers with 16-byte loads.
   8. lm serve — bf16 `LmEngine` for h2o-danube-1.8b (4 slots, buckets
                512/2048/6144, 32 new tokens) serves 8 prompts of
                100-6144 tokens, three longer than the 4096 window; launch
-               counts must be 24 flash launches per prefill and 49
-               rmsnorm launches per forward; prefill time per bucket,
+               counts must be 24 flash launches per prefill, each of the
+               TMA design (`launches_by_design`), and 49 rmsnorm
+               launches per forward; prefill time per bucket,
                decode step time, tokens/s.
   9. lm parity — the same model in fp32 served with the kernel and the
                plain policy (4 prompts, one past the window): equal
@@ -106,7 +108,10 @@ Phases, in order; any failure exits non-zero (no phase is caught):
  10. lm timing — each LM kernel, its plain version and the library call
                at the three paths' bf16 prefill and decode shapes, bounds,
                each flash time with its design, as a share of its bound
-               and of the bf16 peak and against SDPA (kernel/sdpa), each
+               and of the bf16 peak and against SDPA (kernel/sdpa: SDPA
+               with `is_causal` where h2o-danube's window of 4096 does
+               not bind, S = 512 and 2048, else with the band as a mask;
+               both times are kept), each
                rmsnorm time as a share of its bytes bound and
                against F.rms_norm; a profiler breakdown of an h2o-danube
                prefill and decode step.
@@ -1974,13 +1979,21 @@ def check_lm_kernels(dev) -> dict:
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         for b, h, kv, sq, skv, d, causal, win in LM_FLASH_CASES:
             q, k, v = attn_inputs(dev, gen, b, h, kv, sq, skv, d, dtype)
+            before = dict(kfa.launches_by_design)
             got = kfa.flash_attention(q, k, v, causal=causal, window=win)
             torch.cuda.synchronize()
+            ran = [n for n in kfa.DESIGNS
+                   if kfa.launches_by_design[n] != before[n]]
+            # every width of the LM paths (80, 128) runs the TMA design in
+            # bf16, and only it
+            if ran != [kfa.design(d, dtype)] or (
+                    dtype == torch.bfloat16 and ran != ["bf16 tma"]):
+                fail(f"flash_attention {tag} D={d}: launched {ran}")
             want = ref.flash_attention(q, k, v, causal=causal, window=win)
             d_ = (got.float() - want.float()).abs().max().item()
             err["flash_attention"] = max(err.get("flash_attention", 0.0), d_)
             label = (f"{tag} B={b} H={h}/{kv} Sq={sq} Skv={skv} D={d} "
-                     f"w={win} ({kfa.design(d, dtype)})")
+                     f"w={win} ({ran[0]})")
             try:
                 torch.testing.assert_close(got, want, **LM_TOL[dtype])
             except AssertionError as e:
@@ -2065,11 +2078,16 @@ def lm_serve_phase(dev, cfg, params, prompt_lens=LM_PROMPTS,
     torch.cuda.synchronize()
     # ---- the main path: counts set to 0 just before, read just after --
     ops.reset_launch_counts()
+    designs0 = dict(kfa.launches_by_design)
     t0 = time.perf_counter()
     out = eng.serve(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    # flash launches by the design of the kernel each ran (the C
+    # library's record)
+    by_design = {n: kfa.launches_by_design[n] - designs0[n]
+                 for n in kfa.DESIGNS}
     n_pre, n_dec = len(prefills), eng.n_steps - n0
     norms, attn = LM_LAUNCHES[cfg.name]
     expect = {name: 0 for name in counts}
@@ -2080,10 +2098,13 @@ def lm_serve_phase(dev, cfg, params, prompt_lens=LM_PROMPTS,
           f"{[p[0] for p in prefills]}, {n_dec} decode steps in "
           f"{wall:.3f} s", flush=True)
     print(f"[{tag}] launch counts {counts}, expected {expect} ({norms} "
-          f"rmsnorm launches a forward, {attn} flash launches a prefill)",
-          flush=True)
+          f"rmsnorm launches a forward, {attn} flash launches a prefill); "
+          f"flash launches by design {by_design}", flush=True)
     if counts != expect or not n_pre or not n_dec:
         fail(f"LM launch counts {counts} != expected {expect}")
+    if sum(by_design.values()) != expect["flash_attention"]:
+        fail(f"LM flash launches by design {by_design} do not sum to "
+             f"{expect['flash_attention']}")
     for i, toks in enumerate(out):
         if len(toks) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
                                               for t in toks):
@@ -2106,7 +2127,8 @@ def lm_serve_phase(dev, cfg, params, prompt_lens=LM_PROMPTS,
           f" ms (min {min(steps):.3f}, max {max(steps):.3f}) over {n_dec}; "
           f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s "
           f"(prefills included)", flush=True)
-    return {"engine": eng, "counts": counts, "prefills": prefills,
+    return {"engine": eng, "counts": counts, "flash_by_design": by_design,
+            "prefills": prefills,
             "prefill_ms": {k: float(np.median(v))
                            for k, v in by_bucket.items()},
             "decode_step_ms": step_ms, "decode_steps": steps,
@@ -2297,7 +2319,14 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
     S, D, window), the norms (rows, D)), their plain versions, the
     library calls (SDPA without TF32; F.rms_norm; F.layer_norm) and the
     bounds (each input byte read once and each output byte written once;
-    4·D flops an unmasked (q, k) pair and head at the bf16 peak)."""
+    4·D flops an unmasked (q, k) pair and head at the bf16 peak).
+
+    SDPA is timed twice where a window is set: with the band as an
+    explicit mask (`library_ms`, the only SDPA route once the window
+    binds) and, where the window does not bind (S <= window), with
+    `is_causal` and no mask (`library_causal_ms`), the same function on
+    SDPA's flash backend.  `vs_library` is the kernel over the causal
+    call where there is one, else over the masked call."""
     gen = torch.Generator().manual_seed(SEED + 3)
     out = {"flash_attention": {}, "rmsnorm": {}, "layernorm": {}}
     for B, H, K, S, D, win in flash_shapes:
@@ -2305,18 +2334,29 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
         pos = torch.arange(S, device=dev)
         mask = None if win is None else (
             (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win))
+        want = ref.flash_attention(q, k, v, causal=True, window=win).float()
 
         def sdpa(q=q, k=k, v=v, mask=mask):
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=H != K)
-        try:
-            lib_err = (sdpa().float() - ref.flash_attention(
-                q, k, v, causal=True, window=win).float()).abs().max().item()
-        except (RuntimeError, TypeError) as e:    # a yardstick only
-            print(f"[{tag}] scaled_dot_product_attention refused "
-                  f"{flash_key(H, K, S, D, B)}: {e}", flush=True)
-            sdpa, lib_err = None, None
+
+        def sdpa_causal(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=H != K)
+
+        def yardstick(fn, name):
+            try:
+                return fn, (fn().float() - want).abs().max().item()
+            except (RuntimeError, TypeError) as e:    # a yardstick only
+                print(f"[{tag}] scaled_dot_product_attention ({name}) "
+                      f"refused {flash_key(H, K, S, D, B)}: {e}", flush=True)
+                return None, None
+        sdpa, lib_err = yardstick(sdpa, "band mask" if win else "is_causal")
+        sdpa_causal, causal_err = (
+            yardstick(sdpa_causal, "is_causal")
+            if win is not None and S <= win else (None, None))
+        del want
         pairs = attn_pairs(S, S, win)
         flops = flash_flops(q, k, True, win)
         nbytes = 2 * (2 * q.numel() + 2 * k.numel())
@@ -2325,26 +2365,34 @@ def lm_timing_phase(dev, flash_shapes=LM_FLASH_TIMED, rms_shapes=LM_NORM_TIMED,
              "plain_ms": device_ms(lambda q=q, k=k, v=v: ref.flash_attention(
                  q, k, v, causal=True, window=win), n=5),
              "library_ms": None if sdpa is None else device_ms(sdpa, n=10),
+             "library_causal_ms": (None if sdpa_causal is None
+                                   else device_ms(sdpa_causal, n=10)),
              "bound_ms": bound_ms(nbytes, flops, PEAK_BF16),
              "bound_by": "bytes" if nbytes / PEAK_BYTES > flops / PEAK_BF16
              else "operations",
              "pairs": pairs, "flops": flops, "bytes": nbytes,
-             "library_max_abs_err": lib_err}
+             "library_max_abs_err": lib_err,
+             "library_causal_max_abs_err": causal_err}
         r["peak_share"] = flops / (r["ms"] * 1e-3) / PEAK_BF16
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["design"] = kfa.design(D, torch.bfloat16)
-        r["vs_library"] = (None if r["library_ms"] is None
-                           else r["ms"] / r["library_ms"])
+        yard = r["library_causal_ms"] or r["library_ms"]
+        r["vs_library"] = None if yard is None else r["ms"] / yard
         out["flash_attention"][flash_key(H, K, S, D, B)] = r
         lib = ("-" if r["library_ms"] is None
-               else f"{r['library_ms'] * 1e3:.1f} us, kernel/sdpa "
-                    f"{r['vs_library']:.3f}")
+               else f"{r['library_ms'] * 1e3:.1f} us ("
+               + ("band mask, " if win else "") + f"max|diff| {lib_err})")
+        if r["library_causal_ms"] is not None:
+            lib += (f", is_causal {r['library_causal_ms'] * 1e3:.1f} us "
+                    f"(max|diff| {causal_err})")
+        if yard is not None:
+            lib += f", kernel/sdpa {r['vs_library']:.3f}"
         print(f"[{tag}] flash_attention bf16 ({B}, {H}/{K}, {S}, {D}) "
               f"w={win}, design {r['design']}: kernel "
               f"{r['ms'] * 1e3:.1f} us ({100 * r['bound_share']:.1f}% of "
               f"its bound), plain "
-              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib} "
-              f"(max|diff| {lib_err}), bound {r['bound_ms'] * 1e3:.1f} us "
+              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {lib}, "
+              f"bound {r['bound_ms'] * 1e3:.1f} us "
               f"({r['bound_by']}; {pairs} pairs/head); "
               f"{flops / r['ms'] / 1e9:.1f} TFLOP/s = "
               f"{100 * r['peak_share']:.1f}% of the bf16 peak", flush=True)
@@ -3505,7 +3553,8 @@ def check_lm3_kernels(dev) -> dict:
             got = kfa.flash_attention(q, k, v, causal=causal, window=win)
             ran = [n for n in kfa.DESIGNS
                    if kfa.launches_by_design[n] != before[n]]
-            # D = 64 and 128 in bf16 run the TMA design, and only it
+            # D = 64 and 128 in bf16 run the TMA design (as D = 80 in
+            # phase 7), and only it
             if ran != [kfa.design(d, dtype)] or (
                     dtype == torch.bfloat16 and ran != ["bf16 tma"]):
                 fail(f"flash_attention {tag} D={d}: launched {ran}")
@@ -7068,6 +7117,11 @@ def main() -> None:
           f"{n_params} parameters ({cfg.dtype}) drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     serve = lm_serve_phase(dev, cfg, params)
+    if serve["flash_by_design"]["bf16 tma"] != serve["counts"][
+            "flash_attention"]:
+        fail(f"{cfg.name} bf16 flash launches by design "
+             f"{serve['flash_by_design']}: D = {cfg.head_dim} must run "
+             f"the TMA design only")
 
     # 9. kernel path vs plain path
     parity = lm_parity_phase(dev, cfg, params)

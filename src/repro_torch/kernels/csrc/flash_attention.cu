@@ -24,8 +24,8 @@
 //
 // Three designs; `flash_attention_design` says which one a launch runs.
 //
-// bf16 at D = 64 and 128 (`fa_tma_kernel`, design 2): both products on
-// the tensor cores, as FlashAttention-3 arranges them.
+// bf16 at D = 64, 80 and 128 (`fa_tma_kernel`, design 2): both products
+// on the tensor cores, as FlashAttention-3 arranges them.
 //   * A persistent grid, one block an SM: the q tiles of 128 rows are
 //     ranked heaviest first across all (b, h) (the latest rows see the
 //     longest causal band) and dealt out in a snake (block b takes ranks
@@ -34,7 +34,7 @@
 //     producer warpgroup, which gives its registers away (`setmaxnreg.dec`
 //     to 24) to the consumers (`setmaxnreg.inc` to 240): a thread's 64
 //     fp32 scores, D/2 fp32 outputs and 32 packed bf16 probabilities fit
-//     at D = 128 without a spill.
+//     at D = 128 (40 outputs at D = 80).
 //   * Copies: one producer thread issues TMA loads (`cp.async.bulk.tensor
 //     .3d`) of each tile's Q and of its K and V tiles of 128 rows into two
 //     rings of two stages, each stage with a full and an empty mbarrier
@@ -51,6 +51,19 @@
 //   * Layout: TMA's 128-byte swizzle, one 64-column atom (a 128-byte row)
 //     at D = 64 and two at D = 128, read by `wgmma` through descriptors in
 //     the same swizzle mode: Q and K K-major, V MN-major (transpose bit).
+//     D = 80 (h2o-danube) is one such atom plus a tail atom of the last 16
+//     columns (32-byte rows) in the 32-byte swizzle, loaded through a
+//     second tensor map an operand (boxes of 16 columns): S takes 4 k16
+//     steps in the atom and 1 in the tail, P·V an m64n64k16 on the atom
+//     and an m64n16k16 on the tail each kv step.  Every product then
+//     reads a whole number of its swizzle's patterns, the layouts `wgmma`
+//     defines (an MN-major 128-byte pattern is 64 columns wide, so one
+//     m64n80k16 over 80 columns in that swizzle would read a partial
+//     one), and the tiles hold D = 80's bytes: 20 KB a Q, K or V tile,
+//     123,984 bytes of shared memory in all.  The other way, D = 128's
+//     two 128-byte boxes over an 80-column map (TMA zero-filling columns
+//     80-127), would keep D = 128's 197,712 bytes, move 60% more through
+//     shared memory, and still need a partial pattern or a split product.
 //   * The softmax under the products: each iteration issues S(it) =
 //     Q·K(it)ᵀ and then O += P(it-1)·V(it-1), waits only for S(it), and
 //     runs the softmax of tile it on the CUDA cores while P·V still runs
@@ -61,21 +74,20 @@
 //     softmax runs under the other's products.
 //   * Epilogue: O / max(l, 1e-30) (the IEEE quotient, computed with one
 //     reciprocal a row and an FMA correction, see `tm_store`) rounded to
-//     bf16 into a staging tile in the same swizzle, stored with one TMA
-//     store a warpgroup.
+//     bf16 into a staging tile in Q's layout, stored with TMA (one store
+//     an atom and warpgroup).
 //   On the H100 the turns were faster at both widths, and a 192-row q
 //   tile of three consumer warpgroups at D = 64 was not (PERF.md).
 //
-// bf16 at other widths (`fa_wgmma_kernel`, design 1; h2o-danube's D = 80):
-// a producer warp moves Q and each K/V tile with 16-byte `cp.async` into
-// a three-stage ring in an unswizzled core-matrix layout (chunk (r, c) at
-// ((r/8)·DP/8 + c)·128 + (r%8)·16, depth padded with zeros to DP, a
-// multiple of 16): a D = 80 row of 160 bytes fills no 128-byte swizzle
-// atom, which TMA's swizzled tiles and the swizzled `wgmma` descriptors
-// would need, and the unswizzled layout needs no tensor map.  Two
-// consumer warpgroups wait for S, run the softmax, then issue P·V and the
-// next tile's S back to back.  `-Xptxas -v` reports no spill up to DP =
-// 112 (168 registers a thread in a 288-thread block).
+// bf16 at the other widths (`fa_wgmma_kernel`, design 1: 16-48, 72 and
+// 88-120, which no configuration of the port uses): a producer warp
+// moves Q and each K/V tile with 16-byte `cp.async` into a three-stage
+// ring in an unswizzled core-matrix layout (chunk (r, c) at ((r/8)·DP/8 +
+// c)·128 + (r%8)·16, depth padded with zeros to DP, a multiple of 16),
+// which needs no tensor map.  Two consumer warpgroups wait for S, run the
+// softmax, then issue P·V and the next tile's S back to back.
+// `-Xptxas -v` reports no spill up to DP = 112 (168 registers a thread in
+// a 288-thread block).
 //
 // Shared by both bf16 designs: S = Q·Kᵀ is `wgmma` m64n128k16 from shared
 // memory; O += P·V packs P to bf16 straight from the S accumulators into
@@ -658,7 +670,7 @@ int fw_dispatch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D = 64 and 128: TMA tiles, a producer warpgroup, the softmax
+// bf16 at D = 64, 80 and 128: TMA tiles, a producer warpgroup, the softmax
 // under the products
 // ---------------------------------------------------------------------------
 constexpr int TM_BK = 128;     // kv rows per tile
@@ -667,13 +679,25 @@ constexpr int TM_NWG = 2;      // consumer warpgroups a block
 constexpr int TM_BQ = 64 * TM_NWG;              // q rows a tile
 constexpr int TM_THREADS = 128 * (TM_NWG + 1);  // + the producer
 
+// A tile's columns: D / 64 atoms of 64 columns (128-byte rows) in TMA's
+// 128-byte swizzle, then, at D = 80, a tail atom of the last 16 columns
+// (32-byte rows) in the 32-byte swizzle.
 template <int D>
 struct Tm {
   static constexpr int ATOMS = D / 64;             // 128-byte atoms a row
+  static constexpr int TAIL = D % 64;              // columns of the tail
+  static_assert(TAIL == 0 || TAIL == 16, "a tail atom is 16 columns");
   static constexpr int Q_ATOM = TM_BQ * 128;       // bytes of a Q atom
   static constexpr int T_ATOM = TM_BK * 128;       // ... of a K or V atom
-  static constexpr int Q_BYTES = ATOMS * Q_ATOM;   // Q, and O's staging
-  static constexpr int T_BYTES = ATOMS * T_ATOM;   // one K or V tile
+  static constexpr int Q_TAIL = ATOMS * Q_ATOM;    // offset of Q's tail
+  static constexpr int T_TAIL = ATOMS * T_ATOM;    // ... of a K/V tile's
+  static constexpr int Q_BYTES = TM_BQ * D * 2;    // Q, and O's staging
+  static constexpr int T_BYTES = TM_BK * D * 2;    // one K or V tile
+  static_assert(Q_TAIL + TM_BQ * TAIL * 2 == Q_BYTES &&
+                    T_TAIL + TM_BK * TAIL * 2 == T_BYTES,
+                "the tail atom ends the tile");
+  static_assert(Q_BYTES % 1024 == 0 && T_BYTES % 1024 == 0,
+                "every tile starts on a 1024-byte swizzle boundary");
   static constexpr int K_OFF = 2 * Q_BYTES;        // [stage] K tiles
   static constexpr int V_OFF = K_OFF + TM_STAGES * T_BYTES;
   static constexpr int BARS = V_OFF + TM_STAGES * T_BYTES;
@@ -725,6 +749,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
          (1ull << 62);
 }
 
+// ... and in the 32-byte swizzle (the tail atom): 8 rows of 32 bytes an
+// atom (SBO 256), one atom across (a K-major step spans its 32-byte row;
+// an MN-major product reads its 16 columns), so lbo is not read.
+__device__ __forceinline__ uint64_t sw32_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
@@ -732,8 +764,8 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
-// One TMA box (64 columns x rows x 1 plane) to `dst`; its bytes complete
-// on `bar`.
+// One TMA box (64 or 16 columns x rows x 1 plane, as `map` says) to
+// `dst`; its bytes complete on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int col, int row,
                                          int plane) {
@@ -758,37 +790,50 @@ __device__ __forceinline__ void hold_frags(uint32_t (&pa)[8][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[kk][i])::"memory");
 }
 
-// S = Q·K(tile)ᵀ over D: D/16 steps of m64n128k16, K-major in the swizzled
-// atoms (a step advances 32 bytes inside an atom).
+// S = Q·K(tile)ᵀ over D: D/16 steps of m64n128k16, K-major: 4 in each
+// 128-byte atom (a step advances 32 bytes inside it), then at D = 80 one
+// over the tail atom.  qwg / qtail: this warpgroup's rows of Q's atoms
+// and of its tail.
 template <int D>
 __device__ __forceinline__ void tm_issue_s(float* s, uint32_t qwg,
-                                           uint32_t kt) {
+                                           uint32_t qtail, uint32_t kt) {
   using C = Tm<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < 4 * C::ATOMS; ++kk)
     wgmma_ss_n128(s,
                   sw128_desc(qwg + (kk >> 2) * C::Q_ATOM + (kk & 3) * 32, 16),
                   sw128_desc(kt + (kk >> 2) * C::T_ATOM + (kk & 3) * 32, 16),
                   kk > 0);
+  if constexpr (C::TAIL != 0)
+    wgmma_ss_n128(s, sw32_desc(qtail), sw32_desc(kt + C::T_TAIL), 1);
 }
 
-// O += P·V(tile): 8 steps of m64nDk16 over the tile's kv rows, V MN-major
-// (16 rows = 2048 bytes a step; the two atoms of D = 128 T_ATOM apart).
+// O += P·V(tile): 8 steps over the tile's kv rows, V MN-major: m64nNk16
+// over the 128-byte atoms (16 rows = 2048 bytes a step; the two atoms of
+// D = 128 T_ATOM apart), and at D = 80 m64n16k16 over the tail atom (16
+// rows = 512 bytes a step) into O's last 8 registers, which hold its
+// columns 64-79 in the accumulator layout.
 template <int D>
 __device__ __forceinline__ void tm_issue_pv(float* o, uint32_t (&pa)[8][4],
                                             uint32_t vt) {
+  using C = Tm<D>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_rs<D>(o, pa[kk], sw128_desc(vt + kk * 2048, Tm<D>::T_ATOM));
+  for (int kk = 0; kk < 8; ++kk) {
+    wgmma_rs<64 * C::ATOMS>(o, pa[kk], sw128_desc(vt + kk * 2048, C::T_ATOM));
+    if constexpr (C::TAIL != 0)
+      wgmma_rs<16>(o + 32 * C::ATOMS, pa[kk],
+                   sw32_desc(vt + C::T_TAIL + kk * 512));
+  }
 }
 
 // The epilogue: l summed over a row's 4 lanes, O / max(l, 1e-30) rounded
-// once to bf16 into this warpgroup's 64 rows of the staging tile `so` (the
-// 128-byte swizzle: 8 rows of a warp's store land in 8 distinct 16-byte
-// chunks, no bank conflict), then one thread stores them with TMA at
-// (row, plane) of the output's map, which skips rows past Sq.  The store
-// is waited for (its reads of `so`) only before the next tile's epilogue
-// writes there, and at the end.
+// once to bf16 into this warpgroup's 64 rows of the staging tile `so`, in
+// Q's layout (in the 128-byte swizzle 8 rows of a warp's store land in 8
+// distinct 16-byte chunks, in the 32-byte tail 8 rows in 8 distinct
+// quarters of the banks: no bank conflict), then one thread stores them
+// with TMA at (row, plane) of the output's maps, which skip rows past Sq.
+// The store is waited for (its reads of `so`) only before the next tile's
+// epilogue writes there, and at the end.
 //
 // The quotient is the IEEE division's, without a division a value: y =
 // 1/den once, q = o·y, then q + (o - q·den)·y with FMAs, which is the
@@ -801,8 +846,10 @@ template <int D>
 __device__ __forceinline__ void tm_store(float (&o)[D / 2], float l0,
                                          float l1, uint32_t so, int row0,
                                          int lane, int wg,
-                                         const CUtensorMap* to, int row,
+                                         const CUtensorMap* to,
+                                         const CUtensorMap* to16, int row,
                                          int plane) {
+  using C = Tm<D>;
   if ((threadIdx.x & 127) == 0)
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
@@ -835,12 +882,19 @@ __device__ __forceinline__ void tm_store(float (&o)[D / 2], float l0,
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) o[j] /= (j & 2) ? d1 : d0;
   }
+  // r: the row in the q tile (this warpgroup's rows start at 64·wg, a
+  // multiple of 8, so the swizzles' row bits are those of row0); ch: the
+  // 16-byte chunk of the row, 8 an atom, then the tail's 2
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {
-    const int r = (j & 2) ? row0 + 8 : row0;
-    const int c = 8 * (j >> 2) + 2 * (lane & 3);
-    const uint32_t at = so + (c / 64) * Tm<D>::Q_ATOM + r * 128 +
-                        ((((c % 64) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+    const int r = 64 * wg + ((j & 2) ? row0 + 8 : row0);
+    const int ch = j >> 2, in = 4 * (lane & 3);
+    const uint32_t at =
+        ch < 8 * C::ATOMS
+            ? so + (ch / 8) * C::Q_ATOM + r * 128 +
+                  (((ch % 8) ^ (r & 7)) << 4) + in
+            : so + C::Q_TAIL + r * 32 +
+                  ((((ch - 8 * C::ATOMS) ^ (r >> 2)) & 1) << 4) + in;
     asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at),
                  "r"(pack_bf16(o[j], o[j + 1]))
                  : "memory");
@@ -848,13 +902,18 @@ __device__ __forceinline__ void tm_store(float (&o)[D / 2], float l0,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(3 + wg) : "memory");
   if ((threadIdx.x & 127) == 0) {
-#pragma unroll
-    for (int a = 0; a < D / 64; ++a)
+    const auto store = [&](const CUtensorMap* map, uint32_t src, int col) {
       asm volatile(
           "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-          " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(to)),
-          "r"(so + a * Tm<D>::Q_ATOM), "r"(64 * a), "r"(row), "r"(plane)
+          " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+          "r"(src), "r"(col), "r"(row), "r"(plane)
           : "memory");
+    };
+#pragma unroll
+    for (int a = 0; a < C::ATOMS; ++a)
+      store(to, so + a * C::Q_ATOM + wg * 64 * 128, 64 * a);
+    if constexpr (C::TAIL != 0)
+      store(to16, so + C::Q_TAIL + wg * 64 * 32, 64 * C::ATOMS);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   }
 }
@@ -863,13 +922,19 @@ __device__ __forceinline__ void tm_store(float (&o)[D / 2], float l0,
 // q tiles (`tm_tile`) and the K/V rings run on across them, so the next
 // tile's Q and first K/V tiles load while this one ends.  The two
 // consumer warpgroups take turns at issuing their products (named
-// barriers 1 and 2; 3 and 4 order each warpgroup's epilogue).
+// barriers 1 and 2; 3 and 4 order each warpgroup's epilogue).  tq ... to
+// map the 128-byte atoms' boxes, tq16 ... to16 the tail's (read at D =
+// 80 only).
 template <int D>
 __global__ void __launch_bounds__(TM_THREADS, 1)
 fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
-              const __grid_constant__ CUtensorMap to, int BH, int H, int K,
+              const __grid_constant__ CUtensorMap to,
+              const __grid_constant__ CUtensorMap tq16,
+              const __grid_constant__ CUtensorMap tk16,
+              const __grid_constant__ CUtensorMap tv16,
+              const __grid_constant__ CUtensorMap to16, int BH, int H, int K,
               int Sq, int Skv, int causal, int window, float scale) {
   using C = Tm<D>;
   extern __shared__ unsigned char tm_smem[];
@@ -911,6 +976,8 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int a = 0; a < C::ATOMS; ++a)
           tma_load(sq + a * C::Q_ATOM, &tq, qfull, 64 * a, t.q0, t.bh);
+        if constexpr (C::TAIL != 0)
+          tma_load(sq + C::Q_TAIL, &tq16, qfull, 64 * C::ATOMS, t.q0, t.bh);
         for (int it = 0; it < t.nt; ++it, ++g) {
           const int st = g % TM_STAGES;
           const uint32_t freed = ((g / TM_STAGES) & 1) ^ 1;
@@ -921,12 +988,18 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
           for (int a = 0; a < C::ATOMS; ++a)
             tma_load(sk + st * C::T_BYTES + a * C::T_ATOM, &tk,
                      kfull + 8 * st, 64 * a, k0, t.zkv);
+          if constexpr (C::TAIL != 0)
+            tma_load(sk + st * C::T_BYTES + C::T_TAIL, &tk16, kfull + 8 * st,
+                     64 * C::ATOMS, k0, t.zkv);
           if (g >= TM_STAGES) mbar_wait(vempty + 8 * st, freed);
           mbar_expect_tx(vfull + 8 * st, C::T_BYTES);
 #pragma unroll
           for (int a = 0; a < C::ATOMS; ++a)
             tma_load(sv + st * C::T_BYTES + a * C::T_ATOM, &tv,
                      vfull + 8 * st, 64 * a, k0, t.zkv);
+          if constexpr (C::TAIL != 0)
+            tma_load(sv + st * C::T_BYTES + C::T_TAIL, &tv16, vfull + 8 * st,
+                     64 * C::ATOMS, k0, t.zkv);
         }
       }
     }
@@ -937,7 +1010,8 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = threadIdx.x & 31;
     const int row0 = 16 * ((threadIdx.x / 32) & 3) + (lane >> 2);
     const float sl2 = scale * FW_LOG2E;
-    const uint32_t qwg = sq + wg * 64 * 128, owg = so + wg * 64 * 128;
+    const uint32_t qwg = sq + wg * 64 * 128;
+    const uint32_t qtail = sq + C::Q_TAIL + wg * 64 * 32;
     // one arrival a warpgroup frees a stage: a warpgroup's product is one
     // operation of its four warps, read the stage once one thread has
     // waited for it (the arrival count of TMA pipelines on Hopper)
@@ -988,7 +1062,7 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
         turn();
         mbar_wait(kfull + 8 * (g % TM_STAGES), (g / TM_STAGES) & 1);
         wgmma_fence();
-        tm_issue_s<D>(s, qwg, sk + (g % TM_STAGES) * C::T_BYTES);
+        tm_issue_s<D>(s, qwg, qtail, sk + (g % TM_STAGES) * C::T_BYTES);
         wgmma_commit();
         hand_on(false);
         wgmma_wait<0>();
@@ -1006,7 +1080,7 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
           mbar_wait(kfull + 8 * st, (gi / TM_STAGES) & 1);
           fence_regs<D / 2>(o);
           wgmma_fence();
-          tm_issue_s<D>(s, qwg, sk + st * C::T_BYTES);
+          tm_issue_s<D>(s, qwg, qtail, sk + st * C::T_BYTES);
           wgmma_commit();
           mbar_wait(vfull + 8 * pst, ((gi - 1) / TM_STAGES) & 1);
           tm_issue_pv<D>(o, pa, sv + pst * C::T_BYTES);
@@ -1043,7 +1117,7 @@ fa_tma_kernel(const __grid_constant__ CUtensorMap tq,
         release(vempty + 8 * lst);
         g += nt;
       }
-      tm_store<D>(o, l0, l1, owg, row0, lane, wg, &to, t.q0 + wg * 64,
+      tm_store<D>(o, l0, l1, so, row0, lane, wg, &to, &to16, t.q0 + wg * 64,
                   t.bh);
     }
     if ((threadIdx.x & 127) == 0)
@@ -1079,19 +1153,23 @@ EncodeTiled encode_tiled() {
 }
 
 // A map of a contiguous (planes, rows, D) bf16 tensor as (D, rows,
-// planes), boxes of 64 columns x box_rows x 1 in the 128-byte swizzle;
-// out-of-range rows read as zeros.
+// planes), boxes of box_cols x box_rows x 1: 64 columns in the 128-byte
+// swizzle, or 16 (the tail) in the 32-byte swizzle; out-of-range rows
+// read as zeros.
 CUresult encode_rows(EncodeTiled fn, CUtensorMap* map, const void* base,
-                     int D, int rows, int planes, int box_rows) {
+                     int D, int rows, int planes, int box_cols,
+                     int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)D * 2 * rows};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -1104,12 +1182,18 @@ int tm_launch(const void* q, const void* k, const void* v, void* out, int B,
     return (int)cudaMemsetAsync(out, 0, (size_t)B * H * Sq * D * 2, stream);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap tq, tk, tv, to;
-  if (encode_rows(fn, &tq, q, D, Sq, B * H, TM_BQ) != CUDA_SUCCESS ||
-      encode_rows(fn, &tk, k, D, Skv, B * K, TM_BK) != CUDA_SUCCESS ||
-      encode_rows(fn, &tv, v, D, Skv, B * K, TM_BK) != CUDA_SUCCESS ||
-      encode_rows(fn, &to, out, D, Sq, B * H, 64) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
+  // [0] the 128-byte atoms' maps, [1] the tail's (a copy of [0] without
+  // a tail, never read)
+  CUtensorMap tq[2], tk[2], tv[2], to[2];
+  for (int i = 0; i < (C::TAIL ? 2 : 1); ++i) {
+    const int cols = i == 0 ? 64 : C::TAIL;
+    if (encode_rows(fn, &tq[i], q, D, Sq, B * H, cols, TM_BQ) ||
+        encode_rows(fn, &tk[i], k, D, Skv, B * K, cols, TM_BK) ||
+        encode_rows(fn, &tv[i], v, D, Skv, B * K, cols, TM_BK) ||
+        encode_rows(fn, &to[i], out, D, Sq, B * H, cols, 64))
+      return (int)cudaErrorInvalidValue;   // any CUresult but CUDA_SUCCESS
+  }
+  if (!C::TAIL) tq[1] = tq[0], tk[1] = tk[0], tv[1] = tv[0], to[1] = to[0];
   static size_t allowed = 0;             // dynamic smem opted in so far
   cudaError_t e = allow_smem(fa_tma_kernel<D>, C::SMEM, &allowed);
   if (e != cudaSuccess) return (int)e;
@@ -1125,7 +1209,8 @@ int tm_launch(const void* q, const void* k, const void* v, void* out, int B,
   const int tiles = (Sq + TM_BQ - 1) / TM_BQ * B * H;
   fa_tma_kernel<D>
       <<<tiles < n_sm ? tiles : n_sm, TM_THREADS, C::SMEM, stream>>>(
-          tq, tk, tv, to, B * H, H, K, Sq, Skv, causal, window, scale);
+          tq[0], tk[0], tv[0], to[0], tq[1], tk[1], tv[1], to[1], B * H, H,
+          K, Sq, Skv, causal, window, scale);
   ran_design = 2;
   return (int)cudaGetLastError();
 }
@@ -1135,6 +1220,9 @@ int tm_dispatch(const void* q, const void* k, const void* v, void* out,
                 int window, float scale, cudaStream_t s) {
   if (D == 64)
     return tm_launch<64>(q, k, v, out, B, H, K, Sq, Skv, causal, window,
+                         scale, s);
+  if (D == 80)
+    return tm_launch<80>(q, k, v, out, B, H, K, Sq, Skv, causal, window,
                          scale, s);
   return tm_launch<128>(q, k, v, out, B, H, K, Sq, Skv, causal, window,
                         scale, s);
@@ -1367,7 +1455,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 // 1 the bf16 cp.async-fed wgmma kernel, 2 the bf16 TMA kernel.
 extern "C" int flash_attention_design(int D, int bf16) {
   if (!bf16) return 0;
-  return D == 64 || D == 128 ? 2 : 1;
+  return D == 64 || D == 80 || D == 128 ? 2 : 1;
 }
 
 // The design of the kernel that the last flash_attention_launch launched,

@@ -23,19 +23,21 @@ before P·V, as in SDPA's flash backend: at most 2^-9 relative per
 probability, the one departure from the fp32 reference), in one of two
 designs (`design(D, dtype)`, the C library's own choice):
 
-* "bf16 tma", at D = 64 and 128 (six of the port's eight attention
-  architectures, and musicgen-medium): FlashAttention-3's shape.  One
-  persistent block an SM walks q tiles of 128 rows heaviest first; a
-  producer warpgroup that gave its registers to the two consumer
-  warpgroups (`setmaxnreg`) streams Q and each K/V tile with TMA into
-  128-byte-swizzled rings; each consumer issues S(it) = Q·K(it)ᵀ and
+* "bf16 tma", at D = 64, 80 and 128 (every attention architecture of
+  the port: h2o-danube-1.8b's D = 80, the others' 64 and 128):
+  FlashAttention-3's shape.  One persistent block an SM walks q tiles of
+  128 rows heaviest first; a producer warpgroup that gave its registers
+  to the two consumer warpgroups (`setmaxnreg`) streams Q and each K/V
+  tile with TMA into 128-byte-swizzled rings (at D = 80 with a tail of
+  the last 16 columns in the 32-byte swizzle, through a second tensor
+  map an operand); each consumer issues S(it) = Q·K(it)ᵀ and
   P(it-1)·V(it-1) together and runs the softmax of tile it while P·V
   still runs, and the two consumers take turns at issuing.  The tensor
   maps are encoded on the host each call; a call that cannot encode
   them raises, and nothing falls back to another design.
-* "bf16 cp.async", at the other widths (h2o-danube's D = 80, whose
-  160-byte rows fill no 128-byte swizzle atom): the earlier design, a
-  producer warp copying with `cp.async` into an unswizzled layout.
+* "bf16 cp.async", at the widths no configuration uses (16-48, 72 and
+  88-120): the earlier design, a producer warp copying with `cp.async`
+  into an unswizzled layout.
 
 fp32 ("fp32") keeps the CUDA-core kernel (fp32 FMAs, one block per
 (b, h, 64-row q tile)): the tensor cores take fp32 only as TF32, which

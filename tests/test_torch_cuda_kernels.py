@@ -757,7 +757,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
                                **_TOL[dtype])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("b,h,kv,sq,skv,causal,window,qscale,late", [
     (1, 28, 4, 1100, 1100, True, None, 1.0, False),  # GQA 7, ragged S
     (2, 28, 4, 300, 300, True, None, 8.0, False),    # B = 2, peaky
@@ -770,14 +770,17 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, sq, skv, d,
     (1, 4, 4, 300, 300, True, None, 1.0, False),     # 12 q tiles, < 132
     (2, 28, 4, 2048, 2048, True, None, 1.0, False),  # 896 q tiles, >> 132
     (1, 32, 8, 1100, 1100, True, None, 8.0, True),   # the max moves late
+    (1, 32, 8, 1100, 1100, True, 700, 1.0, True),    # h2o-danube's heads
     (1, 4, 4, 200, 0, True, None, 1.0, False),       # no key at all
 ])
 def test_flash_attention_tma_design_edges(cuda, d, b, h, kv, sq, skv, causal,
                                           window, qscale, late):
-    """The bf16 design at D = 64 and 128 (TMA tiles, a persistent grid of
-    one block an SM): against the plain version at the bf16 tolerance,
-    rows that see no key exactly 0.  `late`: the last 37 keys are scaled
-    by 4, so each row's max arrives in its last kv tile."""
+    """The bf16 design at D = 64, 80 and 128 (TMA tiles, a persistent grid
+    of one block an SM; at D = 80 a 16-column tail in the 32-byte
+    swizzle): against the plain version at the bf16 tolerance, rows that
+    see no key exactly 0.  `late`: the last 37 keys are scaled by 4, so
+    each row's max arrives in its last kv tile.  At D = 80 the GQA 32/8
+    case with window 700 is h2o-danube-1.8b's heads."""
     dt = torch.bfloat16
     q = _t(cuda, 1, b, h, sq, d, scale=qscale).to(dt)
     k = _t(cuda, 2, b, kv, skv, d)
@@ -795,10 +798,10 @@ def test_flash_attention_tma_design_edges(cuda, d, b, h, kv, sq, skv, causal,
                                **_TOL[dt])
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_attention_tma_design_launches_once_or_raises(cuda, d):
-    """A bf16 call at D = 64 / 128 is one launch of the TMA design and of
-    no other (as the C library records the kernel it launched); a call
+    """A bf16 call at D = 64 / 80 / 128 is one launch of the TMA design and
+    of no other (as the C library records the kernel it launched); a call
     whose tensor maps cannot be encoded (q 2 bytes past a 16-byte
     boundary, which only the C entry point can be handed: the wrapper
     refuses it first) returns the error and launches nothing in its
@@ -807,7 +810,7 @@ def test_flash_attention_tma_design_launches_once_or_raises(cuda, d):
     dt = torch.bfloat16
     q = _t(cuda, 1, 1, 4, 300, d).to(dt)
     k, v = _t(cuda, 2, 1, 4, 300, d).to(dt), _t(cuda, 3, 1, 4, 300, d).to(dt)
-    assert (tfa.design(d, dt), tfa.design(80, dt),
+    assert (tfa.design(d, dt), tfa.design(96, dt),
             tfa.design(d, torch.float32)) == ("bf16 tma", "bf16 cp.async",
                                               "fp32")
     ops.reset_launch_counts()

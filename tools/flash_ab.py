@@ -1,8 +1,8 @@
 """Compare this checkout's bf16 LM prefill path with another checkout's on
 one card: the flash_attention kernel at chip_smoke.py's timed shapes, and
-the prefills of chip_smoke.py's phases 12 (qwen2-moe-a2.7b), 20
-(qwen2-vl-7b) and 21(a) (musicgen-medium), their wall and device-busy
-times.
+the prefills of chip_smoke.py's phases 8 (h2o-danube-1.8b), 12
+(qwen2-moe-a2.7b), 20 (qwen2-vl-7b) and 21(a) (musicgen-medium), their
+wall and device-busy times.
 
     python3 tools/flash_ab.py [--before DIR] [--rounds 2] [--sass]
                               [--out FILE]
@@ -12,7 +12,10 @@ in a directory that .gitignore lists).  Each run is a process of its own
 that imports its tree's chip_smoke.py, so each tree runs its own kernels
 (built into its own build/) under its own harness: `lm_timing_phase` at
 LM_FLASH_TIMED + LM3_FLASH_TIMED (flash only: kernel, plain, SDPA and
-bound), `lm_serve_phase` and `lm_profile` for MOE_ARCH, and
+bound; SDPA with the band mask and, where the tree's harness has it,
+with `is_causal`), `lm_serve_phase` and `lm_profile` for LM_ARCH (every
+bucket's prefill wall time, the 6144 bucket's included, and the busy
+time of a 1-row 2048-token prefill) and MOE_ARCH, and
 `embed_model_phase` for VLM_ARCH and AUDIO_ARCH, which hold their tokens
 and logits to their own checks and fail the run otherwise.  The runs
 alternate: before, after, after, before, ... (`--rounds` of each).  The
@@ -94,22 +97,29 @@ def child(tree: pathlib.Path) -> None:
     timing = cs.lm_timing_phase(dev, [*cs.LM_FLASH_TIMED,
                                       *cs.LM3_FLASH_TIMED], (), (),
                                 tag="ab timing")["flash_attention"]
-    res = {"flash_us": {k: r["ms"] * 1e3 for k, r in timing.items()},
-           "sdpa_us": {k: None if r["library_ms"] is None
-                       else r["library_ms"] * 1e3
-                       for k, r in timing.items()}}
-    cfg = get_config(cs.MOE_ARCH)
-    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(cs.SEED))
-    sv = cs.lm_serve_phase(dev, cfg, params, cs.MOE_PROMPTS, cs.MOE_BUCKETS,
-                           tag="moe serve")
-    prof = cs.lm_profile(sv.pop("engine"), dev, cfg.vocab_size,
-                         sv["prefill_ms"]["B=1 S=2048"], sv["decode_step_ms"],
-                         tag="moe bf16")
-    res["moe"] = {"prefill_ms": sv["prefill_ms"],
-                  "decode_step_ms": sv["decode_step_ms"],
-                  "busy_ms": {k: p["device_busy_ms"] for k, p in prof.items()}}
-    del sv, prof, params
-    torch.cuda.empty_cache()
+    def us(ms):
+        return None if ms is None else ms * 1e3
+    res = {"flash_us": {k: us(r["ms"]) for k, r in timing.items()},
+           "sdpa_us": {k: us(r["library_ms"]) for k, r in timing.items()},
+           "sdpa_causal_us": {k: us(r.get("library_causal_ms"))
+                              for k, r in timing.items()}}
+    for arch, prompts, buckets, tag in (
+            (cs.LM_ARCH, cs.LM_PROMPTS, cs.LM_BUCKETS, "h2o"),
+            (cs.MOE_ARCH, cs.MOE_PROMPTS, cs.MOE_BUCKETS, "moe")):
+        cfg = get_config(arch)
+        params = LM(cfg).init(
+            torch.Generator(device=dev).manual_seed(cs.SEED))
+        sv = cs.lm_serve_phase(dev, cfg, params, prompts, buckets,
+                               tag=f"{tag} serve")
+        prof = cs.lm_profile(sv.pop("engine"), dev, cfg.vocab_size,
+                             sv["prefill_ms"]["B=1 S=2048"],
+                             sv["decode_step_ms"], tag=f"{tag} bf16")
+        res[tag] = {"prefill_ms": sv["prefill_ms"],
+                    "decode_step_ms": sv["decode_step_ms"],
+                    "busy_ms": {k: p["device_busy_ms"]
+                                for k, p in prof.items()}}
+        del sv, prof, params
+        torch.cuda.empty_cache()
     for arch, tag in ((cs.VLM_ARCH, "vlm"), (cs.AUDIO_ARCH, "audio")):
         out = cs.embed_model_phase(dev, arch, tag)
         res[tag] = {"prefill_ms": out["prefill_ms"],
@@ -149,7 +159,9 @@ def main() -> None:
                            cwd=trees[name])
         print(f"[{name}] rc {p.returncode}\n" + "\n".join(
             ln for ln in p.stdout.splitlines()
-            if ln.startswith(("[ab timing]", "[moe serve] prefill",
+            if ln.startswith(("[ab timing]", "[h2o serve] prefill",
+                              "[h2o serve] decode", "[profile] h2o bf16 1",
+                              "[moe serve] prefill",
                               "[moe serve] decode", "[profile] moe bf16 1",
                               "[vlm] qwen", "[audio] music",
                               "[profile] vlm 2", "[profile] audio 2"))),
